@@ -1,0 +1,70 @@
+"""energybalancemodel_jl_tpu_torch — the PyTorch/CUDA port of
+``energybalancemodel_jl_tpu``.
+
+The MIZ (marginal-ice-zone) energy balance model, forward only, integrated
+one model year per launch of a hand-written CUDA kernel
+(``csrc/miz_year.cu``) on an NVIDIA GPU, or by an eager PyTorch loop over the
+physics step on any device. Module names and array layouts follow the JAX
+package, which stays the reference the port is tested against::
+
+    import energybalancemodel_jl_tpu_torch as ebt
+
+    st = ebt.SpaceTime.sin(180, 2000, 30)
+    par = ebt.default_parameters("MIZ")
+    sols = ebt.integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
+                         dtype="float32", device="cuda")
+
+    par["D"] = np.linspace(0.55, 0.65, 8192)
+    ens = ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par,
+                                 ebt.zeros_init(st), device="cuda")
+
+The package imports ``torch`` and numpy only, never ``jax``.
+"""
+from __future__ import annotations
+
+import numpy as _np
+
+from .convert import from_numpy, to_numpy
+from .forcing import Forcing
+from .integrate import integrate
+from .parallel.ensemble import (EnsembleSolutions, batched_parameters,
+                                ensemble_integrate, sweep)
+from .params import classic_paramset, default_parameters, default_parval, miz_paramset
+from .solutions import Seasonal, Solutions, annual_mean
+from .spacetime import SpaceTime
+from .utils import Collection, Progress, update
+
+
+def zeros_init(st, model: str = "MIZ") -> Collection:
+    """All-zero initial conditions for ``model`` on grid ``st`` — the
+    canonical test configuration (EnergyBalanceModel.jl
+    ``test/runtests.jl:25-31``)."""
+    from .models.base import get_model
+
+    return Collection({v: _np.zeros(st.nx) for v in get_model(model).init_vars})
+
+
+__all__ = [
+    "Collection",
+    "SpaceTime",
+    "Forcing",
+    "Solutions",
+    "Seasonal",
+    "integrate",
+    "ensemble_integrate",
+    "sweep",
+    "batched_parameters",
+    "EnsembleSolutions",
+    "default_parameters",
+    "default_parval",
+    "miz_paramset",
+    "classic_paramset",
+    "annual_mean",
+    "Progress",
+    "update",
+    "zeros_init",
+    "from_numpy",
+    "to_numpy",
+]
+
+__version__ = "0.1.0"

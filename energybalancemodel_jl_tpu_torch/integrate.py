@@ -1,0 +1,275 @@
+"""``integrate`` — THE entry point.
+
+Rebuild of ``integrate`` (EnergyBalanceModel.jl
+``src/infrastructure.jl:615-636``), ported from the JAX package's
+``integrate.py``. A host loop over years drives either
+
+- ``engine='scan'``: an eager Python loop over ``models.miz.step`` (the
+  parity path, any device), or
+- ``engine='fused'``: one launch per year of the whole-year kernel
+  (:func:`.ops.miz_year.miz_year`; on a CPU tensor its plain version),
+  raw-collected years included.
+
+``'auto'`` (default) picks ``'fused'`` for MIZ on a CUDA device, in float32
+and float64 alike, and ``'scan'`` on the CPU. On a CUDA device it never
+falls back to the eager loop: a run the kernel cannot take raises.
+
+Not ported yet: the ``debug`` hook, sub-year progress ticks, checkpoints
+(ROADMAP Queue 1 M9) and profiler traces; those arguments raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .convert import to_numpy
+from .forcing import Forcing
+from .models.base import StepConfig, default_step_config, dtype_name, get_model
+from .ops.miz_year import check_fused, miz_year
+from .solutions import Seasonal, Solutions
+from .spacetime import SpaceTime
+from .utils.collection import Collection
+from .utils.progress import Progress
+
+__all__ = ["integrate", "make_year_fn", "resolve_engine", "resolve_dtype",
+           "resolve_device"]
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    """``None`` -> float32 (the throughput config); accepts a torch dtype or
+    anything numpy names (``'float64'``, ``np.float64``)."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` -> the CPU. There is no implicit device: a run goes to a GPU
+    only when ``device`` names one."""
+    return torch.device("cpu" if device is None else device)
+
+
+def resolve_engine(model: str, st: SpaceTime, device, engine: str = "auto",
+                   solver: str = "pcr") -> str:
+    """The single-run engine that :func:`integrate` uses: ``'auto'`` is
+    ``'fused'`` for MIZ on a CUDA device and ``'scan'`` on the CPU. A fused
+    run the kernel cannot take (:func:`.ops.miz_year.check_fused`) raises
+    ``ValueError``; ``engine='scan'`` stays the caller's explicit choice."""
+    spec = get_model(model)
+    device = resolve_device(device)
+    if engine == "auto":
+        engine = "fused" if device.type == "cuda" and spec.name == "MIZ" else "scan"
+    if engine not in ("scan", "fused"):
+        raise ValueError(
+            f"unknown engine {engine!r}; expected 'auto', 'scan' or 'fused'"
+        )
+    if engine == "fused":
+        check_fused(spec.name, st.nx, device, solver, alternative="scan")
+    return engine
+
+
+def _as_tensor(v, dtype, device):
+    return torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
+                           dtype=dtype, device=device)
+
+
+def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
+                 collect_raw: bool):
+    """The one-year function ``(carry, par, fyear) -> (carry, seasonal,
+    converged, raw_or_None)`` of the scan and batched engines, and the plain
+    version of the whole-year kernel: an eager loop over the model's step.
+
+    The carry's leaves share one dtype and device, and the year runs there;
+    ``par`` leaves are tensors on that device (scalars, or ``(K, 1)``
+    columns for a batch of members, table parameters included); ``fyear`` is
+    ``(nt,)`` or, per member, ``(nt, K, 1)``. Seasonal storage accumulates as the JAX package's
+    seasonal-only mode does (step 0's outputs seed the annual sums, winter/
+    summer snapshots at the tick indices, ``sum / nt``); ``collect_raw``
+    additionally stacks every step's outputs along a leading time axis.
+    ``converged`` is the minimum of the per-step Newton flags.
+    """
+    spec = get_model(model_name)
+    w0 = st.winter_inx - 1  # reference tick indices are 1-based (:573-589)
+    s0 = st.summer_inx - 1
+
+    def year_fn(carry, par, fyear):
+        ref = next(iter(carry.values()))
+        stat = spec.statics(st, par, ref.dtype, ref.device)
+        f = _as_tensor(fyear, ref.dtype, ref.device)
+        raw = [] if collect_raw else None
+        acc = wint = summ = conv = None
+        for t in range(st.nt):
+            carry, out = spec.step(carry, spec.step_inputs(stat, f, t), stat,
+                                   par, cfg)
+            out = Collection(out)
+            step_conv = out.pop("newton_converged", None)
+            if step_conv is not None:
+                conv = step_conv if conv is None else torch.minimum(conv, step_conv)
+            acc = out if acc is None else Collection({k: acc[k] + out[k] for k in acc})
+            if t == w0:
+                wint = out
+            if t == s0:
+                summ = out
+            if raw is not None:
+                raw.append(out)
+        nt = torch.as_tensor(float(st.nt), dtype=ref.dtype, device=ref.device)
+        seasonal = Seasonal(
+            winter=wint,
+            summer=summ,
+            avg=Collection({k: v / nt for k, v in acc.items()}),  # true division
+        )
+        ys = None
+        if raw is not None:
+            ys = Collection({k: torch.stack([o[k] for o in raw]) for k in raw[0]})
+        return carry, seasonal, conv, ys
+
+    return year_fn
+
+
+def _fused_single_year(carry, par, fyear, st, cfg, collect_raw):
+    """A single run as a 1-member ensemble through the whole-year kernel."""
+    c1 = Collection({k: v[None] for k, v in carry.items()})
+    c1, seas, conv, raw = miz_year(c1, par, fyear, st, cfg, collect_raw=collect_raw)
+    squeeze = lambda coll: Collection({k: v[0] for k, v in coll.items()})
+    if raw is not None:  # (nt, 1, nx) -> (nt, nx)
+        raw = Collection({k: v[:, 0] for k, v in raw.items()})
+    return (squeeze(c1),
+            Seasonal(*(squeeze(coll) for coll in seas)), conv, raw)
+
+
+def integrate(
+    model: str,
+    st: SpaceTime,
+    forcing: Forcing,
+    par: Collection,
+    init: Collection,
+    lastonly: bool = True,
+    debug: Optional[Callable] = None,
+    verbose: bool = False,
+    dtype=None,
+    device=None,
+    solver: str = "pcr",
+    engine: str = "auto",
+    years_per_dispatch: Optional[int] = None,
+    raw_mode: Optional[str] = None,
+    progress: Optional[bool] = None,
+    progress_steps: Optional[int] = None,
+    newton_max_iter: int = 30,
+    checkpoint: Optional[str] = None,
+    checkpoint_every: int = 1,
+    resume: bool = False,
+    profile_dir: Optional[str] = None,
+) -> Solutions:
+    """Integrate ``model`` over ``st`` with climate ``forcing``, parameters
+    ``par`` and initial conditions ``init``; results in a :class:`Solutions`
+    of numpy arrays.
+
+    ``model`` is ``'MIZ'`` (initial conditions ``Ei, Ew, h, D, phi``).
+    ``lastonly=True`` stores per-step raw data only for the final year;
+    ``raw_mode`` ('last' | 'all' | 'none') overrides it. ``verbose=True``
+    warns when the surface-temperature solve fails to converge in a year.
+    ``dtype`` defaults to float32; ``device`` to the CPU. ``solver`` selects
+    the tridiagonal solver: ``'pcr'``, or ``'thomas'`` on the scan engine
+    (the fused kernel runs PCR).
+
+    ``engine``: see :func:`resolve_engine`. ``years_per_dispatch`` is
+    accepted for compatibility with the JAX package and does nothing: each
+    year is its own launch, queued without a host round trip.
+    """
+    for name, value in (("debug", debug), ("progress_steps", progress_steps),
+                        ("profile_dir", profile_dir)):
+        if value is not None:
+            raise NotImplementedError(
+                f"integrate({name}=...) is not ported yet (ROADMAP Queue 1 M9 "
+                "and later)"
+            )
+    if checkpoint is not None or resume:
+        raise NotImplementedError(
+            "checkpoints are not ported yet (ROADMAP Queue 1 M9)"
+        )
+    spec = get_model(model)
+    dtype = resolve_dtype(dtype)
+    device = resolve_device(device)
+    missing = [v for v in spec.init_vars if v not in init]
+    if missing:
+        raise ValueError(f"init for model {spec.name!r} is missing {missing}")
+    if raw_mode is None:
+        raw_mode = "last" if lastonly else "all"
+    if raw_mode not in ("last", "all", "none"):
+        raise ValueError(f"raw_mode must be 'last'|'all'|'none', got {raw_mode!r}")
+    engine = resolve_engine(spec.name, st, device, engine, solver)
+    if years_per_dispatch is not None and int(years_per_dispatch) < 1:
+        raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
+
+    cfg = default_step_config(dtype_name(dtype), solver=solver,
+                              newton_max_iter=newton_max_iter)
+    year_seasonal = make_year_fn(spec.name, st, cfg, False)
+    year_full = make_year_fn(spec.name, st, cfg, True)
+
+    f_tab = forcing.table(st)
+    par_t = Collection({k: _as_tensor(v, dtype, device) for k, v in par.items()})
+    carry = spec.init_carry(init, st, dtype, device)
+
+    prog = Progress(
+        st.dur * st.nt,
+        "Integrating",
+        infofeed=lambda t: f"t = {round(t, 2)}",
+    ) if (progress is None or progress) else None
+
+    raw_chunks = []
+    winter_acc, summer_acc, avg_acc = [], [], []
+    for y in range(st.dur):
+        collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
+        if engine == "fused":
+            carry, seasonal, converged, ys = _fused_single_year(
+                carry, par_t, f_tab[y], st, cfg, collect)
+        else:
+            fn = year_full if collect else year_seasonal
+            carry, seasonal, converged, ys = fn(carry, par_t, f_tab[y])
+        winter_acc.append(seasonal.winter)
+        summer_acc.append(seasonal.summer)
+        avg_acc.append(seasonal.avg)
+        if collect:
+            raw_chunks.append(ys)
+        if verbose and converged is not None and float(converged) < 1.0:
+            warnings.warn(f"Solving for T0 failed in year {y + 1}.")
+        if prog is not None:
+            prog.update((y + 1) * st.nt, feedargs=(float(st.T[(y + 1) * st.nt - 1]),))
+
+    varnames = list(spec.solution_vars)
+    if raw_chunks:
+        raw = Collection(
+            {k: to_numpy(torch.cat([c[k] for c in raw_chunks], dim=0))
+             for k in varnames}
+        )
+    else:
+        raw = Collection({k: np.zeros((0, st.nx)) for k in varnames})
+
+    def stack(acc):
+        return Collection(
+            {k: to_numpy(torch.stack([c[k] for c in acc], dim=0)) for k in varnames}
+        )
+
+    seasonal_store = Seasonal(winter=stack(winter_acc), summer=stack(summer_acc),
+                              avg=stack(avg_acc))
+    ts = Solutions.stored_times(st, raw_mode != "all")
+    if raw_mode == "none":
+        ts = np.zeros((0,))
+
+    return Solutions(
+        spacetime=st,
+        ts=ts,
+        forcing=forcing,
+        parameters=Collection(par),
+        initconds=Collection({k: np.asarray(v) for k, v in init.items()}),
+        lastonly=lastonly,
+        debug=None,
+        raw=raw,
+        seasonal=seasonal_store,
+    )

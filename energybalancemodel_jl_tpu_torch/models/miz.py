@@ -1,0 +1,280 @@
+"""Extended EBM with a Marginal Ice Zone (MIZ), forward only.
+
+Port of the JAX package's ``models/miz.py`` (itself a rebuild of
+EnergyBalanceModel.jl ``src/miz.jl``): separate ice/water enthalpies
+``Ei, Ew``, ice concentration ``phi``, floe size ``D``, floe number ``n``,
+ice thickness ``h``, lateral melt/growth, pancake-ice formation, floe
+welding, and a per-step nonlinear solve for the ice surface temperature by
+warm-started Newton with an analytic tridiagonal Jacobian.
+
+Reference quirks reproduced deliberately (JAX ``models/miz.py:14-24``):
+
+- ``D_t``'s lateral-melt term is ``-(pi/2)*alpha*wlat`` — Julia operator
+  precedence in ``-pi / 2.0*par.alpha * wlat`` (reference :141).
+- ``wlat = m1*(Tw - Tm^m2)`` — the exponent binds to ``Tm`` only (:71);
+  ``Tm^m2`` is hoisted into the statics as ``Tm_pow_m2``.
+- NaNs are presentation-only: ``Ti``/``Tw`` are NaN-masked at the *end* of a
+  step for storage (:193-194) and ``Tw`` NaNs are zeroed at the start of the
+  next (:157). The carry stays NaN-free.
+- ``n`` stored per step is computed from the *pre-update* ``D`` and ``phi``
+  (:160).
+
+The implicit-function VJP of the Newton root (JAX ``:128-190``) is not
+ported yet (ROADMAP M10), nor the stand-alone Newton kernel
+(``solver='pallas'``, K10).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops.diffusion import diffusion_bands, neighbor_cells
+from ..ops.newton import newton_tridiag
+from ..utils.collection import Collection
+from .base import ModelSpec, StepConfig, register_model
+
+__all__ = ["MIZ", "insolation"]
+
+
+def statics(st, par, dtype, device):
+    """Per-run precompute: the factors of the insolation rows, water
+    coalbedo, stencil bands (geometry is parameter-free; diffusivity ``D``
+    multiplies at use). Table parameters (``S0, S1, S2, a0, a2``) may be
+    scalars or ``(K, 1)`` per-member columns; the insolation row of a step is
+    built at use (:func:`insolation`), so a swept table parameter costs no
+    ``(nt, K, nx)`` table."""
+    x = torch.as_tensor(st.x, dtype=dtype, device=device)
+    x2 = x * x
+    # cos(2 pi t) is built on the host, as the kernel's table is: a device's
+    # cos may round differently
+    t = torch.as_tensor(st.t, dtype=dtype)
+    geom = diffusion_bands(st)
+    band = lambda b: torch.as_tensor(b, dtype=dtype, device=device)
+    return Collection(
+        S0=par["S0"],
+        S1x=par["S1"] * x,
+        S2x2=par["S2"] * x2,
+        cosv=torch.cos(2.0 * math.pi * t).to(device),
+        aw=par["a0"] - par["a2"] * x2,  # water coalbedo (:14)
+        glo=band(geom.lo),
+        gdi=band(geom.di),
+        gup=band(geom.up),
+        # a tensor on the run's device: ``psiEwdt / dt`` is then a true
+        # division everywhere (PyTorch's CUDA division by a Python scalar
+        # multiplies by its reciprocal, which rounds differently)
+        dt=torch.as_tensor(st.dt, dtype=dtype, device=device),
+        # scalar Tm^m2 of ``wlat`` (:71) hoisted out of the step
+        Tm_pow_m2=par["Tm"] ** par["m2"],
+    )
+
+
+def insolation(stat, t: int):
+    """The insolation bracket of step ``t``, shared by ice and water solar
+    terms (reference :11,14): ``(S0 - (S1 x) cos(2 pi t)) - S2 x^2``, the
+    same products in the same order as the JAX package's table."""
+    return (stat.S0 - stat.S1x * stat.cosv[t]) - stat.S2x2
+
+
+def init_carry(init, st, dtype, device):
+    """Step carry: the five prognostic fields plus the Newton warm start
+    ``T0`` (reference ``@persistent T0`` zeros, ``src/miz.jl:47-53``)."""
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    return Collection(
+        Ei=t(init["Ei"]),
+        Ew=t(init["Ew"]),
+        h=t(init["h"]),
+        D=t(init["D"]),
+        phi=t(init["phi"]),
+        T0=torch.zeros(st.nx, dtype=dtype, device=device),
+    )
+
+
+def step_inputs(stat, fyear, t: int):
+    """The inputs of step ``t``: its insolation row and forcing ``fyear[t]``."""
+    return dict(insol=insolation(stat, t), f=fyear[t])
+
+
+def _dstencil(stat, par, v):
+    """``D∇²v`` via the precomputed bands (reference ``diffusion!``,
+    ``src/infrastructure.jl:505-527``)."""
+    vm1, vp1 = neighbor_cells(v)
+    return par["D"] * (stat.glo * vm1 + stat.gdi * v + stat.gup * vp1)
+
+
+def _t0_residual(T0, args, axis=-1):
+    """The ``T0eq`` residual (reference ``src/miz.jl:33-45``)."""
+    insol, hp, Tw, phi, f, glo, gdi, gup, k, Tm, A, B, ai, D = args
+    Ti = torch.minimum(T0, Tm)
+    Tb = Ti * phi + (1.0 - phi) * Tw
+    r = k * (Tm - T0) / hp
+    r = r + ai * insol
+    r = r + ((-A) - B * (T0 - Tm))
+    Tbm1, Tbp1 = neighbor_cells(Tb, axis)
+    r = r + D * (glo * Tbm1 + gdi * Tb + gup * Tbp1)
+    r = r + f
+    return r
+
+
+def _t0_bands(T0, args, axis=-1):
+    """Analytic tridiagonal Jacobian bands of :func:`_t0_residual`."""
+    insol, hp, Tw, phi, f, glo, gdi, gup, k, Tm, A, B, ai, D = args
+    g = phi * (T0 < Tm).to(T0.dtype)
+    gm1, gp1 = neighbor_cells(g, axis)
+    jlo = D * glo * gm1
+    jdi = -k / hp - B + D * gdi * g
+    jup = D * gup * gp1
+    return jlo, jdi, jup
+
+
+def solve_T0(T0_warm, insol, h, Tw, phi, f, stat, par, cfg: StepConfig):
+    """Ice surface temperature from the single-column energy balance
+    (reference ``solveTi``'s inner solve, ``src/miz.jl:47-64``)::
+
+        k (Tm - T0)/h + ai S(x,t) - A - B (T0 - Tm)
+          + D∇²( phi min(T0,Tm) + (1-phi) Tw ) + f
+
+    with ``h -> hmin`` where ``h == 0`` (:51), solved by warm-started Newton.
+    Returns ``(T0, converged, iterations)``.
+    """
+    if cfg.solver == "pallas":
+        raise ValueError(
+            "solver='pallas' (the stand-alone Newton kernel) is not ported "
+            "yet: ROADMAP Queue 1 M13 / Queue 2 K10; use 'pcr'"
+        )
+    hp = torch.where(h == 0.0, par["hmin"], h)
+    args = (
+        insol, hp, Tw, phi, f, stat.glo, stat.gdi, stat.gup,
+        par["k"], par["Tm"], par["A"], par["B"], par["ai"], par["D"],
+    )
+    return newton_tridiag(
+        lambda T0: (_t0_residual(T0, args), _t0_bands(T0, args)),
+        T0_warm,
+        abstol=cfg.newton_abstol,
+        reltol=cfg.newton_reltol,
+        max_iter=cfg.newton_max_iter,
+        method=cfg.solver,
+        max_step=cfg.newton_max_step,
+    )
+
+
+def step(carry, xs, stat, par, cfg: StepConfig):
+    """One MIZ step (rebuild of ``step!(::Val{:MIZ})``,
+    ``src/miz.jl:150-196``, preserving the reference's exact update order
+    and masking semantics; line-for-line the JAX package's ``miz.step``)."""
+    Ei, Ew, h, Df, phi = carry["Ei"], carry["Ew"], carry["h"], carry["D"], carry["phi"]
+    insol, f = xs["insol"], xs["f"]
+    dt = stat.dt
+    Tm = par["Tm"]
+    where = torch.where
+
+    # -- temperatures (:156-158) ---------------------------------------
+    # water_temp (:30) with a guarded denominator: a lane with phi == 1 and
+    # Ew > 0 would give +inf and cascade to NaN through Tbar's 0*inf (only
+    # reachable by float32 rounding); the guard is exact everywhere else
+    den = (1.0 - phi) * par["cw"]
+    zden = den == 0.0
+    Tw = Tm + where(zden, 0.0, Ew / where(zden, 1.0, den))
+    Tw = where(torch.isnan(Tw), 0.0, Tw)  # condset!(Tw, 0, isnan) (:157)
+    T0, converged, _ = solve_T0(carry["T0"], insol, h, Tw, phi, f, stat, par, cfg)
+    Ti = torch.minimum(T0, Tm)  # ice_temp (:31,65)
+    Ti = where(h == 0.0, 0.0, Ti)  # zeroref!(Ti, h) (:66)
+
+    # -- floe number from pre-update D, phi (:160, num :83-87) ---------
+    # masked divisions guard the denominator with the same mask that
+    # discards the lane, so the kept lanes are bitwise compute-then-mask
+    zeroD = Df == 0.0
+    n = phi / where(zeroD, 1.0, par["alpha"] * (Df * Df))
+    n = where(zeroD, 0.0, n)
+
+    # -- fluxes (:162-164) ---------------------------------------------
+    Tb = Ti * phi + (1.0 - phi) * Tw  # Tbar (:21-28)
+    L = par["A"] + par["B"] * (Tb - Tm)  # OLR (:99)
+    dTb = _dstencil(stat, par, Tb)
+    Fvi = par["ai"] * insol - L + dTb + par["Fb"] + f  # vert_flux ice (:96-101)
+    Fvw = stat.aw * insol - L + dTb + par["Fb"] + f  # vert_flux water
+    wl = par["m1"] * (Tw - stat["Tm_pow_m2"])  # wlat (:71) — exponent binds to Tm
+    Flat = phi * h * par["Lf"] * wl * math.pi / where(zeroD, 1.0, par["alpha"] * Df)  # lat_flux (:103-107)
+    Flat = where(zeroD, 0.0, Flat)
+
+    # -- enthalpy forward Euler + redistribution (:166-170, :109-117) --
+    rEi = Ei + (phi * Fvi + Flat) * dt  # Ei_t (:137)
+    rEw = Ew + ((1.0 - phi) * Fvw - Flat) * dt  # Ew_t (:138)
+    cEi = torch.clamp(rEi, max=0.0)  # clamp(rEi, -Inf, 0)
+    cEw = torch.clamp(rEw, min=0.0)  # clamp(rEw, 0, Inf)
+    psiEidt = rEi - cEi  # >= 0
+    psiEwdt = rEw - cEw  # <= 0
+    Ei1 = cEi + psiEwdt
+    Ew1 = cEw + psiEidt
+
+    # -- floe size/thickness updates (:172-181) ------------------------
+    Drl = Df + 2.0 * par["rl"]
+    ring = par["alpha"] * n * (Drl * Drl - Df * Df)  # area_lead (:90-93)
+    Al = torch.minimum(ring, 1.0 - phi)
+    psiEw = psiEwdt / dt
+    phi_one = phi == 1.0
+    Ql = Al / where(phi_one, 1.0, 1.0 - phi) * psiEw  # split_psiEw (:120-125)
+    Ql = where(phi_one, 0.0, Ql)  # condset!(Ql, 0, isone, phi)
+    Qp = psiEw - Ql
+    dn = dt * (-Qp / (par["Lf"] * par["alpha"] * (par["Dmin"] * par["Dmin"]) * par["hmin"]))  # psinplus (:127)
+
+    # D_t (:140-146) — the reference's operator-precedence quirk:
+    # lat_melt = ((-pi)/2.0*alpha)*wlat = -(pi/2) alpha wlat
+    lat_melt = -math.pi / 2.0 * par["alpha"] * wl
+    # guard on the full denominator (h or phi zero): such lanes are always
+    # rescued by the zeroref(D, Ei) below — final outputs unchanged
+    lg_den = 2.0 * par["Lf"] * h * phi
+    zlg = lg_den == 0.0
+    lat_grow = -Df / where(zlg, 1.0, lg_den) * Ql
+    lat_grow = where(zlg, 0.0, lat_grow)
+    lat_grow = where(h == 0.0, 0.0, lat_grow)  # zeroref!(lat_grow, h) (:144)
+    weld = par["kappa"] * par["alpha"] / 4.0 * phi * (Df * (Df * Df))
+    rD = Df + (lat_melt + lat_grow + weld) * dt
+    total = n + dn
+    zero_total = total == 0.0
+    D1 = (n * rD + dn * par["Dmin"]) / where(zero_total, 1.0, total)  # average new pancakes (:129-134,176)
+    D1 = where(zero_total, 0.0, D1)
+    D1 = torch.minimum(torch.maximum(D1, par["Dmin"]), par["Dmax"])  # clamp (:177)
+    D1 = where(Ei1 == 0.0, 0.0, D1)  # zeroref!(D, Ei) (:178)
+
+    rh = h + (-1.0 / par["Lf"] * Fvi) * dt  # h_t (:139,179)
+    rh = torch.clamp(rh, min=0.0)  # clamp!(rh, 0, Inf) (:180)
+    h1 = (n * rh + dn * par["hmin"]) / where(zero_total, 1.0, total)  # (:181)
+    h1 = where(zero_total, 0.0, h1)
+
+    # -- concentration (:183, concentration :74-80) --------------------
+    zero_h1 = h1 == 0.0
+    phi1 = -Ei1 / where(zero_h1, 1.0, par["Lf"] * h1)
+    phi1 = where(zero_h1, 0.0, phi1)
+    phi1 = where(phi1 > 1.0, 1.0, phi1)
+
+    # -- totals (:185-187) ---------------------------------------------
+    Ei1 = where(h1 == 0.0, 0.0, Ei1)  # zeroref!(Ei, h)
+    E = phi1 * Ei1 + (1.0 - phi1) * Ew1
+    T = Ti * phi1 + (1.0 - phi1) * Tw  # Tbar(Ti, Tw, phi) with updated phi
+
+    # -- NaN masking for storage only (:193-194) -----------------------
+    Ti_out = where(Ei1 == 0.0, math.nan, Ti)
+    Tw_out = where(phi1 > 0.99, math.nan, Tw)
+
+    carry = Collection(Ei=Ei1, Ew=Ew1, h=h1, D=D1, phi=phi1, T0=T0)
+    out = Collection(
+        E=E, T=T, h=h1, Ei=Ei1, Ew=Ew1, Ti=Ti_out, Tw=Tw_out, D=D1, phi=phi1, n=n,
+        # float (1.0 = all converged), min over the batch
+        newton_converged=torch.amin(converged.to(Ei.dtype)),
+    )
+    return carry, out
+
+
+MIZ = register_model(
+    ModelSpec(
+        name="MIZ",
+        statics=statics,
+        init_carry=init_carry,
+        step=step,
+        step_inputs=step_inputs,
+        solution_vars=("E", "T", "h", "Ei", "Ew", "Ti", "Tw", "D", "phi", "n"),
+        presentation_nan_vars=("Ti", "Tw"),
+        init_vars=("Ei", "Ew", "h", "D", "phi"),
+    )
+)

@@ -1,0 +1,229 @@
+"""Fused whole-year MIZ integration: the wrapper of the CUDA kernel
+``csrc/miz_year.cu`` and its plain PyTorch version.
+
+Port of the JAX package's ``ops/pallas_year.py::pallas_miz_year`` (its 'xk'
+launcher ``_miz_year_xk`` and its 'kx' branch): one call runs all ``nt``
+steps of a model year for a ``(K, nx)`` ensemble, with the warm-started
+Newton solve and the PCR tridiagonal solves inside, and builds the seasonal
+store (winter/summer snapshots at the tick indices, annual sums divided by
+``nt`` at the end) as it goes; on request it also stores every step's
+outputs (a raw-collected year).
+
+:func:`miz_year` dispatches on the device of the carry: a CUDA tensor
+launches the kernel (or raises), a CPU tensor runs the plain version
+:func:`miz_year_reference` — the port's analogue of the JAX package's
+interpret mode off-TPU. The plain version is the scan engine's year loop
+(:func:`..integrate.make_year_fn`) on per-member parameter columns. Every
+physical or table parameter may be ``(K,)``-swept, as in the 'xk' layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..models.base import StepConfig
+from ..solutions import Seasonal
+from ..utils.collection import Collection
+from . import _build
+from .diffusion import diffusion_bands
+
+__all__ = ["miz_year", "miz_year_reference", "member_params", "check_fused",
+           "MAX_NX", "CARRY_KEYS", "OUT_VARS", "PAR_NAMES", "XK_TABLE_ROWS",
+           "ROW_NAMES"]
+
+# carry fields of the MIZ model (models/miz.py init_carry)
+CARRY_KEYS = ("Ei", "Ew", "h", "D", "phi", "T0")
+# recorded solution variables, in ModelSpec order
+OUT_VARS = ("E", "T", "h", "Ei", "Ew", "Ti", "Tw", "D", "phi", "n")
+# physical parameters the step reads, one column each of the member stack
+PAR_NAMES = (
+    "k", "Tm", "A", "B", "ai", "Fb", "cw", "m1",
+    "Lf", "alpha", "rl", "Dmin", "Dmax", "hmin", "kappa", "D",
+)
+# parameters of the insolation/coalbedo rebuild (S0 - (S1 x) cos) - S2 x^2
+# and a0 - a2 x^2
+XK_TABLE_ROWS = ("S0", "S1", "S2", "a0", "a2")
+# the (K, 23) stack: PAR_NAMES, the hoisted Tm^m2, the virtual "F" forcing
+# offset, then the table parameters (JAX pallas_year.py:102-119, :901-908)
+ROW_NAMES = PAR_NAMES + ("Tm_pow_m2", "F") + XK_TABLE_ROWS
+# the kernel runs one grid cell per thread of a block
+MAX_NX = 1024
+
+
+def _member_columns(par, K: int, dtype, device):
+    """name -> ``(K,)`` tensor for every parameter the year reads. Each leaf
+    of ``par`` is a scalar (shared) or has shape ``(K,)`` (swept); ``"F"`` is
+    optional (a per-member constant added to the forcing)."""
+    def col(v):
+        v = torch.as_tensor(v, dtype=dtype, device=device)
+        if v.ndim == 0:
+            return v.expand(K)
+        v = v.reshape(-1)
+        if v.shape[0] != K:
+            raise ValueError(
+                f"swept parameter leaves must have shape ({K},), got {tuple(v.shape)}"
+            )
+        return v
+
+    cols = {n: col(par[n]) for n in PAR_NAMES + XK_TABLE_ROWS + ("m2",)}
+    cols["F"] = col(par.get("F", 0.0))
+    return cols
+
+
+def member_params(par, K: int, dtype, device) -> torch.Tensor:
+    """The ``(K, len(ROW_NAMES))`` per-member parameter stack of the kernel
+    (leaves as in :func:`_member_columns`)."""
+    cols = _member_columns(par, K, dtype, device)
+    # Tm^m2 of wlat, computed here once (models/miz.py statics)
+    cols["Tm_pow_m2"] = cols["Tm"] ** cols["m2"]
+    return torch.stack([cols[n] for n in ROW_NAMES], dim=1).contiguous()
+
+
+def check_fused(model: str, nx: int, device, solver: str = "pcr",
+                alternative: str = "scan") -> None:
+    """Raise ``ValueError`` when the fused engine cannot run this
+    configuration on ``device``: a model with no whole-year kernel, a
+    solver other than the kernel's PCR, or (on a CUDA device) a grid wider
+    than one cell per thread. ``alternative`` names the eager engine the
+    message points to."""
+    if model != "MIZ":
+        raise ValueError(
+            f"engine='fused' has no whole-year kernel for model {model!r} yet "
+            f"(ROADMAP Queue 1 M7); use engine={alternative!r}"
+        )
+    if solver != "pcr":
+        raise ValueError(
+            f"the fused engine solves by PCR inside the kernel; solver={solver!r} "
+            f"runs on engine={alternative!r}"
+        )
+    if torch.device(device).type == "cuda" and nx > MAX_NX:
+        raise ValueError(
+            f"the miz_year kernel runs one grid cell per thread (nx <= "
+            f"{MAX_NX}); nx={nx} needs the high-resolution layout of ROADMAP "
+            "Queue 1 M8"
+        )
+
+
+def _year_tables(st, dtype, device):
+    """Per-cell columns ``(5, nx)`` — x, x^2 and the stencil bands
+    glo/gdi/gup — and the ``(nt,)`` table of cos(2 pi t), built on the host
+    with the values of JAX ``pallas_year.py:1191-1193``."""
+    x = torch.as_tensor(st.x, dtype=dtype)
+    t = torch.as_tensor(st.t, dtype=dtype)
+    geom = diffusion_bands(st)
+    band = lambda b: torch.as_tensor(np.asarray(b), dtype=dtype)
+    cols = torch.stack([x, x * x, band(geom.lo), band(geom.di), band(geom.up)])
+    cosv = torch.cos(2.0 * math.pi * t)
+    return cols.to(device), cosv.to(device)
+
+
+def _check_year_args(carry, fyear, st):
+    Ei = carry["Ei"]
+    if Ei.ndim != 2:
+        raise ValueError(f"miz_year takes a (K, nx) carry, got shape {tuple(Ei.shape)}")
+    K, nx = Ei.shape
+    if nx != st.nx:
+        raise ValueError(f"carry has nx={nx} but the SpaceTime has nx={st.nx}")
+    for k in CARRY_KEYS:
+        v = carry[k]
+        if v.shape != Ei.shape or v.dtype != Ei.dtype or v.device != Ei.device:
+            raise ValueError(
+                f"carry[{k!r}] is {v.dtype} {tuple(v.shape)} on {v.device}; "
+                f"expected {Ei.dtype} {tuple(Ei.shape)} on {Ei.device}"
+            )
+    if tuple(np.shape(fyear)) != (st.nt,):
+        raise ValueError(f"fyear must have shape ({st.nt},), got {tuple(np.shape(fyear))}")
+    return K, nx, Ei.dtype, Ei.device
+
+
+def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False):
+    """Run one MIZ model year for a ``(K, nx)`` ensemble.
+
+    ``(carry, par, fyear) -> (carry, Seasonal, converged, raw)``, as JAX
+    ``pallas_miz_year``: ``carry`` holds the six ``(K, nx)`` fields of
+    ``CARRY_KEYS``; ``par`` leaves are scalars or ``(K,)``; ``fyear`` is the
+    ``(nt,)`` shared forcing row; the seasonal Collections hold ``(K, nx)``
+    tensors; ``converged`` is a 0-dim tensor, 1.0 when every Newton solve of
+    every member converged. ``raw`` is None, or with ``collect_raw`` a
+    Collection of every step's outputs, ``(nt, K, nx)`` per variable.
+
+    On a CUDA device this launches the kernel (counted in
+    ``miz_year.launches``) and raises if it cannot; on the CPU it runs
+    :func:`miz_year_reference`.
+    """
+    K, nx, dtype, device = _check_year_args(carry, fyear, st)
+    if device.type == "cuda":
+        return _year_cuda(carry, member_params(par, K, dtype, device),
+                          torch.as_tensor(fyear, dtype=dtype, device=device),
+                          st, cfg, collect_raw)
+    if device.type == "cpu":
+        return miz_year_reference(carry, par, fyear, st, cfg, collect_raw)
+    raise ValueError(f"miz_year has no kernel for device {device}")
+
+
+miz_year.launches = 0
+
+
+def miz_year_reference(carry, par, fyear, st, cfg: StepConfig,
+                       collect_raw: bool = False):
+    """The plain PyTorch version of :func:`miz_year` on any device: the scan
+    engine's loop over the ``nt`` steps of ``models.miz.step`` on ``(K, nx)``
+    tensors, with every parameter as a ``(K, 1)`` column and the forcing
+    ``fyear[t] + F`` added in the run's dtype, as the kernel adds it. Its
+    Newton loop runs in lockstep over all members, like the JAX package's
+    XLA path; the kernel's runs per member. The two agree to below the
+    Newton tolerance (JAX ``pallas_year.py:19-23``)."""
+    # imported here: integrate.py imports this module
+    from ..integrate import make_year_fn
+
+    K, nx, dtype, device = _check_year_args(carry, fyear, st)
+    cols = _member_columns(par, K, dtype, device)
+    f = torch.as_tensor(fyear, dtype=dtype, device=device)
+    f_rows = (f[:, None] + cols.pop("F")[None, :])[:, :, None]  # (nt, K, 1)
+    year = make_year_fn("MIZ", st, dataclasses.replace(cfg, solver="pcr"), collect_raw)
+    return year(Collection({k: carry[k] for k in CARRY_KEYS}),
+                Collection({n: v[:, None] for n, v in cols.items()}), f_rows)
+
+
+def _year_cuda(carry, pars, f, st, cfg, collect_raw):
+    K, nx = carry["Ei"].shape
+    dtype, device = pars.dtype, pars.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the miz_year kernel takes float32 or float64, got {dtype}")
+    check_fused("MIZ", nx, device)
+    cols, cosv = _year_tables(st, dtype, device)
+    cin = torch.stack([carry[k] for k in CARRY_KEYS])  # (6, K, nx), contiguous
+    f = f.contiguous()
+    cout = torch.empty((len(CARRY_KEYS), K, nx), dtype=dtype, device=device)
+    wint, summ, avg = (
+        torch.empty((len(OUT_VARS), K, nx), dtype=dtype, device=device)
+        for _ in range(3)
+    )
+    conv = torch.empty((K,), dtype=dtype, device=device)
+    # every step's outputs, (nt, 10, K, nx), or a null pointer
+    raw = (torch.empty((st.nt, len(OUT_VARS), K, nx), dtype=dtype, device=device)
+           if collect_raw else None)
+    ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv)]
+    ptrs.append(raw.data_ptr() if raw is not None else None)
+    pcr_steps = max(1, math.ceil(math.log2(nx))) if nx > 1 else 0
+    max_step = cfg.newton_max_step if cfg.newton_max_step is not None else math.inf
+    lib = _build.load_library()
+    fn = lib.ebm_miz_year_f32 if dtype == torch.float32 else lib.ebm_miz_year_f64
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, K, nx, st.nt, st.winter_inx - 1, st.summer_inx - 1,
+                 pcr_steps, cfg.newton_max_iter, st.dt, cfg.newton_abstol,
+                 cfg.newton_reltol, max_step, stream)
+    _build.check(lib, err)
+    miz_year.launches += 1
+    new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
+    seasonal = Seasonal(
+        *(Collection({k: store[i] for i, k in enumerate(OUT_VARS)})
+          for store in (wint, summ, avg))
+    )
+    if raw is not None:
+        raw = Collection({k: raw[:, i] for i, k in enumerate(OUT_VARS)})
+    return new_carry, seasonal, conv.min(), raw
