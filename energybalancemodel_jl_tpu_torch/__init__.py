@@ -1,11 +1,12 @@
 """energybalancemodel_jl_tpu_torch — the PyTorch/CUDA port of
 ``energybalancemodel_jl_tpu``.
 
-The MIZ (marginal-ice-zone) energy balance model, forward only, integrated
-one model year per launch of a hand-written CUDA kernel
-(``csrc/miz_year.cu``) on an NVIDIA GPU, or by an eager PyTorch loop over the
-physics step on any device. Module names and array layouts follow the JAX
-package, which stays the reference the port is tested against::
+The two energy balance models of the JAX package, forward only: the MIZ
+(marginal-ice-zone) model and the WE15 Classic model. Each is integrated one
+model year per launch of a hand-written CUDA kernel (``csrc/miz_year.cu``,
+``csrc/classic_year.cu``) on an NVIDIA GPU, or by an eager PyTorch loop over
+the physics step on any device. Module names and array layouts follow the
+JAX package, which stays the reference the port is tested against::
 
     import energybalancemodel_jl_tpu_torch as ebt
 
@@ -17,6 +18,11 @@ package, which stays the reference the port is tested against::
     par["D"] = np.linspace(0.55, 0.65, 8192)
     ens = ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par,
                                  ebt.zeros_init(st), device="cuda")
+
+    cpar = ebt.default_parameters("Classic")
+    E0 = np.full(st.nx, 30.0)  # warm start, with Tg = E/cw
+    sols = ebt.integrate("Classic", st, ebt.Forcing(0.0), cpar,
+                         {"E": E0, "Tg": E0 / cpar["cw"]}, device="cuda")
 
 The package imports ``torch`` and numpy only, never ``jax``.
 """

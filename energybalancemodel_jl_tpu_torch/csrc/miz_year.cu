@@ -43,7 +43,7 @@
 // Minimums and maximums propagate NaN like jnp.minimum/jnp.maximum (and
 // torch.minimum), and the Newton step clip keeps NaN, so the non-finite
 // freeze of ops/newton.py sees the same values as the plain version.
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -56,41 +56,12 @@ enum Row {
   P_A2, N_ROWS
 };
 
-template <typename T> __device__ __forceinline__ bool is_nan(T v) { return v != v; }
-
-template <typename T> __device__ __forceinline__ bool is_finite(T v) {
-  return v - v == T(0);  // false for +-inf and NaN
-}
-
-template <typename T> __device__ __forceinline__ T nan_min(T a, T b) {
-  return is_nan(a) ? a : (is_nan(b) ? b : (b < a ? b : a));
-}
-
-template <typename T> __device__ __forceinline__ T nan_max(T a, T b) {
-  return is_nan(a) ? a : (is_nan(b) ? b : (a < b ? b : a));
-}
-
-template <typename T> __device__ __forceinline__ T abs_val(T v) { return v < T(0) ? -v : v; }
-
-template <typename T> __device__ __forceinline__ T safe_div(T num, T den) {
-  return den == T(0) ? T(0) : num / den;
-}
-
-template <typename T> __device__ __forceinline__ T quiet_nan();
-template <> __device__ __forceinline__ float quiet_nan<float>() { return __int_as_float(0x7fc00000); }
-template <> __device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
-
 template <typename T>
 struct Shared {
-  T* lo;   // PCR bands and right-hand side, one entry per grid cell
-  T* di;
-  T* up;
-  T* b;
-  T* va;   // neighbour exchange buffers
+  PcrSmem<T> pcr;  // PCR bands and right-hand side, one entry per grid cell
+  T* va;           // neighbour exchange buffers
   T* vb;
-  T* red;  // one slot per warp for the block reductions
+  T* red;          // one slot per warp for the block reductions
 };
 
 // (v[i-1], v[i+1]) with wraparound, for two fields at once
@@ -124,59 +95,6 @@ __device__ __forceinline__ void exchange1(T v, const Shared<T>& s, int i, int nx
     vp1 = s.va[i == nx - 1 ? 0 : i + 1];
   }
   __syncthreads();
-}
-
-// NaN-propagating max over the block; every thread gets the same value
-template <typename T>
-__device__ __forceinline__ T block_max(T v, const Shared<T>& s) {
-  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) s.red[warp] = v;
-  __syncthreads();
-  T m = s.red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = nan_max(m, s.red[w]);
-  __syncthreads();
-  return m;
-}
-
-// row-scaled parallel cyclic reduction (ops/tridiag.py::pcr_solve);
-// returns this row's solution
-template <typename T>
-__device__ T pcr_solve(T lo, T di, T up, T b, const Shared<T>& s, int i, int nx,
-                       bool active, int steps) {
-  const T inv = T(1) / di;
-  lo = lo * inv;
-  up = up * inv;
-  b = b * inv;
-  di = T(1);
-  for (int level = 0, st = 1; level < steps; ++level, st <<= 1) {
-    if (active) {
-      s.lo[i] = lo;
-      s.di[i] = di;
-      s.up[i] = up;
-      s.b[i] = b;
-    }
-    __syncthreads();
-    if (active) {
-      const bool hm = i - st >= 0, hp = i + st < nx;
-      const T di_m = hm ? s.di[i - st] : T(1);
-      const T di_p = hp ? s.di[i + st] : T(1);
-      const T lo_m = hm ? s.lo[i - st] : T(0);
-      const T up_m = hm ? s.up[i - st] : T(0);
-      const T b_m = hm ? s.b[i - st] : T(0);
-      const T lo_p = hp ? s.lo[i + st] : T(0);
-      const T up_p = hp ? s.up[i + st] : T(0);
-      const T b_p = hp ? s.b[i + st] : T(0);
-      const T alpha = safe_div(-lo, di_m);
-      const T beta = safe_div(-up, di_p);
-      b = b + alpha * b_m + beta * b_p;
-      di = di + alpha * up_m + beta * lo_p;
-      lo = alpha * lo_m;
-      up = beta * up_p;
-    }
-    __syncthreads();
-  }
-  return b / di;
 }
 
 template <typename T>
@@ -226,7 +144,7 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nxp = blockDim.x;
   __shared__ T p[N_ROWS];
-  const Shared<T> s{sm, sm + nxp, sm + 2 * nxp, sm + 3 * nxp,
+  const Shared<T> s{{sm, sm + nxp, sm + 2 * nxp, sm + 3 * nxp},
                     sm + 4 * nxp, sm + 5 * nxp, sm + 6 * nxp};
 
   const int m = blockIdx.x;
@@ -283,15 +201,14 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
     // -- Newton for T0 (per member) ---------------------------------------
     T r = T(0), jlo = T(0), jdi = T(1), jup = T(0);
     residual_bands(T0, c, p, s, i, nx, active, r, jlo, jdi, jup);
-    T rnorm = block_max(active ? abs_val(r) : T(0), s);
+    T rnorm = block_max(active ? abs_val(r) : T(0), s.red);
     const T tol = nan_max(abstol, reltol * rnorm);
     for (int it = 0; it < max_iter && rnorm > tol; ++it) {
-      T delta = pcr_solve(jlo, jdi, jup, -r, s, i, nx, active, pcr_steps);
-      delta = delta < -max_step ? -max_step : (delta > max_step ? max_step : delta);
-      if (!is_finite(delta)) delta = T(0);
-      if (active) T0 = T0 + delta;
+      T lo[1] = {jlo}, di[1] = {jdi}, up[1] = {jup}, delta[1] = {-r};
+      pcr_solve<T, 1>(lo, di, up, delta, s.pcr, nx, pcr_steps);
+      if (active) T0 = T0 + clip_step(delta[0], max_step);
       residual_bands(T0, c, p, s, i, nx, active, r, jlo, jdi, jup);
-      rnorm = block_max(active ? abs_val(r) : T(0), s);
+      rnorm = block_max(active ? abs_val(r) : T(0), s.red);
     }
     conv_m = nan_min(conv_m, rnorm <= tol ? T(1) : T(0));
 
@@ -398,11 +315,8 @@ int launch_block(int K, int threads, size_t shmem, cudaStream_t stream,
                  int s0, int pcr_steps, int max_iter, double dt, double abstol,
                  double reltol, double max_step) {
   auto kernel = miz_year_kernel<T, MAX_THREADS>;
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = allow_shared(kernel, shmem);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<K, threads, shmem, stream>>>(
       static_cast<const T*>(cin), static_cast<const T*>(pars),
       static_cast<const T*>(cols), static_cast<const T*>(cosv),

@@ -6,13 +6,13 @@ Rebuild of ``integrate`` (EnergyBalanceModel.jl
 
 - ``engine='scan'``: an eager Python loop over ``models.miz.step`` (the
   parity path, any device), or
-- ``engine='fused'``: one launch per year of the whole-year kernel
-  (:func:`.ops.miz_year.miz_year`; on a CPU tensor its plain version),
-  raw-collected years included.
+- ``engine='fused'``: one launch per year of the model's whole-year kernel
+  (:func:`.ops.miz_year.miz_year`, :func:`.ops.classic_year.classic_year`;
+  on a CPU tensor their plain versions), raw-collected years included.
 
-``'auto'`` (default) picks ``'fused'`` for MIZ on a CUDA device, in float32
-and float64 alike, and ``'scan'`` on the CPU. On a CUDA device it never
-falls back to the eager loop: a run the kernel cannot take raises.
+``'auto'`` (default) picks ``'fused'`` for MIZ and Classic on a CUDA device,
+in float32 and float64 alike, and ``'scan'`` on the CPU. On a CUDA device it
+never falls back to the eager loop: a run the kernel cannot take raises.
 
 Not ported yet: the ``debug`` hook, sub-year progress ticks, checkpoints
 (ROADMAP Queue 1 M9) and profiler traces; those arguments raise
@@ -29,14 +29,25 @@ import torch
 from .convert import to_numpy
 from .forcing import Forcing
 from .models.base import StepConfig, default_step_config, dtype_name, get_model
-from .ops.miz_year import check_fused, miz_year
+from .ops import classic_year as _classic_year
+from .ops import miz_year as _miz_year
 from .solutions import Seasonal, Solutions
 from .spacetime import SpaceTime
 from .utils.collection import Collection
 from .utils.progress import Progress
 
 __all__ = ["integrate", "make_year_fn", "resolve_engine", "resolve_dtype",
-           "resolve_device"]
+           "resolve_device", "auto_is_fused", "check_fused", "FUSED_YEARS"]
+
+# model -> (its whole-year kernel's wrapper, the check that the kernel runs
+# a grid of nx cells on a CUDA device)
+FUSED_YEARS = {
+    "MIZ": (_miz_year.miz_year, _miz_year.check_nx),
+    "Classic": (_classic_year.classic_year, _classic_year.check_nx),
+}
+# solvers the kernels stand for: both run the kernel's inline PCR, as the JAX
+# package maps every solver of its fused engine to PCR (pallas_year.py:979)
+FUSED_SOLVERS = ("pcr", "pcr_fused")
 
 
 def resolve_dtype(dtype) -> torch.dtype:
@@ -55,16 +66,48 @@ def resolve_device(device) -> torch.device:
     return torch.device("cpu" if device is None else device)
 
 
+def auto_is_fused(model: str, device: torch.device, solver: str) -> bool:
+    """What ``engine='auto'`` means: the whole-year kernel for a model that
+    has one on a CUDA device, except with ``solver='pallas'``, which exists
+    on the eager engines only (JAX ``parallel/ensemble.py:362``)."""
+    return device.type == "cuda" and model in FUSED_YEARS and solver != "pallas"
+
+
+def check_fused(model: str, nx: int, device, solver: str = "pcr",
+                alternative: str = "scan") -> None:
+    """Raise ``ValueError`` when the fused engine cannot run this
+    configuration on ``device``: a model with no whole-year kernel, a
+    solver the kernel does not stand for (``'thomas'``, and ``'pallas'``,
+    which exists on the eager engines only), or (on a CUDA device) a grid
+    wider than the kernel runs. ``alternative`` names the eager engine the
+    message points to."""
+    if model not in FUSED_YEARS:
+        raise ValueError(
+            f"engine='fused' has no whole-year kernel for model {model!r}; "
+            f"use engine={alternative!r}"
+        )
+    if solver not in FUSED_SOLVERS:
+        raise ValueError(
+            f"the fused engine solves by PCR inside the kernel; solver={solver!r} "
+            f"runs on engine={alternative!r}"
+        )
+    if torch.device(device).type == "cuda":
+        FUSED_YEARS[model][1](nx)
+
+
 def resolve_engine(model: str, st: SpaceTime, device, engine: str = "auto",
                    solver: str = "pcr") -> str:
     """The single-run engine that :func:`integrate` uses: ``'auto'`` is
-    ``'fused'`` for MIZ on a CUDA device and ``'scan'`` on the CPU. A fused
-    run the kernel cannot take (:func:`.ops.miz_year.check_fused`) raises
-    ``ValueError``; ``engine='scan'`` stays the caller's explicit choice."""
+    ``'fused'`` for MIZ and Classic on a CUDA device and ``'scan'`` on the
+    CPU. On a CUDA device ``'auto'`` never falls back to the eager loop: a
+    run the kernel cannot take raises ``ValueError`` (:func:`check_fused`:
+    ``solver='thomas'``, or a grid too wide), except ``solver='pallas'``,
+    which only the eager engine has, and so resolves to ``'scan'``.
+    ``engine='scan'`` stays the caller's explicit choice."""
     spec = get_model(model)
     device = resolve_device(device)
     if engine == "auto":
-        engine = "fused" if device.type == "cuda" and spec.name == "MIZ" else "scan"
+        engine = "fused" if auto_is_fused(spec.name, device, solver) else "scan"
     if engine not in ("scan", "fused"):
         raise ValueError(
             f"unknown engine {engine!r}; expected 'auto', 'scan' or 'fused'"
@@ -132,10 +175,11 @@ def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
     return year_fn
 
 
-def _fused_single_year(carry, par, fyear, st, cfg, collect_raw):
+def _fused_single_year(model, carry, par, fyear, st, cfg, collect_raw):
     """A single run as a 1-member ensemble through the whole-year kernel."""
     c1 = Collection({k: v[None] for k, v in carry.items()})
-    c1, seas, conv, raw = miz_year(c1, par, fyear, st, cfg, collect_raw=collect_raw)
+    year = FUSED_YEARS[model][0]
+    c1, seas, conv, raw = year(c1, par, fyear, st, cfg, collect_raw=collect_raw)
     squeeze = lambda coll: Collection({k: v[0] for k, v in coll.items()})
     if raw is not None:  # (nt, 1, nx) -> (nt, nx)
         raw = Collection({k: v[:, 0] for k, v in raw.items()})
@@ -170,13 +214,18 @@ def integrate(
     ``par`` and initial conditions ``init``; results in a :class:`Solutions`
     of numpy arrays.
 
-    ``model`` is ``'MIZ'`` (initial conditions ``Ei, Ew, h, D, phi``).
-    ``lastonly=True`` stores per-step raw data only for the final year;
-    ``raw_mode`` ('last' | 'all' | 'none') overrides it. ``verbose=True``
-    warns when the surface-temperature solve fails to converge in a year.
-    ``dtype`` defaults to float32; ``device`` to the CPU. ``solver`` selects
-    the tridiagonal solver: ``'pcr'``, or ``'thomas'`` on the scan engine
-    (the fused kernel runs PCR).
+    ``model`` is ``'MIZ'`` (initial conditions ``Ei, Ew, h, D, phi``) or
+    ``'Classic'`` (``E, Tg``; start from ``Tg = E/cw``: a lagged ``Tg``
+    delivers a cold shock into the snowball state). ``lastonly=True`` stores
+    per-step raw data only for the final year; ``raw_mode`` ('last' | 'all'
+    | 'none') overrides it. ``verbose=True`` warns when the MIZ
+    surface-temperature solve fails to converge in a year (the Classic step
+    has no Newton solve). ``dtype`` defaults to float32; ``device`` to the
+    CPU. ``solver`` selects the tridiagonal solver: ``'pcr'`` or
+    ``'pcr_fused'`` (on the fused engine both run the kernel's PCR), or, on
+    the scan engine, ``'thomas'`` and ``'pallas'`` (a single run's MIZ
+    Newton stays adaptive: the fixed-iteration kernel takes ``(K, nx)``
+    batches, as in the JAX package).
 
     ``engine``: see :func:`resolve_engine`. ``years_per_dispatch`` is
     accepted for compatibility with the JAX package and does nothing: each
@@ -228,7 +277,7 @@ def integrate(
         collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
         if engine == "fused":
             carry, seasonal, converged, ys = _fused_single_year(
-                carry, par_t, f_tab[y], st, cfg, collect)
+                spec.name, carry, par_t, f_tab[y], st, cfg, collect)
         else:
             fn = year_full if collect else year_seasonal
             carry, seasonal, converged, ys = fn(carry, par_t, f_tab[y])

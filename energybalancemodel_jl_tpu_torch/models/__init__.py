@@ -1,8 +1,6 @@
-"""Physics steppers, registered by name (reference dispatch on ``Val{model}``).
-
-Only the MIZ model is ported so far; Classic follows (ROADMAP Queue 1 M3, M7).
-"""
-from . import miz  # noqa: F401 — importing registers the model
+"""Physics steppers, registered by name (reference dispatch on ``Val{model}``):
+the MIZ model (:mod:`.miz`) and the WE15 Classic model (:mod:`.classic`)."""
+from . import classic, miz  # noqa: F401 — importing registers the models
 from .base import ModelSpec, StepConfig, get_model
 
-__all__ = ["ModelSpec", "StepConfig", "get_model", "miz"]
+__all__ = ["ModelSpec", "StepConfig", "get_model", "classic", "miz"]

@@ -19,9 +19,11 @@ Reference quirks reproduced deliberately (JAX ``models/miz.py:14-24``):
 - ``n`` stored per step is computed from the *pre-update* ``D`` and ``phi``
   (:160).
 
-The implicit-function VJP of the Newton root (JAX ``:128-190``) is not
-ported yet (ROADMAP M10), nor the stand-alone Newton kernel
-(``solver='pallas'``, K10).
+``solver='pallas'`` solves a ``(K, nx)`` batch's ``T0`` with the
+fixed-iteration Newton kernel (:mod:`..ops.newton_t0`), as the JAX package
+does; a single run's ``(nx,)`` state keeps the adaptive Newton. The
+implicit-function VJP of the Newton root (JAX ``:128-190``) is not ported
+yet (ROADMAP M10).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from ..ops.diffusion import diffusion_bands, neighbor_cells
 from ..ops.newton import newton_tridiag
+from ..ops.newton_t0 import newton_t0
 from ..utils.collection import Collection
 from .base import ModelSpec, StepConfig, register_model
 
@@ -136,13 +139,15 @@ def solve_T0(T0_warm, insol, h, Tw, phi, f, stat, par, cfg: StepConfig):
 
     with ``h -> hmin`` where ``h == 0`` (:51), solved by warm-started Newton.
     Returns ``(T0, converged, iterations)``.
+
+    With ``solver='pallas'`` a ``(K, nx)`` batch goes to the fixed-iteration
+    Newton kernel (:func:`_solve_T0_pallas`); a single run's ``(nx,)`` state
+    keeps the adaptive Newton with PCR, as in the JAX package (its
+    ``models/miz.py:208``).
     """
-    if cfg.solver == "pallas":
-        raise ValueError(
-            "solver='pallas' (the stand-alone Newton kernel) is not ported "
-            "yet: ROADMAP Queue 1 M13 / Queue 2 K10; use 'pcr'"
-        )
     hp = torch.where(h == 0.0, par["hmin"], h)
+    if cfg.solver == "pallas" and T0_warm.ndim >= 2:
+        return _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg)
     args = (
         insol, hp, Tw, phi, f, stat.glo, stat.gdi, stat.gup,
         par["k"], par["Tm"], par["A"], par["B"], par["ai"], par["D"],
@@ -153,9 +158,45 @@ def solve_T0(T0_warm, insol, h, Tw, phi, f, stat, par, cfg: StepConfig):
         abstol=cfg.newton_abstol,
         reltol=cfg.newton_reltol,
         max_iter=cfg.newton_max_iter,
-        method=cfg.solver,
+        # 'pallas' names the fixed-iteration kernel; its other solves are PCR
+        method="pcr" if cfg.solver == "pallas" else cfg.solver,
         max_step=cfg.newton_max_step,
     )
+
+
+def _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg: StepConfig):
+    """The batched path of ``solver='pallas'``: ``min(newton_max_iter, 6)``
+    fixed Newton iterations in one launch of the K10 kernel
+    (:func:`..ops.newton_t0.newton_t0`), then one residual evaluation for the
+    convergence diagnostic, ``max |r| <= 4 abstol`` per member (JAX
+    ``models/miz.py:218-258``). The kernel takes one value of ``k, Tm, A, B,
+    ai`` and of the forcing ``f`` per call: a swept one raises (sweep it with
+    ``solver='pcr'``); per-member ``D`` is fine."""
+    K, nx = T0_warm.shape[0], T0_warm.shape[-1]
+
+    def scalar(name, v):
+        if torch.as_tensor(v).ndim != 0:
+            raise ValueError(
+                f"solver='pallas' requires a scalar {name}; sweep it with solver='pcr'"
+            )
+        return v
+
+    sc = {n: scalar(f"parameter {n!r}", par[n]) for n in ("k", "Tm", "A", "B", "ai")}
+    bt = lambda v: torch.as_tensor(v).expand(K, nx)
+    iters = min(cfg.newton_max_iter, 6)
+    T0 = newton_t0(
+        T0_warm, bt(hp), bt(Tw), bt(phi), bt(insol), stat.glo, stat.gdi, stat.gup,
+        par["D"], sc["k"], sc["Tm"], sc["A"], sc["B"], sc["ai"],
+        scalar("forcing f (a per-member F)", f),
+        max_step=cfg.newton_max_step or 50.0, iters=iters,
+    )
+    Ti = torch.minimum(T0, par["Tm"])
+    Tb = Ti * phi + (1.0 - phi) * Tw
+    r = par["k"] * (par["Tm"] - T0) / hp + par["ai"] * insol
+    r = r + ((-par["A"]) - par["B"] * (T0 - par["Tm"]))
+    r = r + _dstencil(stat, par, Tb) + f
+    converged = torch.amax(torch.abs(r), dim=-1) <= cfg.newton_abstol * 4.0
+    return T0, converged, iters
 
 
 def step(carry, xs, stat, par, cfg: StepConfig):

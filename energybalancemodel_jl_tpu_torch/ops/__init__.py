@@ -1,5 +1,8 @@
 """Numerical operators: diffusion stencil, tridiagonal solvers, Newton, and
-the fused MIZ year (:mod:`.miz_year`, the CUDA kernel's wrapper)."""
+the wrappers of the CUDA kernels: the fused MIZ and Classic years
+(:mod:`.miz_year`, :mod:`.classic_year`), the batched PCR solve
+(:mod:`.pcr_fused`) and the fixed-iteration Newton solve for T0
+(:mod:`.newton_t0`)."""
 from .diffusion import DiffusionGeometry, apply_diffusion, diffusion_bands, neighbor_cells
 from .newton import newton_tridiag
 from .tridiag import pcr_solve, thomas_solve, tridiag_solve

@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library with
-a plain C interface, at first use, into ``_build/`` beside the package (the
-directory is git-ignored). The library's name carries a hash of the sources
-and flags, so an edited source is rebuilt and a stale library is never
-loaded. The library is loaded with :mod:`ctypes`; pointers and the CUDA
-stream pass as ``c_void_p``. No PyTorch headers are compiled, which keeps a
-build to seconds.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into ONE shared library with a plain C
+interface, at first use, into ``_build/`` beside the package (the directory
+is git-ignored). The library's name carries a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. The library is loaded
+with :mod:`ctypes`; pointers and the CUDA stream pass as ``c_void_p``. No
+PyTorch headers are compiled, which keeps a build to seconds.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "build_log", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["load_library", "build_log", "launch", "NVCC_FLAGS"]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -30,7 +33,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # difference by ~1e5 over a year (measured, PERF.md)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +46,16 @@ _SIGNATURES = {
     #  dt, abstol, reltol, max_step, stream)
     "ebm_miz_year_f32": ([_P] * 11 + [_I] * 7 + [_D] * 4 + [_P], _I),
     "ebm_miz_year_f64": ([_P] * 11 + [_I] * 7 + [_D] * 4 + [_P], _I),
+    # (cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
+    #  K, nx, nt, w0, s0, pcr_steps, dt, stream)
+    "ebm_classic_year_f32": ([_P] * 10 + [_I] * 6 + [_D] + [_P], _I),
+    "ebm_classic_year_f64": ([_P] * 10 + [_I] * 6 + [_D] + [_P], _I),
+    # (lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride, steps, stream)
+    "ebm_pcr_f32": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "ebm_pcr_f64": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # (T0, hp, Tw, phi, insol, bands, D, scal, out, K, n, iters, steps, stream)
+    "ebm_newton_t0_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "ebm_newton_t0_f64": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "ebm_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -61,18 +74,21 @@ def _nvcc() -> str:
     )
 
 
-def _sources():
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+def _sources(csrc: Path = CSRC_DIR):
+    """The compiled sources, ``csrc/*.cu``."""
+    sources = sorted(csrc.glob("*.cu"))
     if not sources:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+        raise RuntimeError(f"no CUDA sources under {csrc}")
     return sources
 
 
-def _library_path(sources) -> Path:
+def _library_path(csrc: Path = CSRC_DIR) -> Path:
+    """The library built from ``csrc``: its name hashes the flags and every
+    source and header (``*.cu``, ``*.cuh``), names and bytes."""
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode())
-    for src in sources:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libebm_kernels_{h.hexdigest()[:16]}.so"
@@ -80,32 +96,38 @@ def _library_path(sources) -> Path:
 
 def _build(sources, target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: concurrent first uses (several
-    # test processes) never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    # build in a private directory, then rename: concurrent first uses
+    # (several test processes) never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+        # one nvcc per source, all at once; every process is waited for
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objs)]
+        outputs = [p.communicate() for p in procs]
+        log = []
+        for src, p, (out, err) in zip(sources, procs, outputs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} (exit {p.returncode}):\n"
+                                   f"{out}\n{err}")
+            log.append(f"== {src.name}\n{out}{err}")
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"linking failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        target.with_suffix(".log").write_text("".join(log))
+        os.replace(lib, target)
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
-    sources = _sources()
-    target = _library_path(sources)
+    target = _library_path()
     if not target.exists():
-        _build(sources, target)
+        _build(_sources(), target)
     lib = ctypes.CDLL(str(target))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -118,7 +140,7 @@ def build_log() -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory and
     spills per kernel) for the library :func:`load_library` loads, or ""
     when it was built by another process that left no log."""
-    log = _library_path(_sources()).with_suffix(".log")
+    log = _library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -127,3 +149,17 @@ def check(lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
         msg = lib.ebm_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel launch failed: error {err} ({msg})")
+
+
+def launch(name: str, dtype: torch.dtype, device, *args) -> None:
+    """Call the C entry point ``{name}_f32`` or ``{name}_f64`` (by ``dtype``)
+    with ``args`` and the current CUDA stream of ``device``; raise if the
+    launch was refused."""
+    suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
+    if suffix is None:
+        raise ValueError(f"the {name} kernel takes float32 or float64, got {dtype}")
+    lib = load_library()
+    fn = getattr(lib, f"{name}_{suffix}")
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err)

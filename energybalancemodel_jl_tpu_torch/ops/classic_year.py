@@ -1,0 +1,148 @@
+"""Fused whole-year Classic (WE15) integration: the wrapper of the CUDA
+kernel ``csrc/classic_year.cu`` and its plain PyTorch version.
+
+Port of the JAX package's ``ops/pallas_year.py::pallas_classic_year`` (its
+'xk' launcher ``_classic_year_xk`` and its 'kx' branch): one call runs all
+``nt`` steps of a model year for a ``(K, nx)`` ensemble, with the implicit
+``Tg`` solve by PCR inside, and builds the seasonal store (winter/summer
+snapshots at the tick indices, annual sums divided by ``nt`` at the end) as
+it goes; on request it also stores every step's outputs (a raw-collected
+year).
+
+:func:`classic_year` dispatches on the device of the carry: a CUDA tensor
+launches the kernel (or raises), a CPU tensor runs the plain version
+:func:`classic_year_reference`, the scan engine's year loop
+(:func:`..integrate.make_year_fn`) on per-member parameter columns. Every
+parameter may be ``(K,)``-swept, the insolation and coalbedo parameters
+``S0, S1, S2, a0, a2`` included, as in the 'xk' layout. The kernel takes the
+per-member scalars from :func:`..models.classic.member_scalars`, the code
+the plain version's statics run, so the two see the same operands.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.base import StepConfig
+from ..models.classic import cos_table, member_scalars, uniform_bands
+from ..solutions import Seasonal
+from ..utils.collection import Collection
+from . import _build
+from ._year import check_width, check_year_args, member_columns
+from .tridiag import pcr_steps
+
+__all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
+           "MAX_NX", "CARRY_KEYS", "OUT_VARS", "PAR_NAMES", "ROW_NAMES"]
+
+# carry fields and recorded variables (models/classic.py)
+CARRY_KEYS = ("E", "Tg")
+OUT_VARS = ("E", "T", "h")
+# the physical parameters of models/classic.py, one column each
+PAR_NAMES = ("cg", "tau", "B", "k", "Lf", "D", "ai", "A", "Fb", "cw",
+             "S0", "S1", "S2", "a0", "a2")
+# the (K, 18) stack the kernel reads (csrc/classic_year.cu enum Row): the
+# statics' scalar combinations, the band scale dt*D, the parameters the step
+# reads, the virtual "F" forcing offset and the table parameters
+ROW_NAMES = ("cg_tau", "dt_tau", "dc", "M", "kLf", "dtD", "cg", "ai", "A", "Fb", "cw",
+             "Lf", "F", "S0", "S1", "S2", "a0", "a2")
+# grid cells strided over at most 1024 threads, at most 4 per thread
+MAX_NX = 4096
+
+
+def member_params(par, K: int, dt: float, dtype, device) -> torch.Tensor:
+    """The ``(K, len(ROW_NAMES))`` per-member stack of the kernel. Each leaf
+    of ``par`` is a scalar or ``(K,)``; ``"F"`` is optional."""
+    cols = member_columns(par, PAR_NAMES, K, dtype, device)
+    cols.update(member_scalars(cols, torch.as_tensor(dt, dtype=dtype, device=device)))
+    return torch.stack([cols[n] for n in ROW_NAMES], dim=1).contiguous()
+
+
+def check_nx(nx: int) -> None:
+    """Raise ``ValueError`` when the kernel cannot run an ``nx``-cell grid."""
+    check_width("classic_year", nx, MAX_NX, "at most 4 grid cells per thread of 1024")
+
+
+def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False):
+    """Run one Classic model year for a ``(K, nx)`` ensemble.
+
+    ``(carry, par, fyear) -> (carry, Seasonal, None, raw)``, as JAX
+    ``pallas_classic_year``: ``carry`` holds ``E`` and ``Tg``, ``(K, nx)``
+    each; ``par`` leaves are scalars or ``(K,)``; ``fyear`` is the ``(nt,)``
+    shared forcing row; the seasonal Collections hold ``(K, nx)`` tensors.
+    The step has no Newton solve, so there is no convergence flag. ``raw``
+    is None, or with ``collect_raw`` a Collection of every step's outputs,
+    ``(nt, K, nx)`` per variable. ``cfg`` is accepted for the interface of
+    the fused engine: the kernel always solves ``Tg`` by PCR.
+
+    On a CUDA device this launches the kernel (counted in
+    ``classic_year.launches``) and raises if it cannot (``nx > 4096`` names
+    ROADMAP M8); on the CPU it runs :func:`classic_year_reference`.
+    """
+    K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "classic_year")
+    if device.type == "cuda":
+        return _year_cuda(carry, par, fyear, st, collect_raw)
+    if device.type == "cpu":
+        return classic_year_reference(carry, par, fyear, st, cfg, collect_raw)
+    raise ValueError(f"classic_year has no kernel for device {device}")
+
+
+classic_year.launches = 0
+
+
+def classic_year_reference(carry, par, fyear, st, cfg: StepConfig,
+                           collect_raw: bool = False):
+    """The plain PyTorch version of :func:`classic_year` on any device: the
+    scan engine's loop over the ``nt`` steps of ``models.classic.step`` on
+    ``(K, nx)`` tensors, with every parameter as a ``(K, 1)`` column, the
+    forcing ``fyear[t] + F`` added in the run's dtype as the kernel adds it,
+    and the ``Tg`` solve by PCR."""
+    # imported here: integrate.py imports this module
+    from ..integrate import make_year_fn
+
+    K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "classic_year")
+    cols = member_columns(par, PAR_NAMES, K, dtype, device)
+    f = torch.as_tensor(fyear, dtype=dtype, device=device)
+    f_rows = (f[:, None] + cols.pop("F")[None, :])[:, :, None]  # (nt, K, 1)
+    year = make_year_fn("Classic", st, dataclasses.replace(cfg, solver="pcr"), collect_raw)
+    return year(Collection({k: carry[k] for k in CARRY_KEYS}),
+                Collection({n: v[:, None] for n, v in cols.items()}), f_rows)
+
+
+def _year_cuda(carry, par, fyear, st, collect_raw):
+    K, nx = carry["E"].shape
+    dtype, device = carry["E"].dtype, carry["E"].device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the classic_year kernel takes float32 or float64, got {dtype}")
+    check_nx(nx)
+    pars = member_params(par, K, st.dt, dtype, device)
+    # per-cell columns (5, nx): x, x^2 and the uniform-grid bands
+    x = torch.as_tensor(st.x, dtype=dtype, device=device)
+    geom = uniform_bands(nx)
+    band = lambda b: torch.as_tensor(np.asarray(b), dtype=dtype, device=device)
+    cols = torch.stack([x, x * x, band(geom.lo), band(geom.di), band(geom.up)])
+    cosv = cos_table(st, dtype).to(device)
+    f = torch.as_tensor(fyear, dtype=dtype, device=device).contiguous()
+    cin = torch.stack([carry[k] for k in CARRY_KEYS])  # (2, K, nx), contiguous
+    cout = torch.empty((len(CARRY_KEYS), K, nx), dtype=dtype, device=device)
+    wint, summ, avg = (
+        torch.empty((len(OUT_VARS), K, nx), dtype=dtype, device=device)
+        for _ in range(3)
+    )
+    # every step's outputs, (nt, 3, K, nx), or a null pointer
+    raw = (torch.empty((st.nt, len(OUT_VARS), K, nx), dtype=dtype, device=device)
+           if collect_raw else None)
+    ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg)]
+    ptrs.append(raw.data_ptr() if raw is not None else None)
+    _build.launch("ebm_classic_year", dtype, device, *ptrs, K, nx, st.nt,
+                  st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), st.dt)
+    classic_year.launches += 1
+    new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
+    seasonal = Seasonal(
+        *(Collection({k: store[i] for i, k in enumerate(OUT_VARS)})
+          for store in (wint, summ, avg))
+    )
+    if raw is not None:
+        raw = Collection({k: raw[:, i] for i, k in enumerate(OUT_VARS)})
+    return new_carry, seasonal, None, raw

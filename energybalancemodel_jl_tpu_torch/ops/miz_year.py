@@ -28,11 +28,12 @@ from ..models.base import StepConfig
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from . import _build
+from ._year import check_width, check_year_args, member_columns
 from .diffusion import diffusion_bands
+from .tridiag import pcr_steps
 
-__all__ = ["miz_year", "miz_year_reference", "member_params", "check_fused",
-           "MAX_NX", "CARRY_KEYS", "OUT_VARS", "PAR_NAMES", "XK_TABLE_ROWS",
-           "ROW_NAMES"]
+__all__ = ["miz_year", "miz_year_reference", "member_params", "check_nx", "MAX_NX",
+           "CARRY_KEYS", "OUT_VARS", "PAR_NAMES", "XK_TABLE_ROWS", "ROW_NAMES"]
 
 # carry fields of the MIZ model (models/miz.py init_carry)
 CARRY_KEYS = ("Ei", "Ew", "h", "D", "phi", "T0")
@@ -53,58 +54,18 @@ ROW_NAMES = PAR_NAMES + ("Tm_pow_m2", "F") + XK_TABLE_ROWS
 MAX_NX = 1024
 
 
-def _member_columns(par, K: int, dtype, device):
-    """name -> ``(K,)`` tensor for every parameter the year reads. Each leaf
-    of ``par`` is a scalar (shared) or has shape ``(K,)`` (swept); ``"F"`` is
-    optional (a per-member constant added to the forcing)."""
-    def col(v):
-        v = torch.as_tensor(v, dtype=dtype, device=device)
-        if v.ndim == 0:
-            return v.expand(K)
-        v = v.reshape(-1)
-        if v.shape[0] != K:
-            raise ValueError(
-                f"swept parameter leaves must have shape ({K},), got {tuple(v.shape)}"
-            )
-        return v
-
-    cols = {n: col(par[n]) for n in PAR_NAMES + XK_TABLE_ROWS + ("m2",)}
-    cols["F"] = col(par.get("F", 0.0))
-    return cols
-
-
 def member_params(par, K: int, dtype, device) -> torch.Tensor:
     """The ``(K, len(ROW_NAMES))`` per-member parameter stack of the kernel
-    (leaves as in :func:`_member_columns`)."""
-    cols = _member_columns(par, K, dtype, device)
+    (leaves as in :func:`._year.member_columns`)."""
+    cols = member_columns(par, PAR_NAMES + XK_TABLE_ROWS + ("m2",), K, dtype, device)
     # Tm^m2 of wlat, computed here once (models/miz.py statics)
     cols["Tm_pow_m2"] = cols["Tm"] ** cols["m2"]
     return torch.stack([cols[n] for n in ROW_NAMES], dim=1).contiguous()
 
 
-def check_fused(model: str, nx: int, device, solver: str = "pcr",
-                alternative: str = "scan") -> None:
-    """Raise ``ValueError`` when the fused engine cannot run this
-    configuration on ``device``: a model with no whole-year kernel, a
-    solver other than the kernel's PCR, or (on a CUDA device) a grid wider
-    than one cell per thread. ``alternative`` names the eager engine the
-    message points to."""
-    if model != "MIZ":
-        raise ValueError(
-            f"engine='fused' has no whole-year kernel for model {model!r} yet "
-            f"(ROADMAP Queue 1 M7); use engine={alternative!r}"
-        )
-    if solver != "pcr":
-        raise ValueError(
-            f"the fused engine solves by PCR inside the kernel; solver={solver!r} "
-            f"runs on engine={alternative!r}"
-        )
-    if torch.device(device).type == "cuda" and nx > MAX_NX:
-        raise ValueError(
-            f"the miz_year kernel runs one grid cell per thread (nx <= "
-            f"{MAX_NX}); nx={nx} needs the high-resolution layout of ROADMAP "
-            "Queue 1 M8"
-        )
+def check_nx(nx: int) -> None:
+    """Raise ``ValueError`` when the kernel cannot run an ``nx``-cell grid."""
+    check_width("miz_year", nx, MAX_NX, "one grid cell per thread")
 
 
 def _year_tables(st, dtype, device):
@@ -118,25 +79,6 @@ def _year_tables(st, dtype, device):
     cols = torch.stack([x, x * x, band(geom.lo), band(geom.di), band(geom.up)])
     cosv = torch.cos(2.0 * math.pi * t)
     return cols.to(device), cosv.to(device)
-
-
-def _check_year_args(carry, fyear, st):
-    Ei = carry["Ei"]
-    if Ei.ndim != 2:
-        raise ValueError(f"miz_year takes a (K, nx) carry, got shape {tuple(Ei.shape)}")
-    K, nx = Ei.shape
-    if nx != st.nx:
-        raise ValueError(f"carry has nx={nx} but the SpaceTime has nx={st.nx}")
-    for k in CARRY_KEYS:
-        v = carry[k]
-        if v.shape != Ei.shape or v.dtype != Ei.dtype or v.device != Ei.device:
-            raise ValueError(
-                f"carry[{k!r}] is {v.dtype} {tuple(v.shape)} on {v.device}; "
-                f"expected {Ei.dtype} {tuple(Ei.shape)} on {Ei.device}"
-            )
-    if tuple(np.shape(fyear)) != (st.nt,):
-        raise ValueError(f"fyear must have shape ({st.nt},), got {tuple(np.shape(fyear))}")
-    return K, nx, Ei.dtype, Ei.device
 
 
 def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False):
@@ -154,7 +96,7 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False):
     ``miz_year.launches``) and raises if it cannot; on the CPU it runs
     :func:`miz_year_reference`.
     """
-    K, nx, dtype, device = _check_year_args(carry, fyear, st)
+    K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "miz_year")
     if device.type == "cuda":
         return _year_cuda(carry, member_params(par, K, dtype, device),
                           torch.as_tensor(fyear, dtype=dtype, device=device),
@@ -179,8 +121,8 @@ def miz_year_reference(carry, par, fyear, st, cfg: StepConfig,
     # imported here: integrate.py imports this module
     from ..integrate import make_year_fn
 
-    K, nx, dtype, device = _check_year_args(carry, fyear, st)
-    cols = _member_columns(par, K, dtype, device)
+    K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "miz_year")
+    cols = member_columns(par, PAR_NAMES + XK_TABLE_ROWS + ("m2",), K, dtype, device)
     f = torch.as_tensor(fyear, dtype=dtype, device=device)
     f_rows = (f[:, None] + cols.pop("F")[None, :])[:, :, None]  # (nt, K, 1)
     year = make_year_fn("MIZ", st, dataclasses.replace(cfg, solver="pcr"), collect_raw)
@@ -193,7 +135,7 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw):
     dtype, device = pars.dtype, pars.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the miz_year kernel takes float32 or float64, got {dtype}")
-    check_fused("MIZ", nx, device)
+    check_nx(nx)
     cols, cosv = _year_tables(st, dtype, device)
     cin = torch.stack([carry[k] for k in CARRY_KEYS])  # (6, K, nx), contiguous
     f = f.contiguous()
@@ -208,16 +150,10 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw):
            if collect_raw else None)
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv)]
     ptrs.append(raw.data_ptr() if raw is not None else None)
-    pcr_steps = max(1, math.ceil(math.log2(nx))) if nx > 1 else 0
     max_step = cfg.newton_max_step if cfg.newton_max_step is not None else math.inf
-    lib = _build.load_library()
-    fn = lib.ebm_miz_year_f32 if dtype == torch.float32 else lib.ebm_miz_year_f64
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, K, nx, st.nt, st.winter_inx - 1, st.summer_inx - 1,
-                 pcr_steps, cfg.newton_max_iter, st.dt, cfg.newton_abstol,
-                 cfg.newton_reltol, max_step, stream)
-    _build.check(lib, err)
+    _build.launch("ebm_miz_year", dtype, device, *ptrs, K, nx, st.nt, st.winter_inx - 1,
+                  st.summer_inx - 1, pcr_steps(nx), cfg.newton_max_iter, st.dt,
+                  cfg.newton_abstol, cfg.newton_reltol, max_step)
     miz_year.launches += 1
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(

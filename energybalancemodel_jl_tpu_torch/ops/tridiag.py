@@ -8,8 +8,9 @@ TrustRegion inner solves of the MIZ model, EnergyBalanceModel.jl
   axis, vectorised over any leading batch axes. O(n) sequential depth.
 - :func:`pcr_solve` — parallel cyclic reduction: ``ceil(log2(n))``
   vectorised elimination sweeps, O(n log n) work and O(log n) depth. The
-  fused year kernel (``csrc/miz_year.cu``) runs the same scheme in shared
-  memory.
+  CUDA kernels run the same scheme in shared memory (``csrc/common.cuh``);
+  ``method='pcr_fused'`` solves a batch of systems in one launch of
+  ``csrc/pcr.cu`` (:mod:`.pcr_fused`).
 
 Both are stable for the diagonally dominant systems that arise here.
 """
@@ -19,7 +20,7 @@ import math
 
 import torch
 
-__all__ = ["thomas_solve", "pcr_solve", "tridiag_solve"]
+__all__ = ["thomas_solve", "pcr_solve", "pcr_steps", "tridiag_solve"]
 
 
 def thomas_solve(lo, di, up, b):
@@ -67,6 +68,11 @@ def _shift(v, s: int, axis: int = -1, fill: float = 0.0):
     return out
 
 
+def pcr_steps(n: int) -> int:
+    """The number of PCR doubling levels of an ``n``-row system."""
+    return max(1, math.ceil(math.log2(n))) if n > 1 else 0
+
+
 def pcr_solve(lo, di, up, b, axis: int = -1):
     """Solve a tridiagonal system by parallel cyclic reduction.
 
@@ -91,8 +97,7 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
                     f"pcr_solve with axis={axis} needs full-rank bands; "
                     f"{name} has ndim {band.ndim} vs rhs ndim {b.ndim}"
                 )
-    n = b.shape[axis]
-    steps = max(1, math.ceil(math.log2(n))) if n > 1 else 0
+    steps = pcr_steps(b.shape[axis])
 
     # Row-scale by the diagonal: improves float32 conditioning materially
     # (the systems here mix O(1e4) conduction terms with O(1) couplings).
@@ -125,14 +130,11 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
 
 
 def tridiag_solve(lo, di, up, b, method: str = "pcr", axis: int = -1):
-    """Dispatch between :func:`pcr_solve` (default) and :func:`thomas_solve`
-    (``method='thomas'``, last axis only). ``axis`` (PCR only) selects the
-    system axis."""
-    if method == "pcr_fused":
-        raise ValueError(
-            "method 'pcr_fused' (the stand-alone PCR kernel) is not ported "
-            "yet: ROADMAP Queue 1 M13 / Queue 2 K11; use 'pcr'"
-        )
+    """Dispatch between :func:`pcr_solve` (default), :func:`thomas_solve`
+    (``method='thomas'``, last axis only) and the one-launch batched PCR
+    (``method='pcr_fused'``: a 2-D ``(K, n)`` system goes to
+    :func:`.pcr_fused.pcr_fused`, any other rank to :func:`pcr_solve`, as in
+    the JAX package). ``axis`` (PCR only) selects the system axis."""
     if method == "spike":
         raise ValueError(
             "method 'spike' (grid-sharded solve) is not ported yet: ROADMAP "
@@ -140,6 +142,13 @@ def tridiag_solve(lo, di, up, b, method: str = "pcr", axis: int = -1):
         )
     if axis not in (-1, b.ndim - 1) and method != "pcr":
         raise ValueError(f"method {method!r} only solves along the last axis")
+    if method == "pcr_fused":
+        if b.ndim == 2:
+            # imported here: pcr_fused.py imports this module
+            from .pcr_fused import pcr_fused
+
+            return pcr_fused(lo, di, up, b)
+        return pcr_solve(lo, di, up, b)
     if method == "thomas":
         return thomas_solve(lo, di, up, b)
     if method == "pcr":

@@ -7,13 +7,17 @@ scalars (shared) and ``(K,)`` arrays (swept across members). Two engines:
 
 - ``'batched'``: the eager year loop of :func:`..integrate.make_year_fn` on a
   leading member axis (swept parameters ride as ``(K, 1)`` columns).
-- ``'fused'``: one call per year of :func:`..ops.miz_year.miz_year` — the
-  CUDA kernel on a GPU, its plain version on the CPU.
+- ``'fused'``: one call per year of the model's whole-year kernel
+  (:func:`..ops.miz_year.miz_year`, :func:`..ops.classic_year.classic_year`)
+  — the CUDA kernel on a GPU, its plain version on the CPU.
 
 Every parameter, the insolation table parameters ``S0, S1, S2, a0, a2``
 included, may be swept on either engine. ``'auto'`` picks ``'fused'`` for
-MIZ on a CUDA device and ``'batched'`` on the CPU; on a CUDA device it never
-falls back to the eager loop: a run the kernel cannot take raises.
+MIZ and Classic on a CUDA device and ``'batched'`` on the CPU; on a CUDA
+device it never falls back to the eager loop: a run the kernel cannot take
+raises. ``solver='pallas'`` (the fixed-iteration Newton kernel) exists on
+the batched engine only: with it ``'auto'`` is ``'batched'`` and
+``engine='fused'`` raises, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,9 +30,9 @@ import torch
 
 from ..convert import to_numpy
 from ..forcing import Forcing
-from ..integrate import make_year_fn, resolve_device, resolve_dtype
+from ..integrate import (FUSED_YEARS, auto_is_fused, check_fused, make_year_fn,
+                         resolve_device, resolve_dtype)
 from ..models.base import default_step_config, dtype_name, get_model
-from ..ops.miz_year import check_fused, miz_year
 from ..solutions import Seasonal, Solutions
 from ..spacetime import SpaceTime
 from ..utils.collection import Collection
@@ -131,7 +135,7 @@ def _check_raw_all_budget(K, st, n_vars: int, itemsize: int, raw_memory_limit: i
 
 def _resolve_engine(engine, spec, st, device, solver) -> str:
     if engine == "auto":
-        engine = "fused" if device.type == "cuda" and spec.name == "MIZ" else "batched"
+        engine = "fused" if auto_is_fused(spec.name, device, solver) else "batched"
     if engine not in ("batched", "fused"):
         raise ValueError(
             f"unknown engine {engine!r}; expected 'batched', 'fused' or 'auto'"
@@ -172,6 +176,11 @@ def ensemble_integrate(
     per-step states, ``'all'`` every step of every member (guarded by
     ``raw_memory_limit`` bytes). ``dtype`` defaults to float32, ``device``
     to the CPU.
+
+    ``solver``: ``'pcr'`` (default) or ``'pcr_fused'`` (on the fused engine
+    both are the kernel's PCR; on the batched engine ``'pcr_fused'``
+    launches the batched PCR kernel on a GPU), ``'thomas'``, or ``'pallas'``
+    (batched engine only: the fixed-iteration Newton kernel for MIZ).
 
     ``engine``: ``'batched'``, ``'fused'`` or ``'auto'`` (see the module
     docstring). ``years_per_dispatch`` is accepted for the JAX package's
@@ -232,6 +241,7 @@ def ensemble_integrate(
         par_fused["F"] = as_t(F_off)
     year_seasonal = make_year_fn(spec.name, st, cfg, False)
     year_full = make_year_fn(spec.name, st, cfg, True)
+    fused_year = FUSED_YEARS[spec.name][0] if engine == "fused" else None
 
     carry = spec.init_carry(init, st, dtype, device)
     carry = Collection(
@@ -257,8 +267,8 @@ def ensemble_integrate(
     for y in range(st.dur):
         collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
         if engine == "fused":
-            carry, seasonal, _conv, ys = miz_year(carry, par_fused, f_base[y], st, cfg,
-                                                  collect_raw=collect)
+            carry, seasonal, _conv, ys = fused_year(carry, par_fused, f_base[y], st, cfg,
+                                                    collect_raw=collect)
         else:
             fn = year_full if collect else year_seasonal
             carry, seasonal, _conv, ys = fn(carry, par_cols, batched_forcing(y))

@@ -1,5 +1,7 @@
-"""The CUDA kernel ``csrc/miz_year.cu`` on the card, against its plain
-PyTorch version ``miz_year_reference`` on the same inputs.
+"""The CUDA kernels on the card, against their plain PyTorch versions on the
+same inputs: ``csrc/miz_year.cu`` (``miz_year_reference``),
+``csrc/classic_year.cu`` (``classic_year_reference``), ``csrc/pcr.cu``
+(``tridiag.pcr_solve``) and ``csrc/newton_t0.cu`` (``newton_t0_reference``).
 
 Every test here needs a CUDA device and nvcc; without them each skips
 (decided inside the ``cuda`` fixture, never at import). Run on a GPU with::
@@ -18,7 +20,14 @@ Bars:
   own fused-vs-XLA bars, atol 0.5 on the carry and 0.05 on the seasonal
   stores (``tests/test_pallas_year.py:108,121``), are the documented upper
   bound and are not what is held here;
-- an ensemble member equals the same member run alone, bitwise.
+- an ensemble member equals the same member run alone, bitwise;
+- the Classic year, f32 and f64, nx=40/nt=1000, K=8 with D, S1 and F swept,
+  2 years (the second raw-collected), from the warm init and from zeros, and
+  single runs at nx=1500 and nx=4096 (2 and 4 cells per thread): bitwise
+  equal. Classic has no Newton loop, so the adaptive configuration is held
+  bitwise too;
+- the batched PCR and the fixed-iteration Newton for T0: bitwise equal, with
+  shared and per-system bands, 1 to 4 rows per thread.
 """
 import numpy as np
 import pytest
@@ -27,8 +36,14 @@ import torch
 import energybalancemodel_jl_tpu_torch as ebt
 from energybalancemodel_jl_tpu_torch.models.base import (StepConfig, default_step_config,
                                                               dtype_name)
+from energybalancemodel_jl_tpu_torch.models import miz as tmiz
+from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year, classic_year_reference
+from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
 from energybalancemodel_jl_tpu_torch.ops.miz_year import (CARRY_KEYS, miz_year,
                                                            miz_year_reference)
+from energybalancemodel_jl_tpu_torch.ops.newton_t0 import newton_t0, newton_t0_reference
+from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
+from energybalancemodel_jl_tpu_torch.ops.tridiag import pcr_solve
 
 pytestmark = pytest.mark.gpu
 
@@ -144,3 +159,146 @@ def test_entry_points_launch_the_kernel(cuda):
                         ebt.zeros_init(st), dtype="float64", device=cuda, progress=False)
     assert miz_year.launches == before + 6  # the raw last year runs the kernel too
     assert sol.raw["E"].shape == (st.nt, st.nx) and np.isfinite(sol.raw["E"]).all()
+
+
+def bitwise(x, y):
+    return bool(torch.equal(torch.isnan(x), torch.isnan(y))
+                and torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)))
+
+
+def classic_setup(dev, dtype, nx=40, nt=1000, K=8, warm=True, sweep=True):
+    st = ebt.SpaceTime.sin(nx, nt, 1)
+    par = ebt.default_parameters("Classic")
+    if sweep:
+        par["D"] = np.linspace(0.55, 0.65, K)
+        par["S1"] = np.linspace(320.0, 350.0, K)
+        par["F"] = np.linspace(-1.0, 1.0, K)
+    E = torch.full((K, nx), 30.0 if warm else 0.0, dtype=dtype, device=dev)
+    carry = ebt.Collection(E=E, Tg=E / par["cw"])
+    f = torch.as_tensor(np.random.default_rng(0).normal(0.0, 0.5, nt), dtype=dtype, device=dev)
+    return st, par, carry, f
+
+
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "zeros"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classic_kernel_matches_plain_bitwise(cuda, dtype, warm):
+    st, par, carry, f = classic_setup(cuda, dtype, warm=warm)
+    cfg = default_step_config(dtype_name(dtype))
+    before = classic_year.launches
+    k = two_years(classic_year, carry, par, f, st, cfg)
+    assert classic_year.launches == before + 2
+    p = two_years(classic_year_reference, carry, par, f, st, cfg)
+    assert classic_year.launches == before + 2
+    assert k[2] is None and p[2] is None
+    for what, x, y in ([(f"carry.{n}", k[0][n], p[0][n]) for n in k[0]]
+                       + [(f"{name}.{n}", a[n], b[n])
+                          for name, a, b in zip(("winter", "summer", "avg"), k[1], p[1])
+                          for n in a]
+                       + [(f"raw.{n}", k[3][n], p[3][n]) for n in k[3]]):
+        assert bitwise(x, y), what
+    assert torch.isfinite(k[0]["E"]).all()
+
+
+@pytest.mark.parametrize("nx", [1500, 4096])
+def test_classic_kernel_high_resolution_single_run(cuda, nx):
+    st, par, carry, f = classic_setup(cuda, torch.float32, nx=nx, K=1, sweep=False)
+    cfg = default_step_config("float32")
+    k = classic_year(carry, par, f, st, cfg, collect_raw=True)
+    p = classic_year_reference(carry, par, f, st, cfg, collect_raw=True)
+    torch.cuda.synchronize()
+    for x, y in [(k[0][n], p[0][n]) for n in k[0]] + [(k[3][n], p[3][n]) for n in k[3]]:
+        assert bitwise(x, y)
+
+
+def test_classic_members_equal_solo_runs_bitwise(cuda):
+    st, par, carry, f = classic_setup(cuda, torch.float32, nx=180, nt=2000, K=16)
+    cfg = default_step_config("float32")
+    ens = classic_year(carry, par, f, st, cfg)
+    for m in (0, 9, 15):
+        solo_par = {n: (v[m] if np.ndim(v) else v) for n, v in par.items()}
+        one = classic_year(ebt.Collection({n: v[m:m + 1] for n, v in carry.items()}),
+                           solo_par, f, st, cfg)
+        for x, y in [(one[0][n][0], ens[0][n][m]) for n in one[0]] + [
+                (a[n][0], b[n][m]) for a, b in zip(one[1], ens[1]) for n in a]:
+            assert bitwise(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 7, 180, 1500, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pcr_kernel_matches_plain_bitwise(cuda, dtype, n):
+    g = torch.Generator().manual_seed(n)
+    K = 64
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(cuda, dtype)
+    lo, up = rnd(K, n), rnd(K, n)
+    di = (lo.abs() + up.abs() + 1.0) * torch.where(rnd(K, n) > 0, 1.0, -1.0)
+    b = rnd(K, n)
+    before = pcr_fused.launches
+    for bands in ((lo, di, up), (lo[0], di[0], up[0])):  # per-system, then shared
+        x = pcr_fused(*bands, b)
+        assert bitwise(x, pcr_solve(*bands, b))
+    assert pcr_fused.launches == before + 2
+
+
+@pytest.mark.parametrize("K,nx", [(16, 180), (4, 3000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_t0_kernel_matches_plain_bitwise(cuda, dtype, K, nx):
+    rng = np.random.default_rng(nx)
+    st = ebt.SpaceTime.sin(nx, 200, 1)
+    par = ebt.default_parameters("MIZ")
+    geom = diffusion_bands(st)
+    insol = (par["S0"] - par["S1"] * st.x * np.cos(2 * np.pi * 0.3)) - par["S2"] * st.x**2
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=cuda)
+    args = [t(rng.normal(-5.0, 5.0, (K, nx))), t(np.abs(rng.normal(1.0, 0.5, (K, nx))) + 0.1),
+            t(rng.normal(0.0, 3.0, (K, nx))), t(rng.uniform(0.0, 1.0, (K, nx))),
+            t(np.tile(insol, (K, 1))), t(geom.lo), t(geom.di), t(geom.up),
+            t(np.linspace(0.5, 0.7, K)), par["k"], par["Tm"], par["A"], par["B"], par["ai"], 0.7]
+    before = newton_t0.launches
+    x = newton_t0(*args, max_step=50.0, iters=6)
+    assert newton_t0.launches == before + 1
+    assert bitwise(x, newton_t0_reference(*args, max_step=50.0, iters=6))
+
+
+def test_solver_pallas_launches_for_batches_only(cuda):
+    st = ebt.SpaceTime.sin(40, 200, 1)
+    par = ebt.from_numpy(ebt.default_parameters("MIZ"), device=cuda)
+    stat = tmiz.statics(st, par, torch.float64, cuda)
+    cfg = default_step_config("float64", solver="pallas")
+    z = torch.zeros((3, st.nx), dtype=torch.float64, device=cuda)
+    h, phi = z + 0.5, z + 0.6
+    f = torch.zeros((), dtype=torch.float64, device=cuda)
+    before = newton_t0.launches
+    tmiz.solve_T0(z, tmiz.insolation(stat, 3), h, z, phi, f, stat, par, cfg)
+    assert newton_t0.launches == before + 1
+    tmiz.solve_T0(z[0], tmiz.insolation(stat, 3), h[0], z[0], phi[0], f, stat, par, cfg)
+    assert newton_t0.launches == before + 1  # a single run keeps the adaptive Newton
+
+
+def test_classic_and_solver_entry_points_launch_their_kernels(cuda):
+    st = ebt.SpaceTime.sin(40, 1000, 3)
+    par = ebt.default_parameters("Classic")
+    par["D"] = np.linspace(0.55, 0.65, 4)
+    E0 = np.full(st.nx, 30.0)
+    init = {"E": E0, "Tg": E0 / par["cw"]}
+    before = classic_year.launches
+    ens = ebt.ensemble_integrate("Classic", st, ebt.Forcing(0.0), par, init, dtype="float32",
+                                 device=cuda, progress=False)
+    assert classic_year.launches == before + 3
+    assert np.isfinite(ens.seasonal.avg["E"]).all()
+    sol = ebt.integrate("Classic", st, ebt.Forcing(0.0), ebt.default_parameters("Classic"),
+                        init, dtype="float64", device=cuda, progress=False)
+    assert classic_year.launches == before + 6  # the raw last year runs the kernel too
+    assert sol.raw["E"].shape == (st.nt, st.nx) and np.isfinite(sol.raw["E"]).all()
+    wide = ebt.SpaceTime.sin(4097, 1000, 1)
+    with pytest.raises(ValueError, match="M8"):
+        ebt.integrate("Classic", wide, ebt.Forcing(0.0), ebt.default_parameters("Classic"),
+                      ebt.zeros_init(wide, "Classic"), device=cuda, progress=False)
+    st = ebt.SpaceTime.sin(40, 200, 1)
+    mpar = ebt.default_parameters("MIZ")
+    mpar["D"] = np.linspace(0.55, 0.65, 4)
+    for solver, counter in (("pcr_fused", pcr_fused), ("pallas", newton_t0)):
+        before = counter.launches
+        out = ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), mpar, ebt.zeros_init(st),
+                                     dtype="float32", device=cuda, engine="batched",
+                                     solver=solver, progress=False)
+        assert counter.launches > before, solver
+        assert np.isfinite(out.seasonal.avg["E"]).all()

@@ -104,11 +104,36 @@ def test_convert_round_trip():
     assert ebt.from_numpy({"x": 1.5}, dtype=torch.float32)["x"].dtype == torch.float32
 
 
+def test_convert_classic_state_and_solver_arguments():
+    """The Classic carry and parameter set, and the argument tuple of the
+    fixed-iteration Newton kernel (JAX ``pallas_solve_T0``), cross the
+    package boundary as numpy and back unchanged."""
+    rng = np.random.default_rng(4)
+    par = ebm.default_parameters("Classic")
+    tpar = ebt.from_numpy(par)
+    assert sorted(tpar) == sorted(ebt.classic_paramset)
+    assert all(v.ndim == 0 and float(v) == par[k] for k, v in tpar.items())
+    carry = {"E": rng.normal(size=(3, 9)), "Tg": rng.normal(size=(3, 9))}
+    back = ebt.to_numpy(ebt.from_numpy(carry))
+    for k in carry:
+        np.testing.assert_array_equal(back[k], carry[k])
+    args = tuple(rng.normal(size=(3, 9)) for _ in range(5)) + tuple(
+        rng.normal(size=9) for _ in range(3)) + (rng.normal(size=3), 2.0, 0.0, 193.0, 2.1, 0.4,
+                                                 0.5)
+    targs = ebt.from_numpy(args)
+    assert isinstance(targs, tuple) and len(targs) == len(args)
+    assert all(torch.is_tensor(v) and v.dtype == torch.float64 for v in targs)
+    for a, b in zip(args, ebt.to_numpy(targs)):
+        np.testing.assert_array_equal(b, a)
+
+
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import energybalancemodel_jl_tpu_torch as ebt\n"
-        "from energybalancemodel_jl_tpu_torch.ops import miz_year, _build\n"
+        "from energybalancemodel_jl_tpu_torch.ops import miz_year, classic_year, _build\n"
+        "from energybalancemodel_jl_tpu_torch.ops import pcr_fused, newton_t0\n"
+        "from energybalancemodel_jl_tpu_torch.models import classic, miz\n"
         "from energybalancemodel_jl_tpu_torch.parallel import ensemble\n"
         "from energybalancemodel_jl_tpu_torch import convert\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax')"

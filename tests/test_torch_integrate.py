@@ -197,6 +197,58 @@ def test_engine_resolution():
         resolve_engine("MIZ", st, gpu, solver="thomas")
     with pytest.raises(ValueError, match="solver='thomas' runs on engine='batched'"):
         _resolve_engine("fused", spec, st, cpu, "thomas")
+    # Classic: the kernel takes up to 4 cells per thread of a 1024-thread block
+    classic = ebt.integrate.__globals__["get_model"]("Classic")
+    hires = ebt.SpaceTime.sin(4096, 1000, 1)
+    assert resolve_engine("Classic", hires, gpu) == "fused"
+    assert _resolve_engine("auto", classic, st, gpu, "pcr") == "fused"
+    assert _resolve_engine("auto", classic, st, cpu, "pcr") == "batched"
+    for too_wide in (lambda: resolve_engine("Classic", ebt.SpaceTime.sin(4097, 1000, 1), gpu),
+                     lambda: _resolve_engine("auto", classic, ebt.SpaceTime.sin(8192, 1000, 1),
+                                             gpu, "pcr")):
+        with pytest.raises(ValueError, match="M8"):
+            too_wide()
+
+
+@pytest.mark.parametrize("model", ["MIZ", "Classic"])
+def test_solver_resolution_of_the_fused_engine(model):
+    """'pcr' and 'pcr_fused' both run the kernel's inline PCR (JAX
+    pallas_year.py:979-983, integrate.py:442); 'pallas' exists on the eager
+    engines only: 'auto' resolves to them on a CUDA device and an explicit
+    engine='fused' raises (JAX parallel/ensemble.py:362); 'thomas' with
+    'auto' on a CUDA device raises, it never falls back."""
+    st = ebt.SpaceTime.sin(180, 2000, 1)
+    gpu = torch.device("cuda")
+    spec = ebt.integrate.__globals__["get_model"](model)
+    for solver in ("pcr", "pcr_fused"):
+        assert resolve_engine(model, st, gpu, solver=solver) == "fused"
+        assert _resolve_engine("auto", spec, st, gpu, solver) == "fused"
+    assert resolve_engine(model, st, gpu, solver="pallas") == "scan"
+    assert _resolve_engine("auto", spec, st, gpu, "pallas") == "batched"
+    with pytest.raises(ValueError, match="solver='pallas' runs on engine='batched'"):
+        _resolve_engine("fused", spec, st, torch.device("cpu"), "pallas")
+    with pytest.raises(ValueError, match="solver='thomas' runs on engine='scan'"):
+        resolve_engine(model, st, gpu, solver="thomas")
+
+
+def test_fused_engine_runs_solver_pcr_fused():
+    """``ensemble_integrate(engine='fused', solver='pcr_fused')`` — the JAX
+    package's benchmark default — runs, and equals ``solver='pcr'`` bitwise:
+    both are the kernel's PCR (on the CPU, its plain version)."""
+    st = ebt.SpaceTime.sin(16, 50, 2)
+    par = ebt.default_parameters("MIZ")
+    par["D"] = np.array([0.5, 0.7])
+    runs = [ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
+                                   dtype="float64", engine="fused", solver=solver,
+                                   raw_mode="last", progress=False)
+            for solver in ("pcr", "pcr_fused")]
+    assert_bitwise(runs[0].seasonal, runs[1].seasonal)
+    np.testing.assert_array_equal(runs[0].raw["E"], runs[1].raw["E"])
+    single = [ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
+                            ebt.zeros_init(st), dtype="float64", engine="fused", solver=solver,
+                            raw_mode="none", progress=False)
+              for solver in ("pcr", "pcr_fused")]
+    assert_bitwise(single[0].seasonal, single[1].seasonal)
 
 
 def test_table_parameter_sweep_runs_on_the_fused_engine():
@@ -240,10 +292,12 @@ def test_unported_options_and_bad_arguments_raise():
     with pytest.raises(ValueError, match="missing"):
         ebt.integrate("MIZ", st, ebt.Forcing(0.0), par, {"Ei": np.zeros(8)})
     with pytest.raises(ValueError, match="Unknown model"):
+        ebt.integrate("Snowball", st, ebt.Forcing(0.0), par, init)
+    with pytest.raises(ValueError, match="missing"):  # MIZ initial conditions
         ebt.integrate("Classic", st, ebt.Forcing(0.0), par, init)
-    with pytest.raises(ValueError, match="M7"):
+    with pytest.raises(ValueError, match="no whole-year kernel for model 'Other'"):
         _resolve_engine("fused", dataclasses.replace(ebt.integrate.__globals__["get_model"](
-            "MIZ"), name="Classic"), st, torch.device("cpu"), "pcr")
+            "MIZ"), name="Other"), st, torch.device("cpu"), "pcr")
     with pytest.raises(ValueError, match="requires engine='fused'"):
         ebt.ensemble_integrate(*args, n_members=2, engine="batched", years_per_dispatch=2)
 

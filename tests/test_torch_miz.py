@@ -94,12 +94,16 @@ def test_one_step_matches_jax(rng):
 
 
 def test_solver_pallas_raises():
+    """``solver='pallas'`` (the fixed-iteration kernel, tests/test_torch_
+    solvers.py) takes one value of k, Tm, A, B, ai per call: a swept one
+    raises, as in the JAX package (its models/miz.py:226-234)."""
     st = ebt.SpaceTime.sin(8, 100, 1)
     par = ebt.from_numpy(ebt.default_parameters("MIZ"))
     stat = tmiz.statics(st, par, T64, CPU)
-    z = torch.zeros(8, dtype=T64)
-    with pytest.raises(ValueError, match="K10"):
-        tmiz.solve_T0(z, tmiz.insolation(stat, 0), z, z, z, 0.0, stat, par,
+    z = torch.zeros((2, 8), dtype=T64)
+    swept = dict(par, Tm=torch.zeros((2, 1), dtype=T64))
+    with pytest.raises(ValueError, match="scalar parameter 'Tm'"):
+        tmiz.solve_T0(z, tmiz.insolation(stat, 0), z, z, z, 0.0, stat, swept,
                       default_step_config("float64", solver="pallas"))
 
 

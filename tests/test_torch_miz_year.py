@@ -10,6 +10,8 @@ table parameter) and the virtual forcing offset F swept or set. The CUDA
 kernel itself is held against the plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,8 +143,9 @@ def test_argument_checks():
 
 def test_kernel_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch):
     sources = _build._sources()
-    assert [s.name for s in sources] == ["miz_year.cu"]
-    path = _build._library_path(sources)
+    assert [s.name for s in sources] == ["classic_year.cu", "miz_year.cu", "newton_t0.cu",
+                                         "pcr.cu"]
+    path = _build._library_path()
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libebm_kernels_")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     monkeypatch.setenv("PATH", "")
@@ -173,3 +176,25 @@ def test_raw_year_agrees_with_the_seasonal_store():
             np.testing.assert_array_equal(a[k].numpy(), b[k].numpy())
     for k in ("Ei", "Ew", "h", "D", "phi"):
         np.testing.assert_array_equal(raw[k][-1].numpy(), c[k].numpy())
+
+
+def test_kernel_build_is_keyed_by_headers_too(tmp_path):
+    """Editing a header that the sources include names a new library, so a
+    stale build is never loaded; every C entry point has a signature."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    before = _build._library_path(csrc)
+    assert before == _build._library_path()  # the copy hashes as the package
+    header = csrc / "common.cuh"
+    header.write_bytes(header.read_bytes() + b"// edited\n")
+    assert _build._library_path(csrc) != before
+    exported = {"ebm_cuda_error_string"} | {
+        f"ebm_{k}_{d}" for k in ("miz_year", "classic_year", "pcr", "newton_t0")
+        for d in ("f32", "f64")}
+    assert set(_build._SIGNATURES) == exported
+    for src in _build._sources():
+        text = src.read_text()
+        for name in exported:
+            if f"int {name}(" in text:
+                n_args = text.split(f"int {name}(")[1].split(")")[0].count(",") + 1
+                assert len(_build._SIGNATURES[name][0]) == n_args, name
