@@ -4,7 +4,7 @@ run through its hand-written kernels.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc::
 
-    python3 chip_smoke.py           # about seven minutes on an H100
+    python3 chip_smoke.py           # about twelve minutes on an H100
 
 Phases (any failure exits non-zero, and no phase carries on past its own
 failure):
@@ -21,9 +21,9 @@ failure):
 4. the MIZ main path: a K=8192 canonical MIZ ensemble, float32, fused engine;
 5. a single canonical MIZ run through ``integrate`` with ``engine='auto'``,
    every year (the raw-collected last one too) through the kernel;
-6. the MIZ kernel and its plain version timed per model year on the
-   canonical grid at K=1 and K=8192, f32 and f64, and the kernel's
-   raw-collected year at K=1;
+6. the MIZ kernel timed per model year on the canonical grid at K=1 and
+   K=8192, f32 and f64 (each member's Newton updates counted), the kernel's
+   raw-collected year at K=1, and the plain version at K=8192 f32;
 7. the Classic kernel against its plain version, bitwise: nx=40/nt=1000
    K=8 with D, S1 and F swept (f64 and f32, warm init and zeros, 2 years,
    the second raw-collected), the canonical grid at K=8192, the nx=4096
@@ -34,15 +34,39 @@ failure):
    against their plain versions bitwise at the canonical (8192, 180), then
    one canonical MIZ year on ``ensemble_integrate(engine='batched')`` with
    ``solver='pcr_fused'`` and with ``solver='pallas'``;
-10. the Classic kernel timed per model year (K=1, K=8192, f32, f64), and the
-    K11 and K10 kernels per call, each beside its plain version.
+10. the Classic kernel timed per model year (K=1, K=8192, f32, f64; the
+    plain version at K=8192 f32), and the K11 and K10 kernels per call, each
+    beside its plain version;
+11. the draw kernel against its plain version, bitwise: all 2^23 mantissas
+    the pipeline can see, and the (2000, 8192) table of seed 0;
+12. every noise mode of the MIZ and Classic kernels (table, table/OU,
+    keys/serial, keys/assoc, crossing) against its plain version at nx=40,
+    and sigma = 0 against the deterministic kernel at the main path's shape
+    (the same Newton updates too);
+13. the main path: ``transitions`` on the canonical MIZ grid at K=8192 from
+    two states of 40-year ``integrate`` runs (f32 keys/serial 3 years,
+    keys/assoc 1 year, subyear 2 years, f64 table/OU 1 year), launches
+    counted per mode; then the same for Classic, with the scan engine, whose
+    draws come from the draw kernel;
+14. every mode that phase 13 runs (f32 keys/serial, keys/assoc, crossing,
+    f64 table/OU), MIZ and Classic, against its plain version at the main
+    path's shape and on its first year's inputs, bitwise (MIZ with fixed
+    Newton iterations); then every mode, K5's table too, timed per canonical
+    model year at K=8192 in the dtype its path runs (table/OU in float32
+    too), beside the deterministic kernel in the same call, with each
+    member's Newton updates counted, and its plain version one year; the
+    draw kernel per call.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (each kernel's time,
+plain time, launches on its path, the least time the card could take for its
+work, ``bound_ms``, and a library call's time where one PyTorch call computes
+the same function); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -98,11 +122,19 @@ def ptxas_summary(log):
     kernel, from the ``-Xptxas -v`` log."""
     out, name, spill = [], None, "0"
     for line in log.splitlines():
-        m = re.search(r"(miz_year_kernel|classic_year_kernel|pcr_kernel|newton_t0_kernel)"
-                      r"I([fd])((?:Li\d+E)*)", line)
+        m = re.search(r"(miz_year_kernel|classic_year_kernel|pcr_kernel|newton_t0_kernel|"
+                      r"normal_table_kernel|normal_bits_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
+                      line)
         if m and "entry function" in line:
-            ints = "".join("," + v for v in re.findall(r"Li(\d+)E", m.group(3)))
-            name, spill = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'f64'}{ints}>", "0"
+            # template ints; the year kernels' NOISY flag as "det"/"noisy", then
+            # the MIZ kernel's COUNT flag as "count" when set
+            flags = iter((("det", "noisy"), ("", "count")))
+            args = [v if kind == "i" else next(flags)[int(v)]
+                    for kind, v in re.findall(r"L([ib])(\d+)E", m.group(3) or "")]
+            args = [a for a in args if a]
+            dtype = {"f": "f32", "d": "f64"}.get(m.group(2))
+            targs = ",".join(([dtype] if dtype else []) + args)
+            name, spill = m.group(1) + (f"<{targs}>" if targs else ""), "0"
         elif name and "bytes spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif name and "Used" in line and "registers" in line:
@@ -120,14 +152,15 @@ def main():
     import energybalancemodel_jl_tpu_torch as ebt
     from energybalancemodel_jl_tpu_torch.integrate import resolve_engine
     from energybalancemodel_jl_tpu_torch.models.base import (StepConfig, default_step_config,
-                                                              dtype_name)
-    from energybalancemodel_jl_tpu_torch.ops import _build
+                                                              dtype_name, get_model)
+    from energybalancemodel_jl_tpu_torch.ops import _build, prng
     from energybalancemodel_jl_tpu_torch.ops.classic_year import (classic_year,
                                                                    classic_year_reference)
     from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
     from energybalancemodel_jl_tpu_torch.ops.miz_year import (CARRY_KEYS, miz_year,
                                                                miz_year_reference)
     from energybalancemodel_jl_tpu_torch.ops.newton_t0 import newton_t0, newton_t0_reference
+    from energybalancemodel_jl_tpu_torch.ops.normal_table import normal_from_bits, normal_table
     from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
     from energybalancemodel_jl_tpu_torch.ops.tridiag import pcr_solve
 
@@ -210,6 +243,10 @@ def main():
 
     fixed32 = StepConfig(solver="pcr", newton_abstol=0.0, newton_reltol=0.0,
                          newton_max_step=50.0, newton_max_iter=8)
+    # at the main path's shape the plain year's cost grows with the Newton
+    # iterations (the adaptive run makes 0.4-1.2 updates per member-step,
+    # measured on an H100): 2 fixed iterations keep those checks short
+    fixed_short = dataclasses.replace(fixed32, newton_max_iter=2)
     st, par, carry, f = setup(40, 200, 8, torch.float32)
     out_k = years(miz_year, carry, par, f, st, fixed32, 2, raw_last=True)
     out_p = years(miz_year_reference, carry, par, f, st, fixed32, 2, raw_last=True)
@@ -221,10 +258,10 @@ def main():
     # canonical grid at the main path's width, float32, one year: point by
     # point with fixed Newton iterations, then with the adaptive default
     st, par, carry, f = setup(*CANONICAL, K_MAIN, torch.float32)
-    out_k = years(miz_year, carry, par, f, st, fixed32, 1)
-    out_p = years(miz_year_reference, carry, par, f, st, fixed32, 1)
+    out_k = years(miz_year, carry, par, f, st, fixed_short, 1)
+    out_p = years(miz_year_reference, carry, par, f, st, fixed_short, 1)
     wmain = compare(out_k, out_p, "f32 canonical", BAR_F32_FIXED)
-    say(3, f"f32 canonical K={K_MAIN} 1y, 8 fixed Newton iterations: max|kernel-plain| "
+    say(3, f"f32 canonical K={K_MAIN} 1y, 2 fixed Newton iterations: max|kernel-plain| "
            f"carry={wmain['carry']:.3e} seasonal={wmain['seasonal']:.3e} "
            f"(bar {BAR_F32_FIXED}: bitwise)")
     del out_k, out_p
@@ -326,13 +363,17 @@ def main():
            f"kernel), miz_year launches +{rose}, finite")
 
     # -- 6. kernel and plain version per model year, canonical grid -----------
-    # kernel: CUDA events over 3 launches after a warm-up; plain: host clock
-    timing = {}
+    # kernel: CUDA events over 3 launches after a warm-up that counts each
+    # member's Newton updates; plain (host clock): f32 K=8192 only, the
+    # kernel table's row
+    timing, det_updates = {}, {}
     for dtype in (torch.float32, torch.float64):
         cfg = default_step_config(dtype_name(dtype))
         for K in (1, K_MAIN):
             st, par, carry, f = setup(*CANONICAL, K, dtype)
-            miz_year(carry, par, f, st, cfg)
+            updates = torch.zeros(K, dtype=torch.int32, device=dev)
+            miz_year(carry, par, f, st, cfg, newton_iters=updates)
+            det_updates[dtype, K] = int(updates.sum())
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -341,13 +382,16 @@ def main():
             stop.record()
             torch.cuda.synchronize()
             kernel_ms = start.elapsed_time(stop) / 3
-            t0 = time.perf_counter()
-            years(miz_year_reference, carry, par, f, st, cfg, 1)
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            plain_ms = None
+            if dtype == torch.float32 and K == K_MAIN:
+                t0 = time.perf_counter()
+                years(miz_year_reference, carry, par, f, st, cfg, 1)
+                plain_ms = (time.perf_counter() - t0) * 1e3
             timing[dtype, K] = kernel_ms, plain_ms
             row = dict(dtype=str(dtype), K=K, kernel_ms_per_year=kernel_ms,
                        plain_ms_per_year=plain_ms, gpu=smi,
-                       kernel_model_years_per_day=K / kernel_ms * 864e5)
+                       kernel_model_years_per_day=K / kernel_ms * 864e5,
+                       newton_updates_per_member_step=det_updates[dtype, K] / K / st.nt)
             if K == 1:  # a single run's raw-collected year
                 start.record()
                 for _ in range(3):
@@ -561,7 +605,9 @@ def main():
             st, par, carry, f = classic_setup(*CANONICAL, K, dtype)
             cfg = cfg_of(dtype)
             k_ms = kernel_time(lambda: classic_year(carry, par, f, st, cfg), 3)
-            p_ms = host_time(lambda: classic_year_reference(carry, par, f, st, cfg), 1)
+            # the plain version: f32 K=8192 only, the kernel table's row
+            p_ms = (host_time(lambda: classic_year_reference(carry, par, f, st, cfg), 1)
+                    if dtype == torch.float32 and K == K_MAIN else None)
             ctiming[dtype, K] = k_ms, p_ms
             say(10, json.dumps(dict(kernel="classic_year", dtype=str(dtype), K=K,
                                     kernel_ms_per_year=k_ms, plain_ms_per_year=p_ms, gpu=smi,
@@ -581,54 +627,431 @@ def main():
                             kernel_ms_per_call=newton_ms, plain_ms_per_call=newton_plain_ms,
                             gpu=smi)))
 
-    kernels = {"kernels": [{
-        "name": "miz_year",
-        "route": "cuda",
-        "source": "energybalancemodel_jl_tpu_torch/csrc/miz_year.cu",
-        "replaces": "energybalancemodel_jl_tpu/ops/pallas_year.py:458",
-        "also_replaces": "energybalancemodel_jl_tpu/ops/pallas_year.py:352",
-        "launches": main_launches,
-        # at the main path's shape, fixed Newton iterations (bars above)
-        "max_abs_err": max(wmain.values()),
-        "max_abs_err_f64_nx40": max(w64.values()),
-        "max_abs_err_f32_nx40": max(w32.values()),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "shape": f"K={K_MAIN} nx={CANONICAL[0]} nt={CANONICAL[1]} float32, one model year",
-    }, {
-        "name": "classic_year",
-        "route": "cuda",
-        "source": "energybalancemodel_jl_tpu_torch/csrc/classic_year.cu",
-        "replaces": "energybalancemodel_jl_tpu/ops/pallas_year.py:1628",
-        "also_replaces": "energybalancemodel_jl_tpu/ops/pallas_year.py:1378",
-        "launches": classic_launches,
-        "max_abs_err": max(wcl.values()),
-        "max_abs_err_nx40": max(wsmall.values()),
-        "max_abs_err_nx4096_K1": max(whi.values()),
-        "ms": ctiming[torch.float32, K_MAIN][0],
-        "plain_ms": ctiming[torch.float32, K_MAIN][1],
-        "shape": f"K={K_MAIN} nx={CANONICAL[0]} nt={CANONICAL[1]} float32, one model year",
-    }, {
-        "name": "pcr_fused",
-        "route": "cuda",
-        "source": "energybalancemodel_jl_tpu_torch/csrc/pcr.cu",
-        "replaces": "energybalancemodel_jl_tpu/ops/pallas_tridiag.py:29",
-        "launches": solver_launches["pcr_fused"],
-        "max_abs_err": pcr_err,
-        "ms": pcr_ms,
-        "plain_ms": pcr_plain_ms,
-        "shape": f"({K_MAIN}, {nx}) float32, one solve",
-    }, {
-        "name": "newton_t0",
-        "route": "cuda",
-        "source": "energybalancemodel_jl_tpu_torch/csrc/newton_t0.cu",
-        "replaces": "energybalancemodel_jl_tpu/ops/pallas_newton.py:90",
-        "launches": solver_launches["pallas"],
-        "max_abs_err": newton_err,
-        "ms": newton_ms,
-        "plain_ms": newton_plain_ms,
-        "shape": f"({K_MAIN}, {nx}) float32, 6 Newton iterations",
-    }]}
+    # -- 11. the draw kernel against its plain version, bitwise ---------------
+    bits = torch.arange(2 ** 23, dtype=torch.int64, device=dev) << 9
+    d_bits = normal_from_bits(bits)
+    p_bits = prng.normal_from_bits(bits)
+    torch.cuda.synchronize()
+    if not bitwise(d_bits, p_bits):
+        fail("draw kernel: normal_from_bits differs from its plain version")
+    del bits, d_bits, p_bits
+    keys_main = prng.member_year_keys(0, K_MAIN, 0)
+    tab_k = normal_table(keys_main, CANONICAL[1], dev)
+    tab_p = prng.normal_table(keys_main, CANONICAL[1], dev)
+    torch.cuda.synchronize()
+    if not bitwise(tab_k, tab_p):
+        fail(f"draw kernel: the ({CANONICAL[1]}, {K_MAIN}) table differs from its plain version")
+    say(11, f"draw kernel vs plain: all 2^23 mantissas bitwise; ({CANONICAL[1]}, {K_MAIN}) "
+            f"table of seed 0 bitwise; finite={bool(torch.isfinite(tab_k).all())}, "
+            f"std={float(tab_k.std()):.5f}")
+    del tab_k, tab_p
+
+    # -- 12. every noise mode, MIZ and Classic, kernel against plain -----------
+    OU = (0.95, 3.0, 0.5)
+
+    def noise_modes(st, K, dtype, seed=5):
+        keys = prng.member_year_keys(seed, K, 2)
+        table = torch.as_tensor(np.random.default_rng(3).normal(size=(st.nt, K)), dtype=dtype,
+                                device=dev)
+        modes = {"table": dict(noise=table), "table/OU": dict(noise=table, noise_ou=OU)}
+        if dtype == torch.float32:
+            thr = float(np.sum(np.diff(st.x))) * 0.3
+            modes.update({
+                "keys/serial": dict(noise_keys=keys, noise_ou=OU),
+                "keys/assoc": dict(noise_keys=keys, noise_ou=OU, ou_assoc=True),
+                "keys/crossing": dict(noise_keys=keys, noise_ou=OU, crossing=(thr, 1.0)),
+                "keys/assoc/crossing": dict(noise_keys=keys, noise_ou=OU, ou_assoc=True,
+                                            crossing=(thr, -1.0)),
+            })
+        return modes
+
+    def compare_noisy(out_k, out_p, label, bar=None):
+        """Carry and seasonal stores as :func:`compare`; the year-end eta and
+        the crossing steps bitwise."""
+        worst = compare((*out_k[:3], None), (*out_p[:3], None), label, bar)
+        for name, a, b in zip(("eta", "crossing"), out_k[3:], out_p[3:]):
+            if (a is None) != (b is None) or (a is not None and not bitwise(a, b)):
+                fail(f"{label}: {name} differs")
+        return max(worst.values())
+
+    noise_err = {}
+    for model, year, plain, mk in (("MIZ", miz_year, miz_year_reference, setup),
+                                   ("Classic", classic_year, classic_year_reference,
+                                    lambda nx, nt, K, dtype: classic_setup(nx, nt, K, dtype))):
+        for dtype in (torch.float32, torch.float64):
+            shape = (40, 200) if model == "MIZ" else (40, 1000)
+            st, par, carry, f = mk(*shape, 8, dtype)
+            adaptive = model == "MIZ" and dtype == torch.float64
+            cfg = cfg64 if adaptive else (fixed32 if model == "MIZ" else cfg_of(dtype))
+            for mode, kw in noise_modes(st, 8, dtype).items():
+                label = f"{model} {dtype_name(dtype)} {mode}"
+                noise_err[label] = compare_noisy(year(carry, par, f, st, cfg, **kw),
+                                                 plain(carry, par, f, st, cfg, **kw), label,
+                                                 None if adaptive else BAR_BITWISE)
+    say(12, "noise modes, kernel vs plain at nx=40 K=8 (MIZ nt=200, Classic nt=1000; MIZ f32 "
+            "with 8 fixed Newton iterations, MIZ f64 adaptive at rtol=atol=1e-8, the rest "
+            "bitwise; eta and crossing steps bitwise): " + ", ".join(
+                f"{k} {v:.3e}" for k, v in noise_err.items()))
+
+    # sigma = 0: the noisy kernels are the deterministic kernel, bitwise
+    for model, year, mk in (("MIZ", miz_year, setup), ("Classic", classic_year, classic_setup)):
+        st, par, carry, f = mk(*CANONICAL, K_MAIN, torch.float32)
+        # MIZ: each member's Newton updates counted, equal too
+        count = (lambda: dict(newton_iters=torch.zeros(K_MAIN, dtype=torch.int32, device=dev))
+                 ) if model == "MIZ" else dict
+        kw_det = count()
+        det = year(carry, par, f, st, cfg32, **kw_det)
+        for assoc in (False, True):
+            kw_zero = count()
+            zero = year(carry, par, f, st, cfg32, noise_keys=keys_main,
+                        noise_ou=(0.9, 0.0, 0.0), ou_assoc=assoc, **kw_zero)
+            torch.cuda.synchronize()
+            same = all(bitwise(zero[0][k], det[0][k]) for k in det[0]) and all(
+                bitwise(a[k], b[k]) for a, b in zip(zero[1], det[1]) for k in a) and all(
+                torch.equal(kw_zero[k], kw_det[k]) for k in kw_det)
+            if not same or bool(zero[3].any()):
+                fail(f"{model} sigma=0 noisy kernel (assoc={assoc}) differs from the "
+                     "deterministic kernel")
+    say(12, f"sigma=0 keys/serial and keys/assoc kernels == the deterministic kernel bitwise "
+            f"(MIZ: Newton updates equal too), MIZ and Classic, canonical K={K_MAIN}")
+    del det, zero, carry
+
+    # -- 13. the main path: noise-forced transitions through the kernel --------
+    counters = (miz_year, classic_year, pcr_fused, newton_t0, normal_table)
+    for c in counters:
+        c.launches = 0
+    mpar = ebt.default_parameters("MIZ")
+    st_ref = ebt.SpaceTime.sin(*CANONICAL, 40)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refs = {}
+    for name, F in (("a", 15.0), ("b", -25.0)):
+        sol = ebt.integrate("MIZ", st_ref, ebt.Forcing(F), mpar, ebt.zeros_init(st_ref),
+                            dtype="float32", device=dev, progress=False)
+        refs[name] = ebt.Collection({k: sol.raw[k][-1] for k in ("Ei", "Ew", "h", "D", "phi")})
+    ref_s = time.perf_counter() - t0
+    ref_launches = miz_year.launches
+    st1 = ebt.SpaceTime.sin(*CANONICAL, 1)
+    tkw = dict(sigma=4.0, tau=0.05, K=K_MAIN, seed=0, dtype="float32", device=dev)
+    mode_launches, results = {}, {}
+    for mode, years_run, extra in (("keys/serial", 3, {}), ("keys/assoc", 1, dict(ou_impl="assoc")),
+                                   ("keys/crossing", 2, dict(subyear=True)),
+                                   ("table/OU", 1, dict(dtype="float64"))):
+        before = miz_year.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ebt.transitions("MIZ", st1, ebt.Forcing(0.0), mpar, refs["a"], refs["b"],
+                              years=years_run, **dict(tkw, **extra))
+        wall = time.perf_counter() - t0
+        mode_launches[mode] = miz_year.launches - before
+        results[mode] = (res, wall)
+        finite = bool(np.isfinite(res.areas).all())
+        if res.engine != "fused" or res.areas.shape != (years_run, K_MAIN) or not finite:
+            fail(f"main path {mode}: engine={res.engine}, areas {res.areas.shape}, "
+                 f"finite={finite}")
+        # each call runs its years in the mode, plus one deterministic
+        # reference year per bare-state attractor
+        if mode_launches[mode] != years_run + 2:
+            fail(f"main path {mode}: miz_year launched {mode_launches[mode]} times for "
+                 f"{years_run} years + 2 reference years")
+        mode_launches[mode] -= 2
+    main_launches_total = miz_year.launches
+    ref_launches_total = ref_launches + 2 * len(mode_launches)
+    if ref_launches != 2 * st_ref.dur or main_launches_total != ref_launches_total + sum(
+            mode_launches.values()):
+        fail(f"main path: miz_year launches {main_launches_total} "
+             f"(reference runs {ref_launches})")
+    res, wall = results["keys/serial"]
+    say(13, f"transitions('MIZ', SpaceTime.sin(180, 2000, 1), Forcing(0.0), sigma=4, tau=0.05, "
+            f"K={K_MAIN}, years=3, f32) -> engine={res.engine!r}: {wall:.3f} s, "
+            f"{K_MAIN * 3 / wall * 86400.0:.4e} member-years/day, areas finite, "
+            f"escape_fraction={res.escape_fraction():.6f}, area_a={float(res.area_a[0]):.6f} "
+            f"area_b={float(res.area_b[0]):.6f}, newton_ok={res.newton_ok}; references: 2 x 40 "
+            f"years of integrate in {ref_s:.3f} s")
+    for mode in ("keys/assoc", "keys/crossing", "table/OU"):
+        r, w = results[mode]
+        extra = ""
+        if mode == "keys/crossing":
+            cs = r.crossing_step
+            extra = (f", crossing steps recorded {int((cs >= 0).sum())} of {cs.size}, "
+                     "first_passage_subyear finite "
+                     f"{int(np.isfinite(r.first_passage_subyear()).sum())}")
+        say(13, f"  {mode}: {r.years} year(s) in {w:.3f} s, escape_fraction="
+                f"{r.escape_fraction():.6f}{extra}")
+    say(13, f"miz_year launches: {ref_launches} years of the reference runs + "
+            f"{ref_launches_total - ref_launches} deterministic reference-area years + "
+            + " + ".join(f"{v} ({k})" for k, v in mode_launches.items())
+            + f" = {main_launches_total}")
+
+    # the Classic path: its attractors from 20-year single runs, then every mode,
+    # and the scan engine, whose float32 draws come from the draw kernel
+    cpar = ebt.default_parameters("Classic")
+    st_cref = ebt.SpaceTime.sin(*CANONICAL, 20)
+    crefs = {}
+    for name, E0 in (("a", 30.0), ("b", -30.0)):
+        init = {"E": np.full(CANONICAL[0], E0), "Tg": np.full(CANONICAL[0], E0) / cpar["cw"]}
+        sol = ebt.integrate("Classic", st_cref, ebt.Forcing(10.0), cpar, init, dtype="float32",
+                            device=dev, progress=False)
+        E_last = sol.raw["E"][-1]
+        crefs[name] = ebt.Collection({"E": E_last, "Tg": E_last / cpar["cw"]})
+    classic_mode_launches, classic_results = {}, {}
+    for mode, years_run, extra in (("keys/serial", 2, {}), ("keys/assoc", 1, dict(ou_impl="assoc")),
+                                   ("keys/crossing", 1, dict(subyear=True)),
+                                   ("table/OU", 1, dict(dtype="float64")),
+                                   ("scan", 1, dict(engine="scan"))):
+        before = classic_year.launches, normal_table.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ebt.transitions("Classic", st1, ebt.Forcing(10.0), cpar, crefs["a"], crefs["b"],
+                              years=years_run, **dict(tkw, sigma=8.0, **extra))
+        wall = time.perf_counter() - t0
+        classic_mode_launches[mode] = classic_year.launches - before[0]
+        classic_results[mode] = (res, wall)
+        if mode == "scan":
+            draw_launches = normal_table.launches - before[1]
+            if draw_launches != years_run:
+                fail(f"Classic scan engine: the draw kernel launched {draw_launches} times "
+                     f"for {years_run} year(s)")
+        elif classic_mode_launches[mode] != years_run + 2:
+            fail(f"Classic {mode}: classic_year launched {classic_mode_launches[mode]} times")
+        else:
+            classic_mode_launches[mode] -= 2  # the two reference-area years
+        if not np.isfinite(res.areas).all():
+            fail(f"Classic transitions {mode}: non-finite areas")
+    say(13, "transitions('Classic', SpaceTime.sin(180, 2000, 1), Forcing(10.0), sigma=8, "
+            f"K={K_MAIN}): " + ", ".join(
+                f"{mode} {r.years}y {w:.3f} s (engine {r.engine}, escape_fraction "
+                f"{r.escape_fraction():.4f}, classic_year +{classic_mode_launches[mode]} "
+                f"noisy + {0 if mode == 'scan' else 2} reference)"
+                for mode, (r, w) in classic_results.items())
+            + f"; draw kernel launches +{draw_launches} (scan engine)")
+    for c, n in ((pcr_fused, "pcr_fused"), (newton_t0, "newton_t0")):
+        if c.launches:
+            fail(f"the transitions paths launched {n}")
+
+    # -- 14. every noise mode at the main path's shape, on its inputs ---------
+    # The first year of phase 13's calls: the member keys of seed 0, year 0;
+    # the OU rows of its sigma (MIZ 4, Classic 8) and tau = 0.05 from eta0 = 0;
+    # the starting state a; the base forcing (MIZ 0, Classic 10). Crossing
+    # thresholds spread over [0, 1] with alternating signs, so that members
+    # cross (at the main path's midpoint none did in phase 13). Each mode that
+    # phase 13 runs is held against its plain version, bitwise: MIZ (f32 and
+    # f64) with 2 fixed Newton iterations, Classic as it runs. Then each mode
+    # is timed as its path runs it (the adaptive Newton, each member's Newton
+    # updates counted), and so is its plain version, one year on the host
+    # clock; table/OU also in float32, beside its float64 path.
+    nt = CANONICAL[1]
+    rho = float(np.exp(-1.0 / nt / 0.05))
+    keys_dev = prng.member_year_keys(0, K_MAIN, 0)
+    thr_sgn = (torch.linspace(0.0, 1.0, K_MAIN, device=dev),
+               torch.tensor([1.0, -1.0], device=dev).repeat(K_MAIN // 2))
+    timed, plain_timed, updates, main_err, crossed = {}, {}, {}, {}, {}
+    for model, year, plain, state, par, sigma, F in (
+            ("MIZ", miz_year, miz_year_reference, refs["a"], mpar, 4.0, 0.0),
+            ("Classic", classic_year, classic_year_reference, crefs["a"], cpar, 8.0, 10.0)):
+        spec = get_model(model)
+        inputs = {}
+        for dtype in (torch.float32, torch.float64):
+            carry = spec.init_carry(state, st1, dtype, dev)
+            carry = ebt.Collection({k: v.expand((K_MAIN,) + tuple(v.shape)).contiguous()
+                                    for k, v in carry.items()})
+            ou = (rho, sigma * float(np.sqrt(1.0 - rho * rho)),
+                  torch.zeros(K_MAIN, dtype=dtype, device=dev))
+            inputs[dtype] = (carry, par, torch.full((nt,), F, dtype=dtype, device=dev), st1), ou
+        ou32, ou64 = inputs[torch.float32][1], inputs[torch.float64][1]
+        table32 = prng.normal_table(keys_dev, nt, dev)
+        modes = {
+            "det": (torch.float32, {}),
+            # the noisy build at sigma = 0: its cost on the deterministic path
+            "sigma0": (torch.float32, dict(noise_keys=keys_dev, noise_ou=(rho, 0.0, ou32[2]))),
+            "keys/serial": (torch.float32, dict(noise_keys=keys_dev, noise_ou=ou32)),
+            "keys/assoc": (torch.float32, dict(noise_keys=keys_dev, noise_ou=ou32,
+                                               ou_assoc=True)),
+            "keys/crossing": (torch.float32, dict(noise_keys=keys_dev, noise_ou=ou32,
+                                                  crossing=thr_sgn)),
+            "table/OU": (torch.float64, dict(noise=prng.normal_table_f64(keys_dev, nt, dev),
+                                             noise_ou=ou64)),
+            "table/OU f32": (torch.float32, dict(noise=table32, noise_ou=ou32)),
+            # an ops-level mode that no entry point runs (K5)
+            "table": (torch.float32, dict(noise=table32)),
+        }
+        for mode, (dtype, kw) in modes.items():
+            args, cfg = inputs[dtype][0], cfg_of(dtype)
+            label = f"{model} {dtype_name(dtype)} canonical K={K_MAIN} {mode}"
+            if model == "MIZ":
+                n = torch.zeros(K_MAIN, dtype=torch.int32, device=dev)
+                year(*args, cfg, newton_iters=n, **kw)
+                updates[model, mode] = int(n.sum())
+            timed[model, mode] = kernel_time(lambda: year(*args, cfg, **kw), 2)
+            if mode in ("det", "sigma0", "table/OU f32"):
+                continue
+            if model == "Classic":
+                # no Newton loop: the year as the path runs it is compared and timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out_p = plain(*args, cfg, **kw)
+                torch.cuda.synchronize()
+                plain_timed[model, mode] = (time.perf_counter() - t0) * 1e3
+                out_k = year(*args, cfg, **kw)
+                main_err[model, mode] = compare_noisy(out_k, out_p, label, BAR_BITWISE)
+            else:
+                plain_timed[model, mode] = host_time(lambda: plain(*args, cfg, **kw), 1)
+                if mode == "table":
+                    continue
+                out_k = year(*args, fixed_short, **kw)
+                main_err[model, mode] = compare_noisy(
+                    out_k, plain(*args, fixed_short, **kw), label, BAR_BITWISE)
+            if mode == "keys/crossing":
+                crossed[model] = int((out_k[4] >= 0).sum())
+            del out_k
+        say(14, json.dumps(dict(
+            kernel=f"{model.lower()}_year", K=K_MAIN, gpu=smi,
+            dtype={m: dtype_name(d) for m, (d, _) in modes.items()},
+            ms_per_year={m: timed[model, m] for m in modes},
+            plain_ms_per_year={m: plain_timed.get((model, m)) for m in modes},
+            max_abs_err_kernel_vs_plain={m: main_err.get((model, m)) for m in modes},
+            newton_updates_per_member_step={m: updates[model, m] / K_MAIN / nt
+                                            for m in modes if (model, m) in updates},
+            crossings_recorded=f"{crossed[model]} of {K_MAIN}")))
+        del inputs, modes, table32
+    say(14, f"every mode phase 13 runs, kernel vs plain at SpaceTime.sin(180, 2000, 1) "
+            f"K={K_MAIN} on its inputs, bitwise (MIZ with 2 fixed Newton iterations): "
+            + ", ".join(
+                f"{model} {mode} {e:.3e}" for (model, mode), e in main_err.items()))
+    draw_ms = kernel_time(lambda: normal_table(keys_dev, nt, dev), 20)
+    draw_plain_ms = host_time(lambda: prng.normal_table(keys_dev, nt, dev), 3)
+    say(14, json.dumps(dict(kernel="normal_table", shape=f"({nt}, {K_MAIN}) float32",
+                            kernel_ms_per_call=draw_ms, plain_ms_per_call=draw_plain_ms, gpu=smi)))
+
+    # -- the least time the card could take for each kernel's work ------------
+    # NVIDIA's H100 SXM data sheet (dense rates, 700 W):
+    # 3.35 TB/s, and outside the tensor cores 67 TFLOP/s f32 and 34 TFLOP/s
+    # f64, both counting an FMA as two flops. Operations here are flops in the
+    # same unit: every add, subtract, multiply, divide, min/max and comparison
+    # one, an FMA two. The draws' cipher is counted in 32-bit integer
+    # instructions, against 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (the
+    # clock at which 128 f32 lanes per SM give the 67 TFLOP/s) = 16.7e12 per
+    # second. The floating-point and integer pipes run side by side, so the
+    # operation time is the larger of the two.
+    HBM, PEAK = 3.35e12, {4: 67e12, 8: 34e12}
+    INT32 = 64 * 132 * 1.98e9
+
+    def bound(nbytes, flops, itemsize=4, int_ops=0.0):
+        t_bytes = nbytes / HBM
+        t_ops = max(flops / PEAK[itemsize], int_ops / INT32)
+        return t_bytes * 1e3 if t_bytes >= t_ops else t_ops * 1e3, \
+            "bytes" if t_bytes >= t_ops else "operations"
+
+    nx, K = CANONICAL[0], K_MAIN
+    pcr_levels = int(np.ceil(np.log2(nx)))
+    pcr_flops = 5 + 12 * pcr_levels  # row scaling, 12 per level, the last division
+    # flops per cell and step, counted from csrc/miz_year.cu and
+    # csrc/classic_year.cu: a MIZ step without its Newton updates (step
+    # inputs 13, the first T0 residual and bands 35, its block max 7, the
+    # tolerance and flag 4, the update of the five fields and the stores
+    # 139), each MIZ Newton update (the PCR solve, the clipped step 3, a new
+    # residual 35, its block max 7, the test 1), a Classic step with its PCR
+    miz_step, miz_update, classic_step = 198, pcr_flops + 46, 40 + pcr_flops
+    draw_int, draw_flops = 118, 50  # one draw: the cipher, then the float pipeline
+
+    def year_bound(model, mode, itemsize=4, newton_updates=0):
+        """A canonical K=8192 year; ``newton_updates``: the Newton updates of
+        all members, as the kernel counted them in this run."""
+        n_carry, n_out, n_par = (6, 10, 23) if model == "MIZ" else (2, 3, 18)
+        nbytes = itemsize * (K * nx * (2 * n_carry + 3 * n_out) + K * (n_par + 1) + 5 * nx
+                             + 2 * nt)
+        flops = (K * nx * nt * (miz_step if model == "MIZ" else classic_step)
+                 + nx * newton_updates * miz_update)
+        ints = 0.0
+        if mode.startswith("keys") or mode == "table/OU":
+            nbytes += itemsize * 4 * K  # OU rows in, eta out
+            flops += 4 * K * nt
+        if mode.startswith("keys"):
+            nbytes += 8 * K
+            flops += draw_flops * K * nt
+            ints += draw_int * K * nt
+        if mode.startswith("table"):
+            nbytes += itemsize * nt * K
+        if mode == "keys/assoc":
+            flops += 4 * K * nt * int(np.ceil(np.log2(nt)))
+        if mode == "keys/crossing":
+            nbytes += itemsize * 3 * K
+            flops += 2 * K * nx * nt
+        return bound(nbytes, flops, itemsize, ints)
+
+    # library yardstick: the batched tridiagonal solve as one dense torch call
+    g = np.random.default_rng(13)
+    lo_d, up_d = (torch.as_tensor(g.normal(size=(K, nx)), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    dense = (torch.diag_embed(lo_d.abs() + up_d.abs() + 1.0)
+             + torch.diag_embed(lo_d[:, 1:], -1) + torch.diag_embed(up_d[:, :-1], 1))
+    rhs = torch.as_tensor(g.normal(size=(K, nx, 1)), dtype=torch.float32, device=dev)
+    pcr_library_ms = kernel_time(lambda: torch.linalg.solve(dense, rhs), 5)
+    del dense, rhs
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
+              **extra):
+        return dict(name=name, route="cuda",
+                    source=f"energybalancemodel_jl_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms,
+                    **extra)
+
+    py = "energybalancemodel_jl_tpu/ops/pallas_year.py"
+    year_shape = f"K={K} nx={nx} nt={nt} float32, one model year"
+    kernels = {"kernels": [
+        entry("miz_year", "miz_year.cu", f"{py}:458", main_launches, max(wmain.values()),
+              kernel_ms, plain_ms,
+              year_bound("MIZ", "det", 4, det_updates[torch.float32, K_MAIN]),
+              also_replaces=f"{py}:352",
+              max_abs_err_f64_nx40=max(w64.values()), max_abs_err_f32_nx40=max(w32.values()),
+              newton_updates_per_member_step=det_updates[torch.float32, K_MAIN] / K / nt,
+              shape=year_shape + " from zero init", path="ensemble_integrate (phase 4)",
+              launches_transitions_path=ref_launches_total),
+        entry("classic_year", "classic_year.cu", f"{py}:1628", classic_launches, max(wcl.values()),
+              ctiming[torch.float32, K_MAIN][0], ctiming[torch.float32, K_MAIN][1],
+              year_bound("Classic", "det"), also_replaces=f"{py}:1378",
+              max_abs_err_nx40=max(wsmall.values()), max_abs_err_nx4096_K1=max(whi.values()),
+              shape=year_shape, path="ensemble_integrate (phase 8)"),
+        entry("pcr_fused", "pcr.cu", "energybalancemodel_jl_tpu/ops/pallas_tridiag.py:29",
+              solver_launches["pcr_fused"], pcr_err, pcr_ms, pcr_plain_ms,
+              bound(4 * 5 * K * nx, K * nx * pcr_flops), pcr_library_ms,
+              library_call="torch.linalg.solve on the dense (K, n, n) systems",
+              shape=f"({K}, {nx}) float32, one solve", path="batched engine (phase 9)"),
+        entry("newton_t0", "newton_t0.cu", "energybalancemodel_jl_tpu/ops/pallas_newton.py:90",
+              solver_launches["pallas"], newton_err, newton_ms, newton_plain_ms,
+              bound(4 * (6 * K * nx + 3 * nx + K), K * nx * 6 * (33 + pcr_flops + 3)),
+              shape=f"({K}, {nx}) float32, 6 Newton iterations", path="batched engine (phase 9)"),
+        entry("normal_table", "normal_table.cu", "scripts/tpu_check.py:468", draw_launches, 0.0,
+              draw_ms, draw_plain_ms,
+              bound(4 * nt * K + 8 * K, draw_flops * nt * K, 4, draw_int * nt * K),
+              also_replaces=f"{py}:289", shape=f"({nt}, {K}) float32 draws",
+              path="transitions(engine='scan'), Classic (phase 13)"),
+    ]}
+    k_ids = {"keys/serial": ("K7", f"{py}:682"), "keys/assoc": ("K8", f"{py}:316"),
+             "keys/crossing": ("K9", f"{py}:610"), "table/OU": ("K6", f"{py}:654"),
+             "table": ("K5", f"{py}:645")}
+    c_ids = {"keys/serial": f"{py}:703", "keys/assoc": f"{py}:316", "keys/crossing": f"{py}:1738",
+             "table/OU": f"{py}:673", "table": f"{py}:666"}
+    for model, src, launches_of, ids in (
+            ("MIZ", "miz_year.cu", mode_launches, {m: r for m, (_, r) in k_ids.items()}),
+            ("Classic", "classic_year.cu", classic_mode_launches, c_ids)):
+        for mode, replaces in ids.items():
+            small = max(v for k, v in noise_err.items()
+                        if k.startswith(model) and k.endswith(mode))
+            f64 = mode == "table/OU"  # the f64 path's mode, timed in f64
+            n_upd = updates.get((model, mode), 0)
+            kernels["kernels"].append(entry(
+                f"{model.lower()}_year[{mode}]", src, replaces, launches_of.get(mode, 0),
+                main_err.get((model, mode), small), timed[model, mode],
+                plain_timed[model, mode], year_bound(model, mode, 8 if f64 else 4, n_upd),
+                tpu_kernel=k_ids[mode][0], max_abs_err_nx40=small,
+                ms_float32_same_call=timed[model, "table/OU f32"] if f64 else None,
+                det_ms_same_call=timed[model, "det"], sigma0_ms_same_call=timed[model, "sigma0"],
+                newton_updates_per_member_step=n_upd / K / nt if model == "MIZ" else None,
+                shape=year_shape.replace("float32", "float64") if f64 else year_shape,
+                path=("transitions (phase 13)" if launches_of.get(mode, 0)
+                      else "none: an ops-level mode, no entry point uses it")))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

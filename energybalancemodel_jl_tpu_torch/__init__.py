@@ -5,8 +5,10 @@ The two energy balance models of the JAX package, forward only: the MIZ
 (marginal-ice-zone) model and the WE15 Classic model. Each is integrated one
 model year per launch of a hand-written CUDA kernel (``csrc/miz_year.cu``,
 ``csrc/classic_year.cu``) on an NVIDIA GPU, or by an eager PyTorch loop over
-the physics step on any device. Module names and array layouts follow the
-JAX package, which stays the reference the port is tested against::
+the physics step on any device; the noise-forced ``transitions`` draws its
+weather inside the same kernels (``csrc/prng.cuh``, ``csrc/noise.cuh``).
+Module names and array layouts follow the JAX package, which stays the
+reference the port is tested against::
 
     import energybalancemodel_jl_tpu_torch as ebt
 
@@ -24,7 +26,15 @@ JAX package, which stays the reference the port is tested against::
     sols = ebt.integrate("Classic", st, ebt.Forcing(0.0), cpar,
                          {"E": E0, "Tg": E0 / cpar["cw"]}, device="cuda")
 
-The package imports ``torch`` and numpy only, never ``jax``.
+    # noise-induced transitions between two states a and b (Collections of
+    # Ei, Ew, h, D, phi: the last raw step of two runs), 8192 members
+    res = ebt.transitions("MIZ", ebt.SpaceTime.sin(180, 2000, 1), ebt.Forcing(0.0),
+                          ebt.default_parameters("MIZ"), a, b, sigma=4.0, tau=0.05,
+                          K=8192, years=3)
+
+Every entry point runs on the CUDA device unless ``device="cpu"`` is passed
+(with no CUDA device, ``device=None`` raises). The package imports ``torch``
+and numpy only, never ``jax``.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from .parallel.ensemble import (EnsembleSolutions, batched_parameters,
 from .params import classic_paramset, default_parameters, default_parval, miz_paramset
 from .solutions import Seasonal, Solutions, annual_mean
 from .spacetime import SpaceTime
+from .stochastic import TransitionResult, transitions
 from .utils import Collection, Progress, update
 
 
@@ -61,6 +72,8 @@ __all__ = [
     "sweep",
     "batched_parameters",
     "EnsembleSolutions",
+    "transitions",
+    "TransitionResult",
     "default_parameters",
     "default_parval",
     "miz_paramset",

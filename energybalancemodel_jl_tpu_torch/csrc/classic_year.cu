@@ -34,7 +34,17 @@
 // few dozen flops per cell. Nothing touches device memory inside the year
 // except the forcing and cos tables (L1-resident). Resident blocks per SM
 // (members) hide part of the barrier latency; a single run uses one SM.
+//
+// The noisy years (template flag NOISY; replaces the TPU kernels
+// pallas_year.py::_classic_kernel_xk_noisy :666 (K5), _classic_kernel_xk_ou
+// :673 (K6), _classic_kernel_xk_gen_ou :703 (K7, K8) and the crossing=True
+// branch of _classic_kernel_xk (K9), launched at :1908): the block's noise row
+// in shared memory after the PCR rows, step t's forcing (f[t] + F) + offset,
+// and, with a crossing output, the area sum_i w_i [E_i < 0] of the updated E
+// in cell order each step (noise.cuh). The deterministic year is the
+// NOISY = false instantiation, unchanged.
 #include "common.cuh"
+#include "noise.cuh"
 
 namespace {
 
@@ -45,14 +55,14 @@ enum Row {
   P_F, P_S0, P_S1, P_S2, P_A0, P_A2, N_ROWS
 };
 
-template <typename T, int CPT, int MAX_THREADS>
+template <typename T, int CPT, int MAX_THREADS, bool NOISY>
 __global__ void __launch_bounds__(MAX_THREADS)
     classic_year_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
                         const T* __restrict__ cols, const T* __restrict__ cosv,
                         const T* __restrict__ fyear, T* __restrict__ cout,
                         T* __restrict__ wint, T* __restrict__ summ,
-                        T* __restrict__ avg, T* __restrict__ raw, int K, int nx,
-                        int nt, int w0, int s0, int pcr_steps, T dt) {
+                        T* __restrict__ avg, T* __restrict__ raw, NoiseArgs<T> nz, int K,
+                        int nx, int nt, int w0, int s0, int pcr_steps, T dt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int rows = CPT * blockDim.x;
@@ -89,10 +99,16 @@ __global__ void __launch_bounds__(MAX_THREADS)
     for (int v = 0; v < N_OUT; ++v) acc[c][v] = T(0);
   }
 
+  // the member's per-step noise row (after the PCR rows) and its OU and
+  // crossing state
+  NoiseState<T> ns;
+  if (NOISY) ns = noise_begin(nz, sm + 4 * rows, m, K, nt);
+
   for (int t = 0; t < nt; ++t) {
     const T s1c = S1 * cosv[t];
     const T s1n = S1 * cosv[t + 1];  // the wraparound row S_{i+1}
-    const T f = fyear[t] + Foff;
+    T f = fyear[t] + Foff;
+    if (NOISY) f = noise_forcing(nz, ns, f, t);
     T lo[CPT], di[CPT], up[CPT], b[CPT], out[CPT][N_OUT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
@@ -149,7 +165,18 @@ __global__ void __launch_bounds__(MAX_THREADS)
         for (int v = 0; v < N_OUT; ++v) row[v * plane + idx] = out[c][v];
       }
     }
+    if (NOISY && nz.cross_out != nullptr) {
+      // the instantaneous ice area: the cells with E < 0 (the PCR rows are
+      // free until the next step's solve)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int i = threadIdx.x + c * blockDim.x;
+        if (i < nx) s.lo[i] = nz.wts[i] * (out[c][0] < T(0) ? T(1) : T(0));
+      }
+      noise_crossing(ns, s.lo, nx, t);
+    }
   }
+  if (NOISY) noise_end(nz, ns, m, nt);
 
   // same `sum / nt` arithmetic as the JAX kernel and storage path
   const T ntf = T(nt);
@@ -165,46 +192,63 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-template <typename T, int CPT, int MAX_THREADS>
+template <typename T, int CPT, int MAX_THREADS, bool NOISY>
 int launch_cells(cudaStream_t stream, const void* cin, const void* pars,
                  const void* cols, const void* cosv, const void* f, void* cout,
-                 void* wint, void* summ, void* avg, void* raw, int K, int nx, int nt,
-                 int w0, int s0, int pcr_steps, double dt) {
+                 void* wint, void* summ, void* avg, void* raw, const NoiseArgs<T>& nz,
+                 int K, int nx, int nt, int w0, int s0, int pcr_steps, double dt) {
   const int threads = round_up_32((nx + CPT - 1) / CPT);
-  const size_t shmem = (size_t)4 * CPT * threads * sizeof(T);
-  auto kernel = classic_year_kernel<T, CPT, MAX_THREADS>;
+  const size_t shmem = (size_t)4 * CPT * threads * sizeof(T) +
+                       (NOISY ? noise_shared_bytes<T>(nt, nz.ou_mode) : 0);
+  if (shmem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
+  auto kernel = classic_year_kernel<T, CPT, MAX_THREADS, NOISY>;
   const cudaError_t err = allow_shared(kernel, shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<K, threads, shmem, stream>>>(
       static_cast<const T*>(cin), static_cast<const T*>(pars),
       static_cast<const T*>(cols), static_cast<const T*>(cosv),
       static_cast<const T*>(f), static_cast<T*>(cout), static_cast<T*>(wint),
-      static_cast<T*>(summ), static_cast<T*>(avg), static_cast<T*>(raw), K, nx, nt,
+      static_cast<T*>(summ), static_cast<T*>(avg), static_cast<T*>(raw), nz, K, nx, nt,
       w0, s0, pcr_steps, T(dt));
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool NOISY>
+int launch_noise(cudaStream_t st, const void* cin, const void* pars, const void* cols,
+                 const void* cosv, const void* f, void* cout, void* wint, void* summ,
+                 void* avg, void* raw, const NoiseArgs<T>& nz, int K, int nx, int nt,
+                 int w0, int s0, int pcr_steps, double dt) {
+  const int cpt = rows_per_thread(nx);
+  // the canonical grid (nx = 180) takes the 256-thread build, which may use
+  // more registers per thread than a 1024-thread block allows
+  if (cpt == 1 && round_up_32(nx) <= 256)
+    return launch_cells<T, 1, 256, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                          avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
+  if (cpt == 1)
+    return launch_cells<T, 1, 1024, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                           avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
+  if (cpt == 2)
+    return launch_cells<T, 2, 1024, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                           avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
+  return launch_cells<T, 4, 1024, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                         avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
 }
 
 template <typename T>
 int launch(const void* cin, const void* pars, const void* cols, const void* cosv,
            const void* f, void* cout, void* wint, void* summ, void* avg, void* raw,
-           int K, int nx, int nt, int w0, int s0, int pcr_steps, double dt,
-           void* stream) {
+           const void* noise, const void* keys, const void* ou, void* eta_out,
+           const void* cross, void* cross_out, const void* wts, int K, int nx, int nt,
+           int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll, double dt, void* stream) {
   if (K < 1 || nx < 1 || nx > 4096 || nt < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int cpt = rows_per_thread(nx);
-  // the canonical grid (nx = 180) takes the 256-thread build, which may use
-  // more registers per thread than a 1024-thread block allows
-  if (cpt == 1 && round_up_32(nx) <= 256)
-    return launch_cells<T, 1, 256>(st, cin, pars, cols, cosv, f, cout, wint, summ,
-                                   avg, raw, K, nx, nt, w0, s0, pcr_steps, dt);
-  if (cpt == 1)
-    return launch_cells<T, 1, 1024>(st, cin, pars, cols, cosv, f, cout, wint, summ,
-                                    avg, raw, K, nx, nt, w0, s0, pcr_steps, dt);
-  if (cpt == 2)
-    return launch_cells<T, 2, 1024>(st, cin, pars, cols, cosv, f, cout, wint, summ,
-                                    avg, raw, K, nx, nt, w0, s0, pcr_steps, dt);
-  return launch_cells<T, 4, 1024>(st, cin, pars, cols, cosv, f, cout, wint, summ,
-                                  avg, raw, K, nx, nt, w0, s0, pcr_steps, dt);
+  const NoiseArgs<T> nz = noise_args<T>(noise, keys, ou, eta_out, cross, cross_out, wts,
+                                        ou_mode, ou_unroll);
+  if (noise != nullptr || keys != nullptr)
+    return launch_noise<T, true>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
+                                 nz, K, nx, nt, w0, s0, pcr_steps, dt);
+  return launch_noise<T, false>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
+                                nz, K, nx, nt, w0, s0, pcr_steps, dt);
 }
 
 }  // namespace
@@ -213,18 +257,24 @@ extern "C" {
 
 int ebm_classic_year_f32(const void* cin, const void* pars, const void* cols,
                          const void* cosv, const void* f, void* cout, void* wint,
-                         void* summ, void* avg, void* raw, int K, int nx, int nt,
-                         int w0, int s0, int pcr_steps, double dt, void* stream) {
-  return launch<float>(cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, K, nx,
-                       nt, w0, s0, pcr_steps, dt, stream);
+                         void* summ, void* avg, void* raw, const void* noise,
+                         const void* keys, const void* ou, void* eta_out, const void* cross,
+                         void* cross_out, const void* wts, int K, int nx, int nt,
+                         int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll, double dt, void* stream) {
+  return launch<float>(cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, noise, keys, ou,
+                       eta_out, cross, cross_out, wts, K, nx,
+                       nt, w0, s0, pcr_steps, ou_mode, ou_unroll, dt, stream);
 }
 
 int ebm_classic_year_f64(const void* cin, const void* pars, const void* cols,
                          const void* cosv, const void* f, void* cout, void* wint,
-                         void* summ, void* avg, void* raw, int K, int nx, int nt,
-                         int w0, int s0, int pcr_steps, double dt, void* stream) {
-  return launch<double>(cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, K, nx,
-                        nt, w0, s0, pcr_steps, dt, stream);
+                         void* summ, void* avg, void* raw, const void* noise,
+                         const void* keys, const void* ou, void* eta_out, const void* cross,
+                         void* cross_out, const void* wts, int K, int nx, int nt,
+                         int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll, double dt, void* stream) {
+  return launch<double>(cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, noise, keys, ou,
+                       eta_out, cross, cross_out, wts, K, nx,
+                        nt, w0, s0, pcr_steps, ou_mode, ou_unroll, dt, stream);
 }
 
 }  // extern "C"

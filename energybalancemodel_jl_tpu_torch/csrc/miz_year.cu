@@ -40,10 +40,37 @@
 // per SM (members) hide part of that latency; a wide ensemble fills the card,
 // a single run uses one SM.
 //
+// The COUNT = true instantiation (iters != nullptr) also counts the member's
+// Newton updates over the year, thread 0 in shared memory, into iters[m]: the
+// work behind the Newton part of the year's operation count. It is a build of
+// its own so that the instantiations that run the model keep their registers
+// (a counter live across the time loop cost the noisy f32 build 2 registers,
+// past the 112 that let 3 blocks of 192 threads share an SM).
+//
 // Minimums and maximums propagate NaN like jnp.minimum/jnp.maximum (and
 // torch.minimum), and the Newton step clip keeps NaN, so the non-finite
 // freeze of ops/newton.py sees the same values as the plain version.
+//
+// The noisy years (template flag NOISY; replaces the TPU kernels
+// pallas_year.py::_kernel_xk_noisy :645 (K5), _kernel_xk_ou :654 (K6),
+// _kernel_xk_gen_ou :682 with _gen_noise_xk :289 (K7), _assoc_ou_path :316
+// (K8) and the crossing=True branch of _kernel_xk (K9)): before the time loop
+// the block fills one nt-long row of shared memory with its member's
+// per-step values, from the (nt, K) table or drawn from its (K, 2) key
+// (prng.cuh). Step t's forcing is (f[t] + F) + offset, in that order
+// (pallas_year.py:586-591); the offset is the row itself, or the OU value
+// eta = fma(rho, eta, scale * xi[t]) kept in a register (serial), or the row
+// after an in-place log-depth OU scan (assoc). With a crossing output, each
+// step also sums w_i phi_i over the member's cells in cell order (NaN counts
+// as 0) and records the first step where sign * (area - thr) > 0. The noise
+// work is one row fill and a few operations per step; the year stays bound by
+// its barrier chain, and the NOISY build's larger register count (fewer
+// resident blocks per SM, PERF.md) costs more than the noise work itself.
+// The deterministic year is the NOISY = false instantiation, unchanged.
+#include <type_traits>
+
 #include "common.cuh"
+#include "noise.cuh"
 
 namespace {
 
@@ -131,19 +158,21 @@ __device__ __forceinline__ void residual_bands(T T0, const Cell<T>& c, const T* 
 
 // MAX_THREADS bounds the block so the compiler keeps the register count a
 // block of that size can launch with
-template <typename T, int MAX_THREADS>
+template <typename T, int MAX_THREADS, bool NOISY, bool COUNT>
 __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
                                 const T* __restrict__ cols, const T* __restrict__ cosv,
                                 const T* __restrict__ fyear, T* __restrict__ cout,
                                 T* __restrict__ wint, T* __restrict__ summ,
                                 T* __restrict__ avg, T* __restrict__ conv,
-                                T* __restrict__ raw, int K,
+                                int* __restrict__ iters, T* __restrict__ raw,
+                                NoiseArgs<T> nz, int K,
                                 int nx, int nt, int w0, int s0, int pcr_steps,
                                 int max_iter, T dt, T abstol, T reltol, T max_step) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nxp = blockDim.x;
   __shared__ T p[N_ROWS];
+  __shared__ int n_updates;  // COUNT: the member's Newton updates, by thread 0
   const Shared<T> s{{sm, sm + nxp, sm + 2 * nxp, sm + 3 * nxp},
                     sm + 4 * nxp, sm + 5 * nxp, sm + 6 * nxp};
 
@@ -154,6 +183,7 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
   const size_t idx = (size_t)m * nx + (active ? i : 0);
 
   if (i < N_ROWS) p[i] = pars[(size_t)m * N_ROWS + i];
+  if (COUNT && i == 0) n_updates = 0;
   __syncthreads();
   const T Tm = p[P_TM], A = p[P_A], B = p[P_B], ai = p[P_AI], Fb = p[P_FB],
           cw = p[P_CW], m1 = p[P_M1], Lf = p[P_LF], alpha = p[P_ALPHA],
@@ -184,11 +214,16 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
 #pragma unroll
   for (int j = 0; j < N_OUT; ++j) acc[j] = T(0);
   T conv_m = T(1);
+  // the member's per-step noise row (after the PCR, exchange and reduction
+  // buffers) and its OU and crossing state
+  NoiseState<T> ns;
+  if (NOISY) ns = noise_begin(nz, sm + 6 * nxp + 32, m, K, nt);
 
   for (int t = 0; t < nt; ++t) {
     // -- step inputs ------------------------------------------------------
     c.insol = (S0 - (S1 * c.x) * cosv[t]) - S2 * c.x2;
     c.f = fyear[t] + Foff;
+    if (NOISY) c.f = noise_forcing(nz, ns, c.f, t);
 
     // -- temperatures ------------------------------------------------------
     const T den = (T(1) - phi) * cw;
@@ -209,6 +244,7 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
       if (active) T0 = T0 + clip_step(delta[0], max_step);
       residual_bands(T0, c, p, s, i, nx, active, r, jlo, jdi, jup);
       rnorm = block_max(active ? abs_val(r) : T(0), s.red);
+      if (COUNT && i == 0) ++n_updates;
     }
     conv_m = nan_min(conv_m, rnorm <= tol ? T(1) : T(0));
 
@@ -293,7 +329,13 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
 #pragma unroll
       for (int j = 0; j < N_OUT; ++j) row[j * plane + idx] = out[j];
     }
+    if (NOISY && nz.cross_out != nullptr) {
+      // the instantaneous ice area, phi with NaN counted as 0
+      if (active) s.va[i] = nz.wts[i] * (is_nan(phi1) ? T(0) : phi1);
+      noise_crossing(ns, s.va, nx, t);
+    }
   }
+  if (NOISY) noise_end(nz, ns, m, nt);
 
   if (active) {
     const T carry[N_CARRY] = {Ei, Ew, h, Df, phi, T0};
@@ -305,16 +347,17 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
     for (int j = 0; j < N_OUT; ++j) avg[j * plane + idx] = acc[j] / ntf;
   }
   if (i == 0) conv[m] = conv_m;
+  if (COUNT && i == 0) iters[m] = n_updates;
 }
 
-template <typename T, int MAX_THREADS>
+template <typename T, int MAX_THREADS, bool NOISY, bool COUNT>
 int launch_block(int K, int threads, size_t shmem, cudaStream_t stream,
                  const void* cin, const void* pars, const void* cols,
                  const void* cosv, const void* f, void* cout, void* wint,
-                 void* summ, void* avg, void* conv, void* raw, int nx, int nt, int w0,
-                 int s0, int pcr_steps, int max_iter, double dt, double abstol,
-                 double reltol, double max_step) {
-  auto kernel = miz_year_kernel<T, MAX_THREADS>;
+                 void* summ, void* avg, void* conv, void* iters, void* raw,
+                 const NoiseArgs<T>& nz, int nx, int nt, int w0, int s0, int pcr_steps,
+                 int max_iter, double dt, double abstol, double reltol, double max_step) {
+  auto kernel = miz_year_kernel<T, MAX_THREADS, NOISY, COUNT>;
   const cudaError_t err = allow_shared(kernel, shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<K, threads, shmem, stream>>>(
@@ -322,29 +365,55 @@ int launch_block(int K, int threads, size_t shmem, cudaStream_t stream,
       static_cast<const T*>(cols), static_cast<const T*>(cosv),
       static_cast<const T*>(f), static_cast<T*>(cout), static_cast<T*>(wint),
       static_cast<T*>(summ), static_cast<T*>(avg), static_cast<T*>(conv),
-      static_cast<T*>(raw), K, nx,
+      static_cast<int*>(iters), static_cast<T*>(raw), nz, K, nx,
       nt, w0, s0, pcr_steps, max_iter, T(dt), T(abstol), T(reltol), T(max_step));
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool NOISY, bool COUNT>
+int launch_threads(int K, int threads, size_t shmem, cudaStream_t st, const void* cin,
+                   const void* pars, const void* cols, const void* cosv, const void* f,
+                   void* cout, void* wint, void* summ, void* avg, void* conv, void* iters,
+                   void* raw, const NoiseArgs<T>& nz, int nx, int nt, int w0, int s0,
+                   int pcr_steps, int max_iter, double dt, double abstol, double reltol,
+                   double max_step) {
+  // the canonical grid (nx = 180) takes the 256-thread build, which may use
+  // more registers per thread than a 1024-thread block allows
+  if (threads <= 256)
+    return launch_block<T, 256, NOISY, COUNT>(
+        K, threads, shmem, st, cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters,
+        raw, nz, nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol, max_step);
+  return launch_block<T, 1024, NOISY, COUNT>(
+      K, threads, shmem, st, cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters,
+      raw, nz, nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol, max_step);
 }
 
 template <typename T>
 int launch(const void* cin, const void* pars, const void* cols, const void* cosv,
            const void* f, void* cout, void* wint, void* summ, void* avg, void* conv,
-           void* raw, int K, int nx, int nt, int w0, int s0, int pcr_steps, int max_iter,
+           void* iters, void* raw, const void* noise, const void* keys, const void* ou,
+           void* eta_out, const void* cross, void* cross_out, const void* wts, int K, int nx,
+           int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode, int ou_unroll,
            double dt, double abstol, double reltol, double max_step, void* stream) {
   if (K < 1 || nx < 1 || nx > 1024 || nt < 1) return (int)cudaErrorInvalidValue;
   const int threads = ((nx + 31) / 32) * 32;
-  const size_t shmem = (size_t)(6 * threads + 32) * sizeof(T);
+  const NoiseArgs<T> nz = noise_args<T>(noise, keys, ou, eta_out, cross, cross_out, wts,
+                                        ou_mode, ou_unroll);
+  const bool noisy = noise != nullptr || keys != nullptr;
+  const size_t shmem = (size_t)(6 * threads + 32) * sizeof(T) +
+                       (noisy ? noise_shared_bytes<T>(nt, ou_mode) : 0);
+  if (shmem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the canonical grid (nx = 180) takes the 256-thread build, which may use
-  // more registers per thread than a 1024-thread block allows
-  if (threads <= 256)
-    return launch_block<T, 256>(K, threads, shmem, st, cin, pars, cols, cosv, f,
-                                cout, wint, summ, avg, conv, raw, nx, nt, w0, s0,
-                                pcr_steps, max_iter, dt, abstol, reltol, max_step);
-  return launch_block<T, 1024>(K, threads, shmem, st, cin, pars, cols, cosv, f,
-                               cout, wint, summ, avg, conv, raw, nx, nt, w0, s0,
-                               pcr_steps, max_iter, dt, abstol, reltol, max_step);
+  // the four builds: NOISY by the noise inputs, COUNT by the count output
+  auto run = [&](auto noisy_c, auto count_c) {
+    return launch_threads<T, decltype(noisy_c)::value, decltype(count_c)::value>(
+        K, threads, shmem, st, cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters,
+        raw, nz, nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol, max_step);
+  };
+  const std::true_type yes;
+  const std::false_type no;
+  if (noisy) return iters != nullptr ? run(yes, yes) : run(yes, no);
+  return iters != nullptr ? run(no, yes) : run(no, no);
 }
 
 }  // namespace
@@ -353,21 +422,29 @@ extern "C" {
 
 int ebm_miz_year_f32(const void* cin, const void* pars, const void* cols,
                      const void* cosv, const void* f, void* cout, void* wint,
-                     void* summ, void* avg, void* conv, void* raw, int K, int nx, int nt,
-                     int w0, int s0, int pcr_steps, int max_iter, double dt,
-                     double abstol, double reltol, double max_step, void* stream) {
-  return launch<float>(cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, raw, K,
-                       nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol,
+                     void* summ, void* avg, void* conv, void* iters, void* raw,
+                     const void* noise, const void* keys, const void* ou, void* eta_out,
+                     const void* cross, void* cross_out, const void* wts, int K, int nx,
+                     int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
+                     int ou_unroll, double dt, double abstol, double reltol,
+                     double max_step, void* stream) {
+  return launch<float>(cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
+                       noise, keys, ou, eta_out, cross, cross_out, wts, K, nx, nt, w0, s0,
+                       pcr_steps, max_iter, ou_mode, ou_unroll, dt, abstol, reltol,
                        max_step, stream);
 }
 
 int ebm_miz_year_f64(const void* cin, const void* pars, const void* cols,
                      const void* cosv, const void* f, void* cout, void* wint,
-                     void* summ, void* avg, void* conv, void* raw, int K, int nx, int nt,
-                     int w0, int s0, int pcr_steps, int max_iter, double dt,
-                     double abstol, double reltol, double max_step, void* stream) {
-  return launch<double>(cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, raw, K,
-                        nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol,
+                     void* summ, void* avg, void* conv, void* iters, void* raw,
+                     const void* noise, const void* keys, const void* ou, void* eta_out,
+                     const void* cross, void* cross_out, const void* wts, int K, int nx,
+                     int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
+                     int ou_unroll, double dt, double abstol, double reltol,
+                     double max_step, void* stream) {
+  return launch<double>(cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
+                        noise, keys, ou, eta_out, cross, cross_out, wts, K, nx, nt, w0, s0,
+                        pcr_steps, max_iter, ou_mode, ou_unroll, dt, abstol, reltol,
                         max_step, stream);
 }
 

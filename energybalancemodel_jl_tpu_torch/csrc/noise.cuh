@@ -1,0 +1,153 @@
+// The noise modes of the whole-year kernels (miz_year.cu, classic_year.cu),
+// shared: the per-member noise row in shared memory, the OU recurrence
+// (serial, or the log-depth scan), and the in-year crossing detector.
+//
+// They stand for the JAX package's pallas_year.py::_kernel_xk /
+// _classic_kernel_xk keyword modes (noise=, noise_ou=, noise_keys=,
+// ou_assoc=True, crossing=; :552-643, :1686-1762) and follow the plain
+// versions of ops/_year.py operation for operation: the recurrence is
+// eta = fma(rho, eta, scale * xi) (XLA's contraction of rho * eta + scale * xi),
+// the scan y_t = fma(rho^d, y_{t-d}, y_t), p_t = p_t * p_{t-d}, then
+// eta_t = fma(p_t, eta0, y_t), and the crossing area is summed in cell order.
+#pragma once
+
+#include <cstdint>
+
+#include "prng.cuh"
+
+namespace {
+
+// the shared memory a block can use on Hopper (232,448 bytes)
+constexpr size_t MAX_SHARED_BYTES = 232448;
+
+template <typename T> __device__ __forceinline__ T fma_rn(T a, T b, T c);
+template <> __device__ __forceinline__ float fma_rn<float>(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+template <> __device__ __forceinline__ double fma_rn<double>(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// ou_mode: 0 the row is added as it is, 1 serial OU over the row, 2 the
+// row replaced by its log-depth OU path before the time loop
+template <typename T>
+struct NoiseArgs {
+  const T* noise;        // (nt, K) table, or nullptr
+  const uint32_t* keys;  // (K, 2) member keys, or nullptr (float only)
+  const T* ou;           // (K, 3): rho, scale, eta0, or nullptr
+  T* eta_out;            // (K,) year-end OU value, or nullptr
+  const T* cross;        // (K, 2): threshold, sign, or nullptr
+  T* cross_out;          // (K,) first crossing step (-1: none), or nullptr
+  const T* wts;          // (nx,) trapezoid weights of the crossing area
+  int ou_mode;
+  int ou_unroll;         // a power of two
+};
+
+template <typename T>
+NoiseArgs<T> noise_args(const void* noise, const void* keys, const void* ou, void* eta_out,
+                        const void* cross, void* cross_out, const void* wts, int ou_mode,
+                        int ou_unroll) {
+  return NoiseArgs<T>{static_cast<const T*>(noise), static_cast<const uint32_t*>(keys),
+                      static_cast<const T*>(ou), static_cast<T*>(eta_out),
+                      static_cast<const T*>(cross), static_cast<T*>(cross_out),
+                      static_cast<const T*>(wts), ou_mode, ou_unroll};
+}
+
+// the noise row, plus the scan's three work rows in assoc mode
+template <typename T>
+size_t noise_shared_bytes(int nt, int ou_mode) {
+  return (size_t)nt * sizeof(T) * (ou_mode == 2 ? 4 : 1);
+}
+
+template <typename T>
+struct NoiseState {
+  T* row;
+  T rho, scale, eta;
+  T thr, sign, first;  // crossing: first is valid in thread 0
+};
+
+// rows[0..nt) <- the OU path over the white row, by a Hillis-Steele scan
+// over time with rho^d squared at each level (rows[nt..4 nt) are work space)
+template <typename T>
+__device__ void assoc_ou_row(T* row, int nt, T rho, T scale, T eta0) {
+  T *y = row, *p = row + nt, *y2 = row + 2 * nt, *p2 = row + 3 * nt;
+  for (int t = threadIdx.x; t < nt; t += blockDim.x) {
+    y[t] = scale * y[t];
+    p[t] = rho;
+  }
+  __syncthreads();
+  T r = rho;
+  for (int d = 1; d < nt; d *= 2) {
+    for (int t = threadIdx.x; t < nt; t += blockDim.x) {
+      const bool h = t >= d;
+      y2[t] = fma_rn(r, h ? y[t - d] : T(0), y[t]);
+      p2[t] = p[t] * (h ? p[t - d] : T(1));
+    }
+    __syncthreads();
+    T* sw = y; y = y2; y2 = sw;
+    sw = p; p = p2; p2 = sw;
+    r = r * r;
+  }
+  for (int t = threadIdx.x; t < nt; t += blockDim.x) row[t] = fma_rn(p[t], eta0, y[t]);
+  __syncthreads();
+}
+
+// fill member m's row (drawn from its key, or its column of the table) and
+// set up its OU and crossing state; every thread of the block calls it
+template <typename T>
+__device__ NoiseState<T> noise_begin(const NoiseArgs<T>& nz, T* row, int m, int K, int nt) {
+  NoiseState<T> ns;
+  ns.row = row;
+  if (nz.keys != nullptr) {
+    const uint32_t k1 = nz.keys[2 * m], k2 = nz.keys[2 * m + 1];
+    for (int t = threadIdx.x; t < nt; t += blockDim.x) row[t] = T(normal_draw(k1, k2, t));
+  } else {
+    for (int t = threadIdx.x; t < nt; t += blockDim.x) row[t] = nz.noise[(size_t)t * K + m];
+  }
+  ns.rho = nz.ou != nullptr ? nz.ou[3 * m] : T(0);
+  ns.scale = nz.ou != nullptr ? nz.ou[3 * m + 1] : T(0);
+  ns.eta = nz.ou != nullptr ? nz.ou[3 * m + 2] : T(0);
+  ns.thr = nz.cross != nullptr ? nz.cross[2 * m] : T(0);
+  ns.sign = nz.cross != nullptr ? nz.cross[2 * m + 1] : T(0);
+  ns.first = T(-1);
+  __syncthreads();
+  if (nz.ou_mode == 2) assoc_ou_row(row, nt, ns.rho, ns.scale, ns.eta);
+  return ns;
+}
+
+// step t's forcing (f[t] + F) + offset
+template <typename T>
+__device__ __forceinline__ T noise_forcing(const NoiseArgs<T>& nz, NoiseState<T>& ns, T f,
+                                           int t) {
+  if (nz.ou_mode == 1) {
+    const T xi = ns.row[t];
+    ns.eta = (t & (nz.ou_unroll - 1)) == 0 ? fma_rn(ns.rho, ns.eta, ns.scale * xi)
+                                            : fma_rn(ns.scale, xi, ns.rho * ns.eta);
+    return f + ns.eta;
+  }
+  return f + ns.row[t];
+}
+
+// after the block wrote w_i * field_i to buf[i] for its nx cells: thread 0
+// sums them in cell order and records a first crossing at step t
+template <typename T>
+__device__ __forceinline__ void noise_crossing(NoiseState<T>& ns, const T* buf, int nx, int t) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T area = buf[0];
+    for (int j = 1; j < nx; ++j) area = area + buf[j];
+    if (ns.first < T(0) && ns.sign * (area - ns.thr) > T(0)) ns.first = T(t);
+  }
+  __syncthreads();
+}
+
+// the year-end OU value and the first crossing step of member m
+template <typename T>
+__device__ __forceinline__ void noise_end(const NoiseArgs<T>& nz, const NoiseState<T>& ns,
+                                          int m, int nt) {
+  if (threadIdx.x != 0) return;
+  if (nz.eta_out != nullptr) nz.eta_out[m] = nz.ou_mode == 1 ? ns.eta : ns.row[nt - 1];
+  if (nz.cross_out != nullptr) nz.cross_out[m] = ns.first;
+}
+
+}  // namespace

@@ -61,9 +61,17 @@ def resolve_dtype(dtype) -> torch.dtype:
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` -> the CPU. There is no implicit device: a run goes to a GPU
-    only when ``device`` names one."""
-    return torch.device("cpu" if device is None else device)
+    """``None`` -> the CUDA device: the port runs on the card unless the
+    caller asks for the CPU (``device="cpu"``). With no CUDA device, ``None``
+    raises ``RuntimeError`` instead of running on the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU by default; pass "
+            "device=\"cpu\" to run its plain PyTorch versions on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def auto_is_fused(model: str, device: torch.device, solver: str) -> bool:
@@ -123,7 +131,7 @@ def _as_tensor(v, dtype, device):
 
 
 def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
-                 collect_raw: bool):
+                 collect_raw: bool, step_hook: Optional[Callable] = None):
     """The one-year function ``(carry, par, fyear) -> (carry, seasonal,
     converged, raw_or_None)`` of the scan and batched engines, and the plain
     version of the whole-year kernel: an eager loop over the model's step.
@@ -136,6 +144,8 @@ def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
     summer snapshots at the tick indices, ``sum / nt``); ``collect_raw``
     additionally stacks every step's outputs along a leading time axis.
     ``converged`` is the minimum of the per-step Newton flags.
+    ``step_hook(t, outputs)``, when given, sees every step's outputs (the
+    noisy years' in-year crossing detector).
     """
     spec = get_model(model_name)
     w0 = st.winter_inx - 1  # reference tick indices are 1-based (:573-589)
@@ -154,6 +164,8 @@ def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
             step_conv = out.pop("newton_converged", None)
             if step_conv is not None:
                 conv = step_conv if conv is None else torch.minimum(conv, step_conv)
+            if step_hook is not None:
+                step_hook(t, out)
             acc = out if acc is None else Collection({k: acc[k] + out[k] for k in acc})
             if t == w0:
                 wint = out
@@ -221,7 +233,8 @@ def integrate(
     | 'none') overrides it. ``verbose=True`` warns when the MIZ
     surface-temperature solve fails to converge in a year (the Classic step
     has no Newton solve). ``dtype`` defaults to float32; ``device`` to the
-    CPU. ``solver`` selects the tridiagonal solver: ``'pcr'`` or
+    CUDA device (:func:`resolve_device`; pass ``"cpu"`` for the CPU).
+    ``solver`` selects the tridiagonal solver: ``'pcr'`` or
     ``'pcr_fused'`` (on the fused engine both run the kernel's PCR), or, on
     the scan engine, ``'thomas'`` and ``'pallas'`` (a single run's MIZ
     Newton stays adaptive: the fixed-iteration kernel takes ``(K, nx)``

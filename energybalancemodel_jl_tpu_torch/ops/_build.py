@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load_library", "build_log", "launch", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_log", "launch", "launch_raw", "NVCC_FLAGS"]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -41,15 +41,20 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # name -> (argtypes, restype) of every exported C entry point
 _SIGNATURES = {
-    # (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, raw,
-    #  K, nx, nt, w0, s0, pcr_steps, max_iter,
+    # (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
+    #  noise, keys, ou, eta_out, cross, cross_out, wts,
+    #  K, nx, nt, w0, s0, pcr_steps, max_iter, ou_mode, ou_unroll,
     #  dt, abstol, reltol, max_step, stream)
-    "ebm_miz_year_f32": ([_P] * 11 + [_I] * 7 + [_D] * 4 + [_P], _I),
-    "ebm_miz_year_f64": ([_P] * 11 + [_I] * 7 + [_D] * 4 + [_P], _I),
+    "ebm_miz_year_f32": ([_P] * 19 + [_I] * 9 + [_D] * 4 + [_P], _I),
+    "ebm_miz_year_f64": ([_P] * 19 + [_I] * 9 + [_D] * 4 + [_P], _I),
     # (cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
-    #  K, nx, nt, w0, s0, pcr_steps, dt, stream)
-    "ebm_classic_year_f32": ([_P] * 10 + [_I] * 6 + [_D] + [_P], _I),
-    "ebm_classic_year_f64": ([_P] * 10 + [_I] * 6 + [_D] + [_P], _I),
+    #  noise, keys, ou, eta_out, cross, cross_out, wts,
+    #  K, nx, nt, w0, s0, pcr_steps, ou_mode, ou_unroll, dt, stream)
+    "ebm_classic_year_f32": ([_P] * 17 + [_I] * 8 + [_D] + [_P], _I),
+    "ebm_classic_year_f64": ([_P] * 17 + [_I] * 8 + [_D] + [_P], _I),
+    # (keys, out, K, nt, stream) and (bits, out, n, stream)
+    "ebm_normal_table": ([_P] * 2 + [_I] * 2 + [_P], _I),
+    "ebm_normal_bits": ([_P] * 2 + [_I] + [_P], _I),
     # (lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride, steps, stream)
     "ebm_pcr_f32": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "ebm_pcr_f64": ([_P] * 5 + [_I] * 6 + [_P], _I),
@@ -158,8 +163,14 @@ def launch(name: str, dtype: torch.dtype, device, *args) -> None:
     suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
     if suffix is None:
         raise ValueError(f"the {name} kernel takes float32 or float64, got {dtype}")
+    launch_raw(f"{name}_{suffix}", device, *args)
+
+
+def launch_raw(name: str, device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current CUDA
+    stream of ``device``; raise if the launch was refused."""
     lib = load_library()
-    fn = getattr(lib, f"{name}_{suffix}")
+    fn = getattr(lib, name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     check(lib, err)

@@ -1,11 +1,26 @@
 """Argument handling shared by the whole-year kernel wrappers
-(:mod:`.miz_year`, :mod:`.classic_year`)."""
+(:mod:`.miz_year`, :mod:`.classic_year`), and the noise modes of their plain
+versions.
+
+The noise modes are those of the JAX package's whole-year kernels
+(``ops/pallas_year.py:925-928``): a per-step per-member forcing offset
+table (``noise=``), the OU recurrence over a white table (``noise_ou=``),
+white draws made from per-member keys (``noise_keys=``), the log-depth OU
+path (``ou_assoc=True``), and the first step whose instantaneous ice area
+crosses a per-member threshold (``crossing=``). The TPU padding helpers of
+the JAX module have no counterpart: a block per member pads nothing.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["member_columns", "check_year_args", "check_width"]
+from . import prng
+
+__all__ = ["member_columns", "check_year_args", "check_width", "check_noise_args",
+           "check_crossing_args", "trapezoid_weights", "ou_path", "assoc_ou_path",
+           "classic_ou_unroll", "noise_offsets", "member_rows", "keys_tensor",
+           "CrossingTracker", "NoiseLaunch", "year_result", "MAX_SHARED_BYTES"]
 
 
 def member_columns(par, names, K: int, dtype, device):
@@ -13,20 +28,27 @@ def member_columns(par, names, K: int, dtype, device):
     forcing offset. Each leaf of ``par`` is a scalar (shared) or has shape
     ``(K,)`` (swept); ``"F"`` is optional (a per-member constant added to the
     forcing, 0 when absent)."""
-    def col(v):
-        v = torch.as_tensor(v, dtype=dtype, device=device)
-        if v.ndim == 0:
-            return v.expand(K)
-        v = v.reshape(-1)
-        if v.shape[0] != K:
-            raise ValueError(
-                f"swept parameter leaves must have shape ({K},), got {tuple(v.shape)}"
-            )
-        return v
-
-    cols = {n: col(par[n]) for n in names}
-    cols["F"] = col(par.get("F", 0.0))
+    cols = {n: _member_col(par[n], K, dtype, device) for n in names}
+    cols["F"] = _member_col(par.get("F", 0.0), K, dtype, device)
     return cols
+
+
+def _member_col(v, K: int, dtype, device):
+    v = torch.as_tensor(v, dtype=dtype, device=device)
+    if v.ndim == 0:
+        return v.expand(K)
+    v = v.reshape(-1)
+    if v.shape[0] != K:
+        raise ValueError(
+            f"swept parameter leaves must have shape ({K},), got {tuple(v.shape)}"
+        )
+    return v
+
+
+def member_rows(values, K: int, dtype, device) -> torch.Tensor:
+    """``(K, len(values))``: each value a scalar or ``(K,)``, one column
+    each (the OU and crossing rows of the kernels)."""
+    return torch.stack([_member_col(v, K, dtype, device) for v in values], dim=1).contiguous()
 
 
 def check_year_args(carry, keys, fyear, st, what: str):
@@ -58,3 +80,241 @@ def check_width(kernel: str, nx: int, max_nx: int, layout: str) -> None:
             f"the {kernel} kernel runs {layout} (nx <= {max_nx}); nx={nx} needs "
             "the high-resolution layout of ROADMAP Queue 1 M8"
         )
+
+
+def check_noise_args(dtype, noise, noise_ou, noise_keys, ou_assoc, collect_raw=False):
+    """The noise-mode argument checks of the whole-year wrappers, with the
+    JAX package's messages (``pallas_year.py:211-241``). A raw-collected
+    year takes no noise (its fourth result is the raw store, a noisy
+    year's is the year-end OU value)."""
+    if noise is not None and noise_keys is not None:
+        raise ValueError(
+            "noise= (explicit table) and noise_keys= (in-kernel "
+            "generation) are mutually exclusive")
+    if noise_keys is not None and dtype != torch.float32:
+        raise ValueError(
+            "noise_keys generates float32 draws (the jax.random.normal "
+            "f32 pipeline); run the ensemble in float32 or pass an "
+            "explicit noise= table")
+    if noise_ou is not None and noise is None and noise_keys is None:
+        raise ValueError(
+            "noise_ou requires the white-noise table (noise=) or "
+            "in-kernel generation keys (noise_keys=)")
+    if noise_keys is not None and noise_ou is None:
+        raise ValueError(
+            "noise_keys= requires noise_ou= (the JAX kernels keep padded "
+            "lanes deterministic through the OU scale); for plain "
+            "white-noise offsets pass an explicit noise= table")
+    if ou_assoc and (noise_ou is None or noise_keys is None):
+        raise ValueError(
+            "ou_assoc=True precomputes the OU path over the generated "
+            "scratch — it requires noise_keys= and noise_ou=")
+    if collect_raw and (noise is not None or noise_keys is not None):
+        raise ValueError("a raw-collected year takes no noise= or noise_keys=")
+
+
+def check_crossing_args(crossing, noise_keys, noise_ou) -> None:
+    """JAX ``pallas_year.py:244-254``."""
+    if crossing is None:
+        return
+    if noise_keys is None or noise_ou is None:
+        raise ValueError(
+            "crossing= (in-kernel first-crossing detection) is only "
+            "wired through the generating OU kernels; it requires "
+            "noise_keys= and noise_ou=")
+    if len(crossing) != 2:
+        raise ValueError("crossing must be (threshold, sign) per-member rows")
+
+
+def trapezoid_weights(x, dtype, device=None) -> torch.Tensor:
+    """Per-cell weights ``w`` with ``sum_i w_i v_i`` the trapezoid integral
+    ``sum_i (v_i + v_{i+1}) (x_{i+1} - x_i) / 2`` up to summation order:
+    ``w_0 = dx_0/2, w_i = (dx_{i-1} + dx_i)/2, w_{nx-1} = dx_{nx-2}/2``, in
+    float64 and then cast (JAX ``pallas_year.py:194-208``)."""
+    x = np.asarray(x, dtype=np.float64)
+    dx = np.diff(x)
+    w = np.zeros(x.shape[0], dtype=np.float64)
+    w[0] = dx[0] / 2.0
+    w[1:-1] = (dx[:-1] + dx[1:]) / 2.0
+    w[-1] = dx[-1] / 2.0
+    return torch.as_tensor(w, dtype=dtype, device=device)
+
+
+def _fma(dtype):
+    return prng.fma_f32 if dtype == torch.float32 else prng.fma_f64
+
+
+def ou_path(xi, rho, scale, eta0, unroll: int = 1) -> torch.Tensor:
+    """The serial OU recurrence over the rows of a ``(nt, K)`` white table
+    from ``eta0``: ``eta_t = fma(rho, eta_{t-1}, scale * xi_t)``, the
+    contraction XLA makes of ``rho * eta + scale * xi`` (JAX
+    ``stochastic.py:294-296``, ``pallas_year.py:588``) and the kernels' own.
+    With ``unroll = u > 1`` only steps ``t % u == 0`` contract so, the others
+    as ``fma(scale, xi_t, rho * eta_{t-1})``: how XLA:CPU evaluates the JAX
+    Classic kernel, whose time loop is unrolled ``u``-fold
+    (``pallas_year.py:49-89``; :func:`classic_ou_unroll`). ``rho``,
+    ``scale``, ``eta0`` are scalars or ``(K,)``; returns the ``(nt, K)``
+    path."""
+    fma = _fma(xi.dtype)
+    K = xi.shape[1]
+    rho, scale, eta = (_member_col(v, K, xi.dtype, xi.device) for v in (rho, scale, eta0))
+    rows = []
+    for t in range(xi.shape[0]):
+        if t % unroll == 0:
+            eta = fma(rho, eta, scale * xi[t])
+        else:
+            eta = fma(scale, xi[t], rho * eta)
+        rows.append(eta)
+    return torch.stack(rows)
+
+
+def classic_ou_unroll(nt: int) -> int:
+    """The unroll of the JAX Classic kernel's time loop: the largest power of
+    two up to 8 that divides ``nt`` (JAX ``pallas_year.py:49-73``)."""
+    u = 8
+    while nt % u:
+        u //= 2
+    return u
+
+
+def assoc_ou_path(xi, rho, scale, eta0) -> torch.Tensor:
+    """The same recurrence by a log-depth Hillis-Steele scan over time (JAX
+    ``pallas_year.py:316-349``): ``y = scale * xi``, ``p = rho``; at
+    distance ``d = 1, 2, 4, ...``: ``y_t = fma(rho^d, y_{t-d}, y_t)`` and
+    ``p_t = p_t * p_{t-d}`` (zero / one below row ``d``), ``rho^d`` by
+    squaring; then ``eta_t = fma(p_t, eta0, y_t)``. It regroups the serial
+    rounding (engine parity with :func:`ou_path`, not bitwise); scale 0 with
+    eta0 0 is exactly 0."""
+    fma = _fma(xi.dtype)
+    nt, K = xi.shape
+    rho, scale, eta0 = (_member_col(v, K, xi.dtype, xi.device) for v in (rho, scale, eta0))
+    y = scale * xi
+    p = rho.expand(nt, K)
+    r_d, d = rho, 1
+    while d < nt:
+        y = fma(r_d.expand(nt, K), torch.cat([torch.zeros_like(y[:d]), y[:-d]]), y)
+        p = p * torch.cat([torch.ones_like(p[:d]), p[:-d]])
+        r_d = r_d * r_d
+        d *= 2
+    return fma(p, eta0.expand(nt, K), y)
+
+
+def keys_tensor(noise_keys, K: int, device) -> torch.Tensor:
+    """``(K, 2)`` uint32 key data (numpy, or an integer tensor) as a
+    contiguous int32 tensor with the same bits, on ``device``."""
+    if torch.is_tensor(noise_keys):
+        if (noise_keys.dtype == torch.int32 and tuple(noise_keys.shape) == (K, 2)
+                and noise_keys.device == torch.device(device)):
+            return noise_keys.contiguous()  # already the kernel's form
+        keys = noise_keys.to(torch.int64).cpu().numpy()
+    else:
+        keys = np.asarray(noise_keys)
+    if keys.shape != (K, 2) or not np.issubdtype(keys.dtype, np.integer):
+        raise ValueError(
+            f"noise_keys must be a ({K}, 2) uint32 key-data array, got "
+            f"{keys.dtype} {keys.shape}")
+    bits = np.asarray(keys.astype(np.int64) & 0xFFFFFFFF, np.uint32).view(np.int32)
+    return torch.as_tensor(bits, device=device).contiguous()
+
+
+def noise_offsets(noise, noise_ou, noise_keys, ou_assoc, K: int, nt: int, dtype, device,
+                  unroll: int = 1):
+    """The plain versions' per-step per-member forcing offsets ``(nt, K)``
+    and the year-end OU value ``(K,)`` (None without ``noise_ou``): the
+    table itself, or the OU path over the white table (given, or drawn from
+    the keys by :func:`.prng.normal_table`), serial (``unroll`` as in
+    :func:`ou_path`) or associative."""
+    if noise_keys is not None:
+        keys = keys_tensor(noise_keys, K, device)
+        xi = prng.normal_table(keys, nt).to(dtype)
+    else:
+        xi = torch.as_tensor(noise, dtype=dtype, device=device)
+        if tuple(xi.shape) != (nt, K):
+            raise ValueError(f"noise must have shape (nt, K) = ({nt}, {K}), got "
+                             f"{tuple(xi.shape)}")
+    if noise_ou is None:
+        return xi, None
+    path = assoc_ou_path(xi, *noise_ou) if ou_assoc else ou_path(xi, *noise_ou, unroll=unroll)
+    return path, path[-1]
+
+
+class CrossingTracker:
+    """The first step at which a member's instantaneous ice area crosses its
+    threshold: ``sign * (area - thr) > 0``, recorded as the step index (a
+    float of the run's dtype; -1 where never crossed), JAX
+    ``pallas_year.py:610-619``. The area is ``sum_i w_i field_i`` summed in
+    cell order, as the kernels sum it; ``field`` is MIZ's ``phi`` (NaN
+    counted as 0) or Classic's ``E < 0``."""
+
+    def __init__(self, model: str, crossing, st, K: int, dtype, device):
+        self.field = "phi" if model == "MIZ" else "E"
+        self.w = trapezoid_weights(st.x, dtype, device)
+        self.thr, self.sign = (_member_col(v, K, dtype, device) for v in crossing)
+        self.first = torch.full((K,), -1.0, dtype=dtype, device=device)
+
+    def __call__(self, t: int, out) -> None:
+        v = out[self.field]
+        if self.field == "phi":
+            v = torch.where(v == v, v, torch.zeros((), dtype=v.dtype, device=v.device))
+        else:
+            v = (v < 0.0).to(v.dtype)
+        area = self.w[0] * v[:, 0]
+        for i in range(1, v.shape[1]):
+            area = area + self.w[i] * v[:, i]
+        crossed = (self.first < 0) & (self.sign * (area - self.thr) > 0)
+        self.first = torch.where(crossed, torch.full_like(self.first, float(t)), self.first)
+
+
+# the shared memory a block can use on Hopper (csrc/noise.cuh)
+MAX_SHARED_BYTES = 232448
+
+
+class NoiseLaunch:
+    """The noise arguments of a year kernel's C entry point: seven pointers
+    (table, keys, OU rows, year-end eta, crossing rows, first-crossing
+    steps, trapezoid weights; null where unused), the OU mode, and the
+    output tensors. Built after :func:`check_noise_args`."""
+
+    def __init__(self, noise, noise_ou, noise_keys, ou_assoc, crossing, st, K: int,
+                 dtype, device, base_shared_bytes: int, unroll: int = 1):
+        nt = st.nt
+        self.unroll = unroll
+        self.noisy = noise is not None or noise_keys is not None
+        self.ou_mode = 0 if noise_ou is None else (2 if ou_assoc else 1)
+        if self.noisy:
+            rows = 4 if self.ou_mode == 2 else 1
+            need = base_shared_bytes + rows * nt * torch.empty((), dtype=dtype).element_size()
+            if need > MAX_SHARED_BYTES:
+                raise ValueError(
+                    f"a noisy year keeps its member's nt={nt} noise row"
+                    f"{' and the scan rows' if rows > 1 else ''} in shared memory: "
+                    f"{need} bytes, above the {MAX_SHARED_BYTES} a block has")
+        table = None
+        if noise is not None:
+            table = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
+            if tuple(table.shape) != (nt, K):
+                raise ValueError(f"noise must have shape (nt, K) = ({nt}, {K}), got "
+                                 f"{tuple(table.shape)}")
+        keys = keys_tensor(noise_keys, K, device) if noise_keys is not None else None
+        ou = member_rows(noise_ou, K, dtype, device) if noise_ou is not None else None
+        self.eta = torch.empty((K,), dtype=dtype, device=device) if noise_ou is not None else None
+        cross = member_rows(crossing, K, dtype, device) if crossing is not None else None
+        self.first = (torch.empty((K,), dtype=dtype, device=device)
+                      if crossing is not None else None)
+        wts = trapezoid_weights(st.x, dtype, device) if crossing is not None else None
+        self._keep = (table, keys, ou, cross, wts)
+        self.ptrs = [None if v is None else v.data_ptr()
+                     for v in (table, keys, ou, self.eta, cross, self.first, wts)]
+
+
+def year_result(out, noise_ou, eta, first):
+    """A year's results as the JAX wrappers return them: ``(carry,
+    seasonal, converged, raw)`` for a deterministic or a plain noisy year;
+    with ``noise_ou`` the fourth is the year-end ``eta``; with a crossing a
+    fifth, the first crossing step per member."""
+    carry, seasonal, conv, raw = out
+    if noise_ou is not None:
+        raw = eta
+    if first is not None:
+        return carry, seasonal, conv, raw, first
+    return carry, seasonal, conv, raw

@@ -17,6 +17,13 @@ parameter may be ``(K,)``-swept, the insolation and coalbedo parameters
 ``S0, S1, S2, a0, a2`` included, as in the 'xk' layout. The kernel takes the
 per-member scalars from :func:`..models.classic.member_scalars`, the code
 the plain version's statics run, so the two see the same operands.
+
+The noisy years take the keyword modes of :func:`.miz_year.miz_year`
+(``noise=``, ``noise_ou=``, ``noise_keys=``, ``ou_assoc=``, ``crossing=``;
+JAX ``pallas_classic_year``); the Classic crossing area is ``sum_i w_i
+[E_i < 0]`` of the step's updated ``E`` (JAX ``pallas_year.py:1738-1747``),
+and the serial OU recurrence contracts as XLA:CPU contracts the JAX Classic
+kernel's unrolled time loop (:func:`._year.ou_path`).
 """
 from __future__ import annotations
 
@@ -30,7 +37,9 @@ from ..models.classic import cos_table, member_scalars, uniform_bands
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from . import _build
-from ._year import check_width, check_year_args, member_columns
+from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args, check_noise_args,
+                    check_width, check_year_args, classic_ou_unroll, member_columns,
+                    noise_offsets, year_result)
 from .tridiag import pcr_steps
 
 __all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
@@ -64,7 +73,9 @@ def check_nx(nx: int) -> None:
     check_width("classic_year", nx, MAX_NX, "at most 4 grid cells per thread of 1024")
 
 
-def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False):
+def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
+                 noise=None, noise_ou=None, noise_keys=None, ou_assoc: bool = False,
+                 crossing=None):
     """Run one Classic model year for a ``(K, nx)`` ensemble.
 
     ``(carry, par, fyear) -> (carry, Seasonal, None, raw)``, as JAX
@@ -74,17 +85,22 @@ def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = Fal
     The step has no Newton solve, so there is no convergence flag. ``raw``
     is None, or with ``collect_raw`` a Collection of every step's outputs,
     ``(nt, K, nx)`` per variable. ``cfg`` is accepted for the interface of
-    the fused engine: the kernel always solves ``Tg`` by PCR.
+    the fused engine: the kernel always solves ``Tg`` by PCR. The noise
+    modes return as :func:`.miz_year.miz_year`'s do.
 
     On a CUDA device this launches the kernel (counted in
     ``classic_year.launches``) and raises if it cannot (``nx > 4096`` names
     ROADMAP M8); on the CPU it runs :func:`classic_year_reference`.
     """
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "classic_year")
+    noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,
+                    ou_assoc=ou_assoc, crossing=crossing)
     if device.type == "cuda":
-        return _year_cuda(carry, par, fyear, st, collect_raw)
+        check_noise_args(dtype, noise, noise_ou, noise_keys, ou_assoc, collect_raw)
+        check_crossing_args(crossing, noise_keys, noise_ou)
+        return _year_cuda(carry, par, fyear, st, collect_raw, **noise_kw)
     if device.type == "cpu":
-        return classic_year_reference(carry, par, fyear, st, cfg, collect_raw)
+        return classic_year_reference(carry, par, fyear, st, cfg, collect_raw, **noise_kw)
     raise ValueError(f"classic_year has no kernel for device {device}")
 
 
@@ -92,30 +108,48 @@ classic_year.launches = 0
 
 
 def classic_year_reference(carry, par, fyear, st, cfg: StepConfig,
-                           collect_raw: bool = False):
+                           collect_raw: bool = False, noise=None, noise_ou=None,
+                           noise_keys=None, ou_assoc: bool = False, crossing=None):
     """The plain PyTorch version of :func:`classic_year` on any device: the
     scan engine's loop over the ``nt`` steps of ``models.classic.step`` on
     ``(K, nx)`` tensors, with every parameter as a ``(K, 1)`` column, the
-    forcing ``fyear[t] + F`` added in the run's dtype as the kernel adds it,
-    and the ``Tg`` solve by PCR."""
+    forcing ``(fyear[t] + F) + offset`` added in the run's dtype as the
+    kernel adds it, and the ``Tg`` solve by PCR."""
     # imported here: integrate.py imports this module
     from ..integrate import make_year_fn
 
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "classic_year")
+    check_noise_args(dtype, noise, noise_ou, noise_keys, ou_assoc, collect_raw)
+    check_crossing_args(crossing, noise_keys, noise_ou)
     cols = member_columns(par, PAR_NAMES, K, dtype, device)
     f = torch.as_tensor(fyear, dtype=dtype, device=device)
-    f_rows = (f[:, None] + cols.pop("F")[None, :])[:, :, None]  # (nt, K, 1)
-    year = make_year_fn("Classic", st, dataclasses.replace(cfg, solver="pcr"), collect_raw)
-    return year(Collection({k: carry[k] for k in CARRY_KEYS}),
-                Collection({n: v[:, None] for n, v in cols.items()}), f_rows)
+    f_rows = f[:, None] + cols.pop("F")[None, :]  # (nt, K)
+    eta = None
+    if noise is not None or noise_keys is not None:
+        offsets, eta = noise_offsets(noise, noise_ou, noise_keys, ou_assoc, K, st.nt, dtype,
+                                     device, unroll=classic_ou_unroll(st.nt))
+        f_rows = f_rows + offsets
+    tracker = (CrossingTracker("Classic", crossing, st, K, dtype, device)
+               if crossing is not None else None)
+    year = make_year_fn("Classic", st, dataclasses.replace(cfg, solver="pcr"), collect_raw,
+                        tracker)
+    out = year(Collection({k: carry[k] for k in CARRY_KEYS}),
+               Collection({n: v[:, None] for n, v in cols.items()}), f_rows[:, :, None])
+    return year_result(out, noise_ou, eta, tracker.first if tracker is not None else None)
 
 
-def _year_cuda(carry, par, fyear, st, collect_raw):
+def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, ou_assoc,
+               crossing):
     K, nx = carry["E"].shape
     dtype, device = carry["E"].dtype, carry["E"].device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the classic_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
+    cpt = 1 if nx <= 1024 else (2 if nx <= 2048 else 4)  # csrc/common.cuh rows_per_thread
+    threads = -(-(-(-nx // cpt)) // 32) * 32  # ceil(nx / cpt) rounded up to whole warps
+    nz = NoiseLaunch(noise, noise_ou, noise_keys, ou_assoc, crossing, st, K, dtype, device,
+                     4 * cpt * threads * torch.empty((), dtype=dtype).element_size(),
+                     unroll=classic_ou_unroll(st.nt))
     pars = member_params(par, K, st.dt, dtype, device)
     # per-cell columns (5, nx): x, x^2 and the uniform-grid bands
     x = torch.as_tensor(st.x, dtype=dtype, device=device)
@@ -135,8 +169,8 @@ def _year_cuda(carry, par, fyear, st, collect_raw):
            if collect_raw else None)
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg)]
     ptrs.append(raw.data_ptr() if raw is not None else None)
-    _build.launch("ebm_classic_year", dtype, device, *ptrs, K, nx, st.nt,
-                  st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), st.dt)
+    _build.launch("ebm_classic_year", dtype, device, *ptrs, *nz.ptrs, K, nx, st.nt,
+                  st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), nz.ou_mode, nz.unroll, st.dt)
     classic_year.launches += 1
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(
@@ -145,4 +179,4 @@ def _year_cuda(carry, par, fyear, st, collect_raw):
     )
     if raw is not None:
         raw = Collection({k: raw[:, i] for i, k in enumerate(OUT_VARS)})
-    return new_carry, seasonal, None, raw
+    return year_result((new_carry, seasonal, None, raw), noise_ou, nz.eta, nz.first)

@@ -15,6 +15,15 @@ launches the kernel (or raises), a CPU tensor runs the plain version
 interpret mode off-TPU. The plain version is the scan engine's year loop
 (:func:`..integrate.make_year_fn`) on per-member parameter columns. Every
 physical or table parameter may be ``(K,)``-swept, as in the 'xk' layout.
+
+The noisy years of the fused ``transitions`` engine are keyword modes, as in
+JAX ``pallas_miz_year`` (``pallas_year.py:925-928``; :mod:`._year`):
+``noise=`` a ``(nt, K)`` per-step offset table (K5), ``noise_ou=(rho,
+scale, eta0)`` the OU recurrence over that table as white noise, returning
+the year-end ``eta`` (K6), ``noise_keys=`` ``(K, 2)`` uint32 keys whose
+float32 draws the kernel makes itself (K7), ``ou_assoc=True`` the log-depth
+OU path (K8), and ``crossing=(thr, sign)``, the first step whose ice area
+crosses (K9).
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ from ..models.base import StepConfig
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from . import _build
-from ._year import check_width, check_year_args, member_columns
+from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args, check_noise_args,
+                    check_width, check_year_args, member_columns, noise_offsets, year_result)
 from .diffusion import diffusion_bands
 from .tridiag import pcr_steps
 
@@ -81,7 +91,9 @@ def _year_tables(st, dtype, device):
     return cols.to(device), cosv.to(device)
 
 
-def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False):
+def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
+             noise=None, noise_ou=None, noise_keys=None, ou_assoc: bool = False,
+             crossing=None, newton_iters=None):
     """Run one MIZ model year for a ``(K, nx)`` ensemble.
 
     ``(carry, par, fyear) -> (carry, Seasonal, converged, raw)``, as JAX
@@ -91,18 +103,38 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False):
     tensors; ``converged`` is a 0-dim tensor, 1.0 when every Newton solve of
     every member converged. ``raw`` is None, or with ``collect_raw`` a
     Collection of every step's outputs, ``(nt, K, nx)`` per variable.
+    With ``noise_ou`` the fourth result is the year-end ``(K,)`` OU value
+    instead, and with ``crossing`` a fifth holds each member's first
+    crossing step (-1 where none), as JAX ``pallas_miz_year`` returns them.
+
+    ``newton_iters``, a ``(K,)`` int32 CUDA tensor, receives each member's
+    number of Newton updates in the year, as the kernel ran them (its
+    operation count); the plain version iterates in lockstep over all
+    members and has no such count, so it raises.
 
     On a CUDA device this launches the kernel (counted in
     ``miz_year.launches``) and raises if it cannot; on the CPU it runs
     :func:`miz_year_reference`.
     """
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "miz_year")
+    noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,
+                    ou_assoc=ou_assoc, crossing=crossing)
     if device.type == "cuda":
+        check_noise_args(dtype, noise, noise_ou, noise_keys, ou_assoc, collect_raw)
+        check_crossing_args(crossing, noise_keys, noise_ou)
+        if newton_iters is not None and not (
+                newton_iters.dtype == torch.int32 and newton_iters.shape == (K,)
+                and newton_iters.device == device and newton_iters.is_contiguous()):
+            raise ValueError(
+                f"newton_iters must be a contiguous ({K},) int32 tensor on {device}")
         return _year_cuda(carry, member_params(par, K, dtype, device),
                           torch.as_tensor(fyear, dtype=dtype, device=device),
-                          st, cfg, collect_raw)
+                          st, cfg, collect_raw, newton_iters=newton_iters, **noise_kw)
     if device.type == "cpu":
-        return miz_year_reference(carry, par, fyear, st, cfg, collect_raw)
+        if newton_iters is not None:
+            raise ValueError("newton_iters is counted by the kernel only: the plain version "
+                             "runs its Newton loop in lockstep over all members")
+        return miz_year_reference(carry, par, fyear, st, cfg, collect_raw, **noise_kw)
     raise ValueError(f"miz_year has no kernel for device {device}")
 
 
@@ -110,32 +142,49 @@ miz_year.launches = 0
 
 
 def miz_year_reference(carry, par, fyear, st, cfg: StepConfig,
-                       collect_raw: bool = False):
+                       collect_raw: bool = False, noise=None, noise_ou=None,
+                       noise_keys=None, ou_assoc: bool = False, crossing=None):
     """The plain PyTorch version of :func:`miz_year` on any device: the scan
     engine's loop over the ``nt`` steps of ``models.miz.step`` on ``(K, nx)``
     tensors, with every parameter as a ``(K, 1)`` column and the forcing
-    ``fyear[t] + F`` added in the run's dtype, as the kernel adds it. Its
-    Newton loop runs in lockstep over all members, like the JAX package's
-    XLA path; the kernel's runs per member. The two agree to below the
-    Newton tolerance (JAX ``pallas_year.py:19-23``)."""
+    ``(fyear[t] + F) + offset`` added in the run's dtype, as the kernel adds
+    it (the offset from :func:`._year.noise_offsets`; the crossing detector
+    is a step hook). Its Newton loop runs in lockstep over all members, like
+    the JAX package's XLA path; the kernel's runs per member. The two agree
+    to below the Newton tolerance (JAX ``pallas_year.py:19-23``)."""
     # imported here: integrate.py imports this module
     from ..integrate import make_year_fn
 
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "miz_year")
+    check_noise_args(dtype, noise, noise_ou, noise_keys, ou_assoc, collect_raw)
+    check_crossing_args(crossing, noise_keys, noise_ou)
     cols = member_columns(par, PAR_NAMES + XK_TABLE_ROWS + ("m2",), K, dtype, device)
     f = torch.as_tensor(fyear, dtype=dtype, device=device)
-    f_rows = (f[:, None] + cols.pop("F")[None, :])[:, :, None]  # (nt, K, 1)
-    year = make_year_fn("MIZ", st, dataclasses.replace(cfg, solver="pcr"), collect_raw)
-    return year(Collection({k: carry[k] for k in CARRY_KEYS}),
-                Collection({n: v[:, None] for n, v in cols.items()}), f_rows)
+    f_rows = f[:, None] + cols.pop("F")[None, :]  # (nt, K)
+    eta = None
+    if noise is not None or noise_keys is not None:
+        offsets, eta = noise_offsets(noise, noise_ou, noise_keys, ou_assoc, K, st.nt, dtype,
+                                     device)
+        f_rows = f_rows + offsets
+    tracker = (CrossingTracker("MIZ", crossing, st, K, dtype, device)
+               if crossing is not None else None)
+    year = make_year_fn("MIZ", st, dataclasses.replace(cfg, solver="pcr"), collect_raw,
+                        tracker)
+    out = year(Collection({k: carry[k] for k in CARRY_KEYS}),
+               Collection({n: v[:, None] for n, v in cols.items()}), f_rows[:, :, None])
+    return year_result(out, noise_ou, eta, tracker.first if tracker is not None else None)
 
 
-def _year_cuda(carry, pars, f, st, cfg, collect_raw):
+def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys, ou_assoc,
+               crossing, newton_iters):
     K, nx = carry["Ei"].shape
     dtype, device = pars.dtype, pars.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the miz_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
+    threads = -(-nx // 32) * 32
+    nz = NoiseLaunch(noise, noise_ou, noise_keys, ou_assoc, crossing, st, K, dtype, device,
+                     (6 * threads + 32) * pars.element_size())
     cols, cosv = _year_tables(st, dtype, device)
     cin = torch.stack([carry[k] for k in CARRY_KEYS])  # (6, K, nx), contiguous
     f = f.contiguous()
@@ -149,11 +198,11 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw):
     raw = (torch.empty((st.nt, len(OUT_VARS), K, nx), dtype=dtype, device=device)
            if collect_raw else None)
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv)]
-    ptrs.append(raw.data_ptr() if raw is not None else None)
+    ptrs += [v.data_ptr() if v is not None else None for v in (newton_iters, raw)]
     max_step = cfg.newton_max_step if cfg.newton_max_step is not None else math.inf
-    _build.launch("ebm_miz_year", dtype, device, *ptrs, K, nx, st.nt, st.winter_inx - 1,
-                  st.summer_inx - 1, pcr_steps(nx), cfg.newton_max_iter, st.dt,
-                  cfg.newton_abstol, cfg.newton_reltol, max_step)
+    _build.launch("ebm_miz_year", dtype, device, *ptrs, *nz.ptrs, K, nx, st.nt,
+                  st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), cfg.newton_max_iter,
+                  nz.ou_mode, nz.unroll, st.dt, cfg.newton_abstol, cfg.newton_reltol, max_step)
     miz_year.launches += 1
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(
@@ -162,4 +211,4 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw):
     )
     if raw is not None:
         raw = Collection({k: raw[:, i] for i, k in enumerate(OUT_VARS)})
-    return new_carry, seasonal, conv.min(), raw
+    return year_result((new_carry, seasonal, conv.min(), raw), noise_ou, nz.eta, nz.first)

@@ -175,7 +175,8 @@ def ensemble_integrate(
     ``(nx,)`` shared. ``raw_mode='last'`` also collects the final year's
     per-step states, ``'all'`` every step of every member (guarded by
     ``raw_memory_limit`` bytes). ``dtype`` defaults to float32, ``device``
-    to the CPU.
+    to the CUDA device (pass ``"cpu"`` for the CPU; with no CUDA device
+    ``None`` raises).
 
     ``solver``: ``'pcr'`` (default) or ``'pcr_fused'`` (on the fused engine
     both are the kernel's PCR; on the batched engine ``'pcr_fused'``

@@ -138,7 +138,8 @@ def test_integrate_300_steps_match_jax(grid, solver):
     st = getattr(ebt.SpaceTime, grid)(50, 1000, 1)
     t = ebt.integrate("Classic", st, ebt.Forcing(0.0), ebt.default_parameters("Classic"),
                       dict(init), lastonly=False, progress=False, solver=solver,
-                      dtype="float64", verbose=True)  # verbose: no Newton flag to warn on
+                      dtype="float64", device="cpu",
+                      verbose=True)  # verbose: no Newton flag to warn on
     for k in ("E", "T", "h"):
         assert t.raw[k].shape == (st.nt, st.nx)
         np.testing.assert_allclose(t.raw[k][:300], j.raw[k][:300], rtol=BAR, atol=BAR,
@@ -207,7 +208,7 @@ def test_albedo_hole_at_E_zero():
     par = ebt.default_parameters("Classic")
     init = ebt.zeros_init(st, "Classic")
     t = ebt.integrate("Classic", st, ebt.Forcing(0.0), par, init, lastonly=False,
-                      progress=False, dtype="float64")
+                      progress=False, dtype="float64", device="cpu")
     j = ebm.integrate("Classic", st, ebm.Forcing(0.0), par, ebm.zeros_init(st, "Classic"),
                       lastonly=False, progress=False)
     np.testing.assert_allclose(t.raw["E"][:5], j.raw["E"][:5], rtol=1e-10, atol=1e-12)
@@ -239,7 +240,7 @@ def test_ensemble_matches_jax(engine):
     j = jax_ensemble_run(st)
     t = ebt.ensemble_integrate("Classic", st, ebt.Forcing(0.0), par, warm_init(st.nx, par),
                                dtype="float64", engine=engine, raw_mode="last",
-                               progress=False)
+                               progress=False, device="cpu")
     assert t.n_members == 4 and t.seasonal.avg["E"].shape == (4, st.dur, st.nx)
     assert sorted(t.swept) == ["D", "F", "S1"]
     for name in ("winter", "summer", "avg"):

@@ -65,7 +65,7 @@ def assert_bitwise(a, b):
 def test_golden_fixture_steps_1_and_10():
     st = ebt.SpaceTime.sin(180, 2000, 1)
     sol = ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
-                        ebt.zeros_init(st), dtype=torch.float64, progress=False)
+                        ebt.zeros_init(st), dtype=torch.float64, progress=False, device="cpu")
     assert sol.raw["E"].shape == (st.nt, st.nx)
     np.testing.assert_array_equal(sol.ts, ebm.Solutions.stored_times(st, True))
     with h5py.File(FIXTURE, "r") as f:
@@ -83,7 +83,7 @@ def test_integrate_matches_jax(engine):
     j = ebm.integrate("MIZ", ST, forcing, par, ebm.zeros_init(ST), progress=False,
                       raw_mode="none")
     t = ebt.integrate("MIZ", ST, forcing, par, ebt.zeros_init(ST), dtype="float64",
-                      engine=engine, raw_mode="none", progress=False)
+                      engine=engine, raw_mode="none", progress=False, device="cpu")
     assert t.seasonal.avg["E"].shape == (ST.dur, ST.nx)
     assert_seasonal_close(t.seasonal, j.seasonal)
 
@@ -108,7 +108,7 @@ def test_ensemble_matches_jax(engine, with_F):
     par = ensemble_par(with_F)
     j = jax_ensemble_run(with_F)
     t = ebt.ensemble_integrate("MIZ", ST, ebt.Forcing(0.0), par, ebt.zeros_init(ST),
-                               dtype="float64", engine=engine, progress=False)
+                               dtype="float64", engine=engine, progress=False, device="cpu")
     assert t.n_members == 4 and t.seasonal.avg["E"].shape == (4, ST.dur, ST.nx)
     assert_seasonal_close(t.seasonal, j.seasonal)
     assert sorted(t.swept) == (["D", "F"] if with_F else ["D"])
@@ -120,11 +120,11 @@ def test_members_match_solo_runs_and_raw_modes():
     par = ebt.default_parameters("MIZ")
     par["D"] = Ds
     ens = ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
-                                 dtype="float64", raw_mode="last", progress=False)
+                                 dtype="float64", raw_mode="last", progress=False, device="cpu")
     assert ens.raw["E"].shape == (2, st.nt, st.nx)
     for i, D in enumerate(Ds):
         solo = ebt.integrate("MIZ", st, ebt.Forcing(0.0), dict(par, D=float(D)),
-                             ebt.zeros_init(st), dtype="float64", progress=False)
+                             ebt.zeros_init(st), dtype="float64", progress=False, device="cpu")
         assert solo.raw["E"].shape == (st.nt, st.nx)  # raw_mode='last'
         np.testing.assert_allclose(ens.seasonal.avg["E"][i], solo.seasonal.avg["E"],
                                    rtol=1e-10, atol=1e-12)
@@ -132,7 +132,7 @@ def test_members_match_solo_runs_and_raw_modes():
         m = ens.member_solutions(i)
         assert m.lastonly and m.parameters["D"] == D
     full = ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
-                                  dtype="float64", raw_mode="all", progress=False)
+                                  dtype="float64", raw_mode="all", progress=False, device="cpu")
     assert full.raw["E"].shape == (2, st.dur * st.nt, st.nx)
     np.testing.assert_array_equal(full.raw["E"][:, -st.nt:], ens.raw["E"])
     assert "full raw" in repr(full)
@@ -142,9 +142,9 @@ def test_raw_modes_of_integrate():
     st = ebt.SpaceTime.sin(24, 100, 2)
     par = ebt.default_parameters("MIZ")
     args = ("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st))
-    last = ebt.integrate(*args, dtype="float64", progress=False)
-    full = ebt.integrate(*args, dtype="float64", lastonly=False, progress=False)
-    none = ebt.integrate(*args, dtype="float64", raw_mode="none", progress=False)
+    last = ebt.integrate(*args, dtype="float64", progress=False, device="cpu")
+    full = ebt.integrate(*args, dtype="float64", lastonly=False, progress=False, device="cpu")
+    none = ebt.integrate(*args, dtype="float64", raw_mode="none", progress=False, device="cpu")
     assert last.raw["E"].shape == (st.nt, st.nx) and len(last.ts) == st.nt
     assert full.raw["E"].shape == (st.dur * st.nt, st.nx)
     np.testing.assert_array_equal(full.ts, st.T)
@@ -162,12 +162,12 @@ def test_years_per_dispatch_is_bitwise_invariant():
     par["F"] = np.array([-1.0, 0.0, 1.0])
     runs = [ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
                                    dtype="float64", engine="fused", years_per_dispatch=n,
-                                   progress=False) for n in (1, 3, 4)]
+                                   progress=False, device="cpu") for n in (1, 3, 4)]
     for r in runs[1:]:
         assert_bitwise(runs[0].seasonal, r.seasonal)
     single = [ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
                             ebt.zeros_init(st), dtype="float64", engine="fused",
-                            raw_mode="none", years_per_dispatch=n, progress=False)
+                            raw_mode="none", years_per_dispatch=n, progress=False, device="cpu")
               for n in (1, 3)]
     assert_bitwise(single[0].seasonal, single[1].seasonal)
 
@@ -240,13 +240,13 @@ def test_fused_engine_runs_solver_pcr_fused():
     par["D"] = np.array([0.5, 0.7])
     runs = [ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
                                    dtype="float64", engine="fused", solver=solver,
-                                   raw_mode="last", progress=False)
+                                   raw_mode="last", progress=False, device="cpu")
             for solver in ("pcr", "pcr_fused")]
     assert_bitwise(runs[0].seasonal, runs[1].seasonal)
     np.testing.assert_array_equal(runs[0].raw["E"], runs[1].raw["E"])
     single = [ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
                             ebt.zeros_init(st), dtype="float64", engine="fused", solver=solver,
-                            raw_mode="none", progress=False)
+                            raw_mode="none", progress=False, device="cpu")
               for solver in ("pcr", "pcr_fused")]
     assert_bitwise(single[0].seasonal, single[1].seasonal)
 
@@ -261,13 +261,13 @@ def test_table_parameter_sweep_runs_on_the_fused_engine():
     st = ebt.SpaceTime.sin(24, 100, 2)
     runs = [ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
                                    dtype="float64", engine=engine, raw_mode="last",
-                                   progress=False) for engine in ("fused", "batched")]
+                                   progress=False, device="cpu") for engine in ("fused", "batched")]
     assert_bitwise(runs[0].seasonal, runs[1].seasonal)
     np.testing.assert_array_equal(runs[0].raw["E"], runs[1].raw["E"])
     for i in range(2):
         solo = ebt.integrate("MIZ", st, ebt.Forcing(0.0),
                              dict(par, S1=float(par["S1"][i]), a0=float(par["a0"][i])),
-                             ebt.zeros_init(st), dtype="float64", progress=False)
+                             ebt.zeros_init(st), dtype="float64", progress=False, device="cpu")
         np.testing.assert_allclose(runs[0].seasonal.avg["E"][i], solo.seasonal.avg["E"],
                                    rtol=1e-10, atol=1e-12)
         np.testing.assert_allclose(runs[0].raw["E"][i], solo.raw["E"], rtol=1e-10, atol=1e-12)
@@ -281,25 +281,26 @@ def test_unported_options_and_bad_arguments_raise():
     for kw, item in [(dict(checkpoint="x.h5"), "M9"), (dict(debug=lambda o, p: o["E"]), "M9"),
                      (dict(progress_steps=10), "M9"), (dict(profile_dir="/nonexistent"), "M9")]:
         with pytest.raises(NotImplementedError, match=item):
-            ebt.integrate(*args, **kw)
+            ebt.integrate(*args, **kw, device="cpu")
     for kw in (dict(mesh=object()), dict(jit_wrapper=lambda f: f)):
         with pytest.raises(NotImplementedError, match="M14"):
-            ebt.ensemble_integrate(*args, n_members=2, **kw)
+            ebt.ensemble_integrate(*args, n_members=2, **kw, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
-        ebt.integrate(*args, engine="vmap")
+        ebt.integrate(*args, engine="vmap", device="cpu")
     with pytest.raises(ValueError, match="raw_mode"):
-        ebt.integrate(*args, raw_mode="some")
+        ebt.integrate(*args, raw_mode="some", device="cpu")
     with pytest.raises(ValueError, match="missing"):
-        ebt.integrate("MIZ", st, ebt.Forcing(0.0), par, {"Ei": np.zeros(8)})
+        ebt.integrate("MIZ", st, ebt.Forcing(0.0), par, {"Ei": np.zeros(8)}, device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
-        ebt.integrate("Snowball", st, ebt.Forcing(0.0), par, init)
+        ebt.integrate("Snowball", st, ebt.Forcing(0.0), par, init, device="cpu")
     with pytest.raises(ValueError, match="missing"):  # MIZ initial conditions
-        ebt.integrate("Classic", st, ebt.Forcing(0.0), par, init)
+        ebt.integrate("Classic", st, ebt.Forcing(0.0), par, init, device="cpu")
     with pytest.raises(ValueError, match="no whole-year kernel for model 'Other'"):
         _resolve_engine("fused", dataclasses.replace(ebt.integrate.__globals__["get_model"](
             "MIZ"), name="Other"), st, torch.device("cpu"), "pcr")
     with pytest.raises(ValueError, match="requires engine='fused'"):
-        ebt.ensemble_integrate(*args, n_members=2, engine="batched", years_per_dispatch=2)
+        ebt.ensemble_integrate(*args, n_members=2, engine="batched", years_per_dispatch=2,
+                               device="cpu")
 
 
 def test_verbose_warns_on_newton_failure():
@@ -307,7 +308,7 @@ def test_verbose_warns_on_newton_failure():
     with pytest.warns(UserWarning, match="Solving for T0 failed"):
         ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
                       ebt.zeros_init(st), dtype="float64", newton_max_iter=1, verbose=True,
-                      raw_mode="none", progress=False)
+                      raw_mode="none", progress=False, device="cpu")
 
 
 def test_fused_engine_collects_raw_years():
@@ -319,7 +320,7 @@ def test_fused_engine_collects_raw_years():
     args = ("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st))
     for raw_mode in ("last", "all"):
         fused, scan = (ebt.integrate(*args, dtype="float64", engine=engine, raw_mode=raw_mode,
-                                     progress=False) for engine in ("fused", "scan"))
+                                     progress=False, device="cpu") for engine in ("fused", "scan"))
         assert fused.raw["E"].shape == scan.raw["E"].shape
         for k in scan.raw:
             np.testing.assert_array_equal(fused.raw[k], scan.raw[k], err_msg=k)
@@ -327,9 +328,35 @@ def test_fused_engine_collects_raw_years():
     epar = dict(par, D=np.array([0.5, 0.7]), F=np.array([-1.0, 1.0]))
     fused, batched = (ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), epar,
                                              ebt.zeros_init(st), dtype="float64",
-                                             engine=engine, raw_mode="all", progress=False)
+                                             engine=engine, raw_mode="all", progress=False,
+                                             device="cpu")
                       for engine in ("fused", "batched"))
     assert fused.raw["E"].shape == (2, st.dur * st.nt, st.nx)
     for k in batched.raw:
         np.testing.assert_array_equal(fused.raw[k], batched.raw[k], err_msg=k)
     assert_bitwise(fused.seasonal, batched.seasonal)
+
+
+def test_device_none_is_the_gpu_and_raises_without_one(monkeypatch):
+    """``device=None`` means the CUDA device for every entry point; with no
+    CUDA device it raises and names ``device="cpu"``: nothing runs on the CPU
+    unless asked."""
+    from energybalancemodel_jl_tpu_torch.integrate import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    st = ebt.SpaceTime.sin(8, 100, 1)
+    par = ebt.default_parameters("MIZ")
+    init = ebt.zeros_init(st)
+    calls = {
+        "integrate": lambda: ebt.integrate("MIZ", st, ebt.Forcing(0.0), par, init),
+        "ensemble_integrate": lambda: ebt.ensemble_integrate(
+            "MIZ", st, ebt.Forcing(0.0), par, init, n_members=2),
+        "sweep": lambda: ebt.sweep("MIZ", st, ebt.Forcing(0.0), par, {"D": [0.5, 0.6]}, init),
+        "transitions": lambda: ebt.transitions("MIZ", st, 0.0, par, init, init, sigma=1.0),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

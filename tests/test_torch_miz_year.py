@@ -141,10 +141,20 @@ def test_argument_checks():
         tmy.miz_year(meta, par, fyear, st, cfg)
 
 
+def test_newton_update_count_is_the_kernels_own():
+    """The per-member Newton count is a kernel output: the plain version's
+    lockstep loop has none, so asking for it on the CPU raises."""
+    st, par, carry, fyear = year_inputs(2, sweep=False)
+    cfg = default_step_config("float64")
+    with pytest.raises(ValueError, match="counted by the kernel only"):
+        tmy.miz_year(ebt.from_numpy(carry), par, fyear, st, cfg,
+                     newton_iters=torch.zeros(2, dtype=torch.int32))
+
+
 def test_kernel_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch):
     sources = _build._sources()
     assert [s.name for s in sources] == ["classic_year.cu", "miz_year.cu", "newton_t0.cu",
-                                         "pcr.cu"]
+                                         "normal_table.cu", "pcr.cu"]
     path = _build._library_path()
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libebm_kernels_")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
@@ -188,7 +198,7 @@ def test_kernel_build_is_keyed_by_headers_too(tmp_path):
     header = csrc / "common.cuh"
     header.write_bytes(header.read_bytes() + b"// edited\n")
     assert _build._library_path(csrc) != before
-    exported = {"ebm_cuda_error_string"} | {
+    exported = {"ebm_cuda_error_string", "ebm_normal_table", "ebm_normal_bits"} | {
         f"ebm_{k}_{d}" for k in ("miz_year", "classic_year", "pcr", "newton_t0")
         for d in ("f32", "f64")}
     assert set(_build._SIGNATURES) == exported

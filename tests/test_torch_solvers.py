@@ -186,7 +186,7 @@ def test_batched_year_with_solver_pallas_matches_jax():
                      solver="pallas", progress=False)
     t_ = ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
                                 dtype="float64", engine="batched", solver="pallas",
-                                progress=False)
+                                progress=False, device="cpu")
     for name in ("winter", "summer", "avg"):
         for k, a in getattr(j.seasonal, name).items():
             b = getattr(t_.seasonal, name)[k]
