@@ -4,14 +4,15 @@ run through its hand-written kernels.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc::
 
-    python3 chip_smoke.py           # about twelve minutes on an H100
+    python3 chip_smoke.py           # about ten minutes on an H100
 
 Phases (any failure exits non-zero, and no phase carries on past its own
 failure):
 
 1. the card (``nvidia-smi`` name and power limit) and the toolchain;
 2. build the kernels from ``energybalancemodel_jl_tpu_torch/csrc`` (one nvcc
-   per source, in parallel) and print each kernel's registers;
+   per source, in parallel), print each kernel's registers, and hold the MIZ
+   builds of the canonical grid to the blocks per SM their design names;
 3. the MIZ kernel against its plain PyTorch version on the card: a small
    grid point by point in float64 and float32 (raw-collected year included),
    the canonical grid at the main path's width point by point with fixed
@@ -22,8 +23,10 @@ failure):
 5. a single canonical MIZ run through ``integrate`` with ``engine='auto'``,
    every year (the raw-collected last one too) through the kernel;
 6. the MIZ kernel timed per model year on the canonical grid at K=1 and
-   K=8192, f32 and f64 (each member's Newton updates counted), the kernel's
-   raw-collected year at K=1, and the plain version at K=8192 f32;
+   K=8192, f32 and f64 (each member's Newton updates counted, and held to
+   the counts recorded before the kernel's exchange layer was redesigned),
+   the kernel's raw-collected year at K=1, and the plain version at K=8192
+   f32;
 7. the Classic kernel against its plain version, bitwise: nx=40/nt=1000
    K=8 with D, S1 and F swept (f64 and f32, warm init and zeros, 2 years,
    the second raw-collected), the canonical grid at K=8192, the nx=4096
@@ -35,10 +38,11 @@ failure):
    one canonical MIZ year on ``ensemble_integrate(engine='batched')`` with
    ``solver='pcr_fused'`` and with ``solver='pallas'``;
 10. the Classic kernel timed per model year (K=1, K=8192, f32, f64; the
-    plain version at K=8192 f32), and the K11 and K10 kernels per call, each
-    beside its plain version;
+    plain version at K=8192 f32), and the K11 and K10 kernels per wrapper
+    call and per kernel on the device, each beside its plain version;
 11. the draw kernel against its plain version, bitwise: all 2^23 mantissas
-    the pipeline can see, and the (2000, 8192) table of seed 0;
+    the pipeline can see, and the (2000, 8192) table of seed 0; the float64
+    draws (plain PyTorch) on the card against the CPU's;
 12. every noise mode of the MIZ and Classic kernels (table, table/OU,
     keys/serial, keys/assoc, crossing) against its plain version at nx=40,
     and sigma = 0 against the deterministic kernel at the main path's shape
@@ -55,7 +59,7 @@ failure):
     model year at K=8192 in the dtype its path runs (table/OU in float32
     too), beside the deterministic kernel in the same call, with each
     member's Newton updates counted, and its plain version one year; the
-    draw kernel per call.
+    draw kernel per call; the script's total seconds.
 
 The line before the last is the kernel table as JSON (each kernel's time,
 plain time, launches on its path, the least time the card could take for its
@@ -117,34 +121,48 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(log):
-    """'kernel<dtype,template ints> N regs[, S B spilled]' per compiled
-    kernel, from the ``-Xptxas -v`` log."""
-    out, name, spill = [], None, "0"
-    for line in log.splitlines():
-        m = re.search(r"(miz_year_kernel|classic_year_kernel|pcr_kernel|newton_t0_kernel|"
-                      r"normal_table_kernel|normal_bits_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
-                      line)
-        if m and "entry function" in line:
-            # template ints; the year kernels' NOISY flag as "det"/"noisy", then
-            # the MIZ kernel's COUNT flag as "count" when set
-            flags = iter((("det", "noisy"), ("", "count")))
-            args = [v if kind == "i" else next(flags)[int(v)]
-                    for kind, v in re.findall(r"L([ib])(\d+)E", m.group(3) or "")]
-            args = [a for a in args if a]
-            dtype = {"f": "f32", "d": "f64"}.get(m.group(2))
-            targs = ",".join(([dtype] if dtype else []) + args)
-            name, spill = m.group(1) + (f"<{targs}>" if targs else ""), "0"
-        elif name and "bytes spill stores" in line:
-            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
-        elif name and "Used" in line and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"{name} {regs} regs" + (f", {spill} B spilled" if spill != "0" else ""))
-            name = None
-    return out
+# Blocks of 192 threads (the canonical nx = 180) that share an SM, by the
+# registers of the MIZ year kernel's 192-thread builds (csrc/miz_year.cu):
+# 65,536 registers per SM, allocated per warp in units of 8 per thread
+MIZ_BLOCKS_PER_SM = {("f32", "det"): 6, ("f32", "noisy"): 5, ("f64", "det"): 2,
+                     ("f64", "noisy"): 2}
+
+
+# Newton updates of all members over one canonical year, as the kernel counted
+# them before its communication layer was redesigned (NVIDIA H100, the run
+# that compared both; the arithmetic is deterministic): the redesign moves
+# values between threads and must change no iterate, so every count is held
+# exactly. Keys: phase 6 (dtype, K) from zero init; phase 14 by mode, from
+# the ice-free state of 40 years at F=+15
+NEWTON_UPDATES = {("float32", 8192): 18761277, ("float32", 1): 2304,
+                  ("float64", 8192): 18740968, "det": 6471680, "sigma0": 6471680,
+                  "keys/serial": 11234003, "keys/crossing": 11234003}
+
+
+def check_miz_occupancy(ptxas):
+    """Fail when a 192-thread MIZ build (``miz_year_kernel<dtype, 192, blocks,
+    NOISY, COUNT>`` in ``tools.kernel_times.ptxas_rows``) uses more registers
+    than its blocks per SM allow; returns the blocks per SM of each build."""
+    found = {}
+    for name, used in ptxas.items():
+        m = re.match(r"miz_year_kernel<(f32|f64),192,\d+,([01]),([01])>", name)
+        if not m:
+            continue
+        regs = -(-int(used.split()[0]) // 8) * 8
+        blocks = 65536 // (regs * 192)
+        kind = "noisy" if m.group(2) == "1" else "det"
+        found[m.group(1), kind, m.group(3) == "1"] = blocks
+        want = MIZ_BLOCKS_PER_SM[m.group(1), kind]
+        if blocks < want:
+            fail(f"{name}: {used}, {blocks} blocks of 192 threads per SM, the design needs "
+                 f"{want}")
+    if len(found) != 8:
+        fail(f"expected 8 MIZ builds of 192 threads in the ptxas log, found {sorted(found)}")
+    return found
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -163,6 +181,7 @@ def main():
     from energybalancemodel_jl_tpu_torch.ops.normal_table import normal_from_bits, normal_table
     from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
     from energybalancemodel_jl_tpu_torch.ops.tridiag import pcr_solve
+    from energybalancemodel_jl_tpu_torch.tools.kernel_times import ptxas_rows
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -180,7 +199,13 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     say(2, f"built csrc/*.cu in {time.perf_counter() - t0:.1f} s")
-    say(2, "ptxas: " + " | ".join(ptxas_summary(_build.build_log())))
+    ptxas = ptxas_rows(_build.build_log())
+    say(2, "ptxas (kernel<dtype, template values>): " + " | ".join(
+        f"{name} {used}" for name, used in ptxas.items()))
+    occupancy = check_miz_occupancy(ptxas)
+    say(2, "MIZ builds of the canonical grid, blocks of 192 threads per SM: " + ", ".join(
+        f"{dt} {kind}{' count' if cnt else ''} {b}" for (dt, kind, cnt), b in occupancy.items())
+        + f" (needed: {MIZ_BLOCKS_PER_SM})")
 
     def setup(nx, nt, K, dtype, D=(0.55, 0.65)):
         st = ebt.SpaceTime.sin(nx, nt, 1)
@@ -374,6 +399,10 @@ def main():
             updates = torch.zeros(K, dtype=torch.int32, device=dev)
             miz_year(carry, par, f, st, cfg, newton_iters=updates)
             det_updates[dtype, K] = int(updates.sum())
+            want = NEWTON_UPDATES.get((dtype_name(dtype), K))
+            if want is not None and det_updates[dtype, K] != want:
+                fail(f"MIZ {dtype_name(dtype)} K={K} from zero init: {det_updates[dtype, K]} "
+                     f"Newton updates in the year, {want} before the redesign")
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -590,6 +619,21 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / n
 
+    def device_time(fn, n, kernel):
+        """ms per call that the device spent in kernels whose name holds
+        ``kernel`` (torch.profiler), or None when it recorded no device time:
+        beside ``kernel_time``, which also holds what the host takes to issue
+        a call, this tells a kernel's own time from its wrapper's."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+                    for e in prof.key_averages() if kernel in e.key)
+        return total / n / 1e3 if total else None
+
     def host_time(fn, n):
         """ms per call by host clock over n calls, synchronised."""
         torch.cuda.synchronize()
@@ -618,14 +662,17 @@ def main():
     bands = (t(lo), t(np.abs(lo) + np.abs(up) + 1.0), t(up))
     b = t(g.normal(size=(K_MAIN, nx)))
     pcr_ms = kernel_time(lambda: pcr_fused(*bands, b), 20)
+    pcr_device_ms = device_time(lambda: pcr_fused(*bands, b), 20, "pcr_kernel")
     pcr_plain_ms = host_time(lambda: pcr_solve(*bands, b), 20)
     say(10, json.dumps(dict(kernel="pcr_fused", shape=f"({K_MAIN}, {nx}) f32 per-system bands",
-                            kernel_ms_per_call=pcr_ms, plain_ms_per_call=pcr_plain_ms, gpu=smi)))
+                            kernel_ms_per_call=pcr_ms, device_ms_per_call=pcr_device_ms,
+                            plain_ms_per_call=pcr_plain_ms, gpu=smi)))
     newton_ms = kernel_time(lambda: newton_t0(*nargs, **nkw), 20)
+    newton_device_ms = device_time(lambda: newton_t0(*nargs, **nkw), 20, "newton_t0_kernel")
     newton_plain_ms = host_time(lambda: newton_t0_reference(*nargs, **nkw), 5)
     say(10, json.dumps(dict(kernel="newton_t0", shape=f"({K_MAIN}, {nx}) f32, 6 iterations",
-                            kernel_ms_per_call=newton_ms, plain_ms_per_call=newton_plain_ms,
-                            gpu=smi)))
+                            kernel_ms_per_call=newton_ms, device_ms_per_call=newton_device_ms,
+                            plain_ms_per_call=newton_plain_ms, gpu=smi)))
 
     # -- 11. the draw kernel against its plain version, bitwise ---------------
     bits = torch.arange(2 ** 23, dtype=torch.int64, device=dev) << 9
@@ -645,6 +692,18 @@ def main():
             f"table of seed 0 bitwise; finite={bool(torch.isfinite(tab_k).all())}, "
             f"std={float(tab_k.std()):.5f}")
     del tab_k, tab_p
+    # the float64 table has no kernel (plain PyTorch on the card): how far the
+    # card's draws are from the same function on the CPU, whose distance to
+    # JAX's the CPU tests hold
+    keys_f64 = prng.member_year_keys(3, 500, 2)
+    t64_card = prng.normal_table_f64(keys_f64, CANONICAL[1], dev).cpu()
+    t64_cpu = prng.normal_table_f64(keys_f64, CANONICAL[1], "cpu")
+    off = t64_card != t64_cpu
+    rel64 = float(((t64_card - t64_cpu).abs() / t64_cpu.abs()).max())
+    if rel64 > 1e-15:
+        fail(f"float64 draws on the card differ from the CPU's by {rel64:.3e} relative")
+    say(11, f"float64 draws, card vs CPU (plain PyTorch both, 10^6 draws): "
+            f"{int(off.sum())} differ, max relative {rel64:.3e}")
 
     # -- 12. every noise mode, MIZ and Classic, kernel against plain -----------
     OU = (0.95, 3.0, 0.5)
@@ -882,6 +941,9 @@ def main():
                 n = torch.zeros(K_MAIN, dtype=torch.int32, device=dev)
                 year(*args, cfg, newton_iters=n, **kw)
                 updates[model, mode] = int(n.sum())
+                if updates[model, mode] != NEWTON_UPDATES.get(mode, updates[model, mode]):
+                    fail(f"MIZ {mode}: {updates[model, mode]} Newton updates in the year, "
+                         f"{NEWTON_UPDATES[mode]} before the redesign")
             timed[model, mode] = kernel_time(lambda: year(*args, cfg, **kw), 2)
             if mode in ("det", "sigma0", "table/OU f32"):
                 continue
@@ -1007,7 +1069,11 @@ def main():
               max_abs_err_f64_nx40=max(w64.values()), max_abs_err_f32_nx40=max(w32.values()),
               newton_updates_per_member_step=det_updates[torch.float32, K_MAIN] / K / nt,
               shape=year_shape + " from zero init", path="ensemble_integrate (phase 4)",
-              launches_transitions_path=ref_launches_total),
+              # the K=1 years behind the transitions path's references: the
+              # kernel alone (phase 6), and as integrate runs them (phase 13)
+              launches_transitions_path=ref_launches_total,
+              ms_K1=timing[torch.float32, 1][0],
+              ms_K1_reference_year=ref_s * 1e3 / ref_launches),
         entry("classic_year", "classic_year.cu", f"{py}:1628", classic_launches, max(wcl.values()),
               ctiming[torch.float32, K_MAIN][0], ctiming[torch.float32, K_MAIN][1],
               year_bound("Classic", "det"), also_replaces=f"{py}:1378",
@@ -1017,10 +1083,12 @@ def main():
               solver_launches["pcr_fused"], pcr_err, pcr_ms, pcr_plain_ms,
               bound(4 * 5 * K * nx, K * nx * pcr_flops), pcr_library_ms,
               library_call="torch.linalg.solve on the dense (K, n, n) systems",
+              device_ms=pcr_device_ms,
               shape=f"({K}, {nx}) float32, one solve", path="batched engine (phase 9)"),
         entry("newton_t0", "newton_t0.cu", "energybalancemodel_jl_tpu/ops/pallas_newton.py:90",
               solver_launches["pallas"], newton_err, newton_ms, newton_plain_ms,
               bound(4 * (6 * K * nx + 3 * nx + K), K * nx * 6 * (33 + pcr_flops + 3)),
+              device_ms=newton_device_ms,
               shape=f"({K}, {nx}) float32, 6 Newton iterations", path="batched engine (phase 9)"),
         entry("normal_table", "normal_table.cu", "scripts/tpu_check.py:468", draw_launches, 0.0,
               draw_ms, draw_plain_ms,
@@ -1052,6 +1120,7 @@ def main():
                 shape=year_shape.replace("float32", "float64") if f64 else year_shape,
                 path=("transitions (phase 13)" if launches_of.get(mode, 0)
                       else "none: an ops-level mode, no entry point uses it")))
+    say(14, f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,11 +29,15 @@
 // from the stack ops/classic_year.py builds with the same torch code as
 // models/classic.py::statics, so it takes the operands the plain version takes.
 //
-// What bounds it: the year is a dependent chain of 2 * ceil(log2 nx) block
-// barriers per step (the PCR levels); the pointwise update between them is a
-// few dozen flops per cell. Nothing touches device memory inside the year
+// What bounds it: the year is a dependent chain of ceil(log2 nx) block
+// barriers per step (the PCR levels, one barrier each with one cell per
+// thread, common.cuh); the pointwise update between them is a few dozen flops
+// per cell. Nothing touches device memory inside the year
 // except the forcing and cos tables (L1-resident). Resident blocks per SM
-// (members) hide part of the barrier latency; a single run uses one SM.
+// (members) share its issue slots and hide one another's barrier latency:
+// the builds for the canonical grid (blocks of up to 192 threads) are held to
+// the registers at which 5 (float32), 3 (float64) and 2 (float64 noisy)
+// blocks share an SM; a single run uses one SM.
 //
 // The noisy years (template flag NOISY; replaces the TPU kernels
 // pallas_year.py::_classic_kernel_xk_noisy :666 (K5), _classic_kernel_xk_ou
@@ -41,7 +45,7 @@
 // branch of _classic_kernel_xk (K9), launched at :1908): the block's noise row
 // in shared memory after the PCR rows, step t's forcing (f[t] + F) + offset,
 // and, with a crossing output, the area sum_i w_i [E_i < 0] of the updated E
-// in cell order each step (noise.cuh). The deterministic year is the
+// each step, in the fixed order of noise.cuh (one more barrier). The deterministic year is the
 // NOISY = false instantiation, unchanged.
 #include "common.cuh"
 #include "noise.cuh"
@@ -55,8 +59,10 @@ enum Row {
   P_F, P_S0, P_S1, P_S2, P_A0, P_A2, N_ROWS
 };
 
-template <typename T, int CPT, int MAX_THREADS, bool NOISY>
-__global__ void __launch_bounds__(MAX_THREADS)
+// MIN_BLOCKS blocks of MAX_THREADS share an SM: the compiler is held to the
+// registers that allows
+template <typename T, int CPT, int MAX_THREADS, int MIN_BLOCKS, bool NOISY>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     classic_year_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
                         const T* __restrict__ cols, const T* __restrict__ cosv,
                         const T* __restrict__ fyear, T* __restrict__ cout,
@@ -64,9 +70,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
                         T* __restrict__ avg, T* __restrict__ raw, NoiseArgs<T> nz, int K,
                         int nx, int nt, int w0, int s0, int pcr_steps, T dt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int rows = CPT * blockDim.x;
-  const PcrSmem<T> s{sm, sm + rows, sm + 2 * rows, sm + 3 * rows};
+  // the PCR buffers, the slots of the crossing sum, the noise rows
+  PcrSmem<T> s = pcr_begin<T>(smem_raw, nx, pcr_steps);
+  T* sm = reinterpret_cast<T*>(smem_raw + pcr_shared_bytes<T>(nx, pcr_steps));
+  RedSmem<T> cross_red{sm, 0};
   __shared__ T p[N_ROWS];
 
   const int m = blockIdx.x;
@@ -99,10 +106,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
     for (int v = 0; v < N_OUT; ++v) acc[c][v] = T(0);
   }
 
-  // the member's per-step noise row (after the PCR rows) and its OU and
-  // crossing state
+  // the member's per-step noise row and its OU and crossing state
   NoiseState<T> ns;
-  if (NOISY) ns = noise_begin(nz, sm + 4 * rows, m, K, nt);
+  if (NOISY) ns = noise_begin(nz, sm + RED_SLOTS, m, K, nt);
 
   for (int t = 0; t < nt; ++t) {
     const T s1c = S1 * cosv[t];
@@ -166,14 +172,16 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
     }
     if (NOISY && nz.cross_out != nullptr) {
-      // the instantaneous ice area: the cells with E < 0 (the PCR rows are
-      // free until the next step's solve)
+      // the instantaneous ice area: the cells with E < 0, this thread's in
+      // cell order
+      T part = T(0);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int i = threadIdx.x + c * blockDim.x;
-        if (i < nx) s.lo[i] = nz.wts[i] * (out[c][0] < T(0) ? T(1) : T(0));
+        const T v = i < nx ? nz.wts[i] * (out[c][0] < T(0) ? T(1) : T(0)) : T(0);
+        part = c == 0 ? v : part + v;
       }
-      noise_crossing(ns, s.lo, nx, t);
+      noise_crossing(ns, part, cross_red, t);
     }
   }
   if (NOISY) noise_end(nz, ns, m, nt);
@@ -192,16 +200,16 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-template <typename T, int CPT, int MAX_THREADS, bool NOISY>
+template <typename T, int CPT, int MAX_THREADS, int MIN_BLOCKS, bool NOISY>
 int launch_cells(cudaStream_t stream, const void* cin, const void* pars,
                  const void* cols, const void* cosv, const void* f, void* cout,
                  void* wint, void* summ, void* avg, void* raw, const NoiseArgs<T>& nz,
                  int K, int nx, int nt, int w0, int s0, int pcr_steps, double dt) {
   const int threads = round_up_32((nx + CPT - 1) / CPT);
-  const size_t shmem = (size_t)4 * CPT * threads * sizeof(T) +
+  const size_t shmem = pcr_shared_bytes<T>(nx, pcr_steps) + RED_SLOTS * sizeof(T) +
                        (NOISY ? noise_shared_bytes<T>(nt, nz.ou_mode) : 0);
   if (shmem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
-  auto kernel = classic_year_kernel<T, CPT, MAX_THREADS, NOISY>;
+  auto kernel = classic_year_kernel<T, CPT, MAX_THREADS, MIN_BLOCKS, NOISY>;
   const cudaError_t err = allow_shared(kernel, shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<K, threads, shmem, stream>>>(
@@ -213,25 +221,39 @@ int launch_cells(cudaStream_t stream, const void* cin, const void* pars,
   return (int)cudaGetLastError();
 }
 
+// Blocks of 192 threads (the canonical nx = 180) that share an SM, by the
+// registers the build is held to: float32 64 (five blocks), float64 112
+// (deterministic, three) and 168 (noisy, two).
+template <typename T, bool NOISY>
+constexpr int canonical_blocks() {
+  return sizeof(T) == 4 ? 5 : (NOISY ? 2 : 3);
+}
+
 template <typename T, bool NOISY>
 int launch_noise(cudaStream_t st, const void* cin, const void* pars, const void* cols,
                  const void* cosv, const void* f, void* cout, void* wint, void* summ,
                  void* avg, void* raw, const NoiseArgs<T>& nz, int K, int nx, int nt,
                  int w0, int s0, int pcr_steps, double dt) {
   const int cpt = rows_per_thread(nx);
-  // the canonical grid (nx = 180) takes the 256-thread build, which may use
-  // more registers per thread than a 1024-thread block allows
+  // builds by block size, as the MIZ year has them: up to 192 threads with
+  // the register cap that fills an SM with the canonical grid's blocks, up to
+  // 256 with what a block of 256 can have, and up to 1024 (1, 2 or 4 cells
+  // per thread)
+  if (cpt == 1 && round_up_32(nx) <= 192)
+    return launch_cells<T, 1, 192, canonical_blocks<T, NOISY>(), NOISY>(
+        st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, nz, K, nx, nt, w0, s0,
+        pcr_steps, dt);
   if (cpt == 1 && round_up_32(nx) <= 256)
-    return launch_cells<T, 1, 256, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
-                                          avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
+    return launch_cells<T, 1, 256, 1, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                             avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
   if (cpt == 1)
-    return launch_cells<T, 1, 1024, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
-                                           avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
+    return launch_cells<T, 1, 1024, 1, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                              avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
   if (cpt == 2)
-    return launch_cells<T, 2, 1024, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
-                                           avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
-  return launch_cells<T, 4, 1024, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
-                                         avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
+    return launch_cells<T, 2, 1024, 1, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                              avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
+  return launch_cells<T, 4, 1024, 1, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                            avg, raw, nz, K, nx, nt, w0, s0, pcr_steps, dt);
 }
 
 template <typename T>

@@ -1,11 +1,22 @@
 // Device code shared by the package's kernels (miz_year.cu, classic_year.cu,
-// pcr.cu, newton_t0.cu): NaN-aware helpers, a block-wide max, and the
-// row-scaled parallel cyclic reduction of ops/tridiag.py::pcr_solve in shared
-// memory.
+// pcr.cu, newton_t0.cu): NaN-aware helpers, a block-wide max of magnitudes,
+// and the row-scaled parallel cyclic reduction of ops/tridiag.py::pcr_solve
+// in shared memory.
 //
 // Every helper performs the same operations in the same order as the plain
 // PyTorch code it stands for, so a kernel built with -fmad=false rounds where
 // the plain version does.
+//
+// How values travel between the threads of a block (block_max_magnitude,
+// pcr_solve, noise.cuh's crossing sum and the neighbour exchange of
+// newton.cuh): write, ONE barrier, read. Each exchange owns two buffers and
+// writes them in turn, so no second barrier protects a buffer from the next
+// write. Why no buffer is rewritten before its last reader is done: a thread
+// that writes buffer X for use k + 2 of an exchange has passed the barrier of
+// use k + 1, and every thread of the block arrives at that barrier only after
+// its reads of use k, the last use that wrote X. The turn is kept in the
+// exchange's own state across calls, so the argument holds whatever the
+// callers do between two uses.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,37 +57,180 @@ template <typename T> __device__ __forceinline__ T clip_step(T delta, T max_step
   return is_finite(delta) ? delta : T(0);
 }
 
-// NaN-propagating max over the block; every thread gets the same value.
-// `red` holds one slot per warp.
+// Two sets of one slot per warp for a block reduction, written in turn: one
+// barrier per reduction.
 template <typename T>
-__device__ __forceinline__ T block_max(T v, T* red) {
-  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  T m = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = nan_max(m, red[w]);
-  __syncthreads();
-  return m;
+struct RedSmem {
+  T* slots;  // 2 x 32
+  int turn;
+};
+
+constexpr int RED_SLOTS = 64;
+
+template <typename T>
+__device__ __forceinline__ T* red_turn(RedSmem<T>& red) {
+  T* slots = red.slots + (red.turn ? 32 : 0);
+  red.turn ^= 1;
+  return slots;
 }
 
-// the four shared-memory rows of a PCR solve, one entry per system row
+// The bits of |v| as an unsigned key whose order is the order of the values:
+// v is a magnitude (>= 0, or -0, or NaN), the sign bit is dropped, and NaN
+// maps above every number.
+__device__ __forceinline__ unsigned magnitude_key(float v) {
+  return is_nan(v) ? 0xffffffffu : (__float_as_uint(v) & 0x7fffffffu);
+}
+__device__ __forceinline__ unsigned long long magnitude_key(double v) {
+  return is_nan(v) ? ~0ull : ((unsigned long long)__double_as_longlong(v) & ~(1ull << 63));
+}
+__device__ __forceinline__ unsigned warp_max_key(unsigned key) {
+  return __reduce_max_sync(0xffffffffu, key);
+}
+__device__ __forceinline__ unsigned long long warp_max_key(unsigned long long key) {
+  // the hardware reduces 32-bit words: the high words, then the low words of
+  // the lanes that hold the largest high word
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mh = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned ml = __reduce_max_sync(0xffffffffu, hi == mh ? lo : 0u);
+  return ((unsigned long long)mh << 32) | ml;
+}
+__device__ __forceinline__ float key_value(unsigned key) {
+  return key == 0xffffffffu ? quiet_nan<float>() : __uint_as_float(key);
+}
+__device__ __forceinline__ double key_value(unsigned long long key) {
+  return key == ~0ull ? quiet_nan<double>() : __longlong_as_double((long long)key);
+}
+
+// NaN-propagating max over the block of magnitudes (each thread's v is
+// >= 0, -0 or NaN: a residual norm's |r|); every thread gets the same value.
+// The max of such values is the max of their bit patterns, which the warp
+// reduces in one instruction (two in float64) instead of five shuffles with
+// a NaN-aware compare each: the same value, NaN for any NaN, +0 for -0 (the
+// callers only compare the result). Every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ T block_max_magnitude(T v, RedSmem<T>& red) {
+  auto key = warp_max_key(magnitude_key(v));
+  using Key = decltype(key);
+  static_assert(sizeof(Key) == sizeof(T), "a key fills a slot");
+  Key* slots = reinterpret_cast<Key*>(red_turn(red));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) slots[warp] = key;
+  __syncthreads();
+  key = lane < (int)(blockDim.x >> 5) ? slots[lane] : Key(0);
+  return key_value(warp_max_key(key));
+}
+
+// One row (lo, di, up, b) of a PCR system in shared memory: 16 bytes in
+// float32 (one 128-bit access), 32 in float64 (two).
+template <typename T>
+struct alignas(16) PcrRow {
+  T lo, di, up, b;
+};
+
+__device__ __forceinline__ PcrRow<float> load_row(const PcrRow<float>* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+}
+__device__ __forceinline__ PcrRow<double> load_row(const PcrRow<double>* p) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  return {a.x, a.y, b.x, b.y};
+}
+__device__ __forceinline__ void store_row(PcrRow<float>* p, float lo, float di, float up,
+                                          float b) {
+  *reinterpret_cast<float4*>(p) = make_float4(lo, di, up, b);
+}
+__device__ __forceinline__ void store_row(PcrRow<double>* p, double lo, double di, double up,
+                                          double b) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(lo, di);
+  reinterpret_cast<double2*>(p)[1] = make_double2(up, b);
+}
+
+// The shared memory of a block's PCR solves of n rows. One row per thread
+// (n <= 1024): two buffers written level by level in turn, with `pad`
+// identity rows (lo = up = b = 0, di = 1) before, between and after them,
+// where pad = 2^(steps - 1) is the farthest a level reaches, so a level reads
+// rows i - st and i + st with no range test:
+//   [pad][buffer 0: n][pad][buffer 1: n][pad]
+// Several rows per thread (n > 1024, the wide builds): the padded pair would
+// not fit in float64 at n = 4096, so one buffer with one identity row on each
+// side, the reach clamped onto it, and a second barrier per level.
 template <typename T>
 struct PcrSmem {
-  T* lo;
-  T* di;
-  T* up;
-  T* b;
+  PcrRow<T>* rows;  // row 0 of buffer 0
+  int stride;       // rows from buffer 0 to buffer 1 (0: one buffer)
+  int turn;         // the buffer the next level writes
 };
+
+__host__ __device__ inline int pcr_pad(int n, int steps) {
+  return n > 1024 ? 1 : (steps > 0 ? 1 << (steps - 1) : 0);
+}
+
+template <typename T>
+__host__ __device__ inline size_t pcr_shared_bytes(int n, int steps) {
+  const int pad = pcr_pad(n, steps);
+  return sizeof(PcrRow<T>) * (size_t)(n > 1024 ? n + 2 * pad : 2 * n + 3 * pad);
+}
+
+// Lay the buffers out at `base` (16-byte aligned) and write the identity
+// rows, once per kernel: no solve writes them. Every thread of the block
+// calls it; the first level's barrier orders these writes before any read.
+template <typename T>
+__device__ __forceinline__ PcrSmem<T> pcr_begin(void* base, int n, int steps) {
+  PcrRow<T>* rows = static_cast<PcrRow<T>*>(base);
+  const int pad = pcr_pad(n, steps);
+  const int regions = n > 1024 ? 2 : 3;
+  for (int r = 0; r < regions; ++r)
+    for (int j = threadIdx.x; j < pad; j += blockDim.x)
+      store_row(rows + r * (n + pad) + j, T(0), T(1), T(0), T(0));
+  return PcrSmem<T>{rows + pad, n > 1024 ? 0 : n + pad, 0};
+}
+
+// One doubling level at stride st. FIRST: every diagonal is 1 (the row
+// scaling, and the identity rows) and x / 1 is x, so the level divides
+// nothing.
+template <typename T, int CPT, bool FIRST>
+__device__ __forceinline__ void pcr_level(T (&lo)[CPT], T (&di)[CPT], T (&up)[CPT],
+                                          T (&b)[CPT], PcrSmem<T>& s, int n, int st) {
+  PcrRow<T>* cur = s.rows + (s.turn ? s.stride : 0);
+  s.turn ^= 1;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int i = threadIdx.x + c * blockDim.x;
+    if (i < n) store_row(cur + i, lo[c], di[c], up[c], b[c]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int i = threadIdx.x + c * blockDim.x;
+    if (i < n) {
+      int im = i - st, ip = i + st;
+      if (CPT > 1) {  // onto the one identity row on each side
+        im = im < -1 ? -1 : im;
+        ip = ip > n ? n : ip;
+      }
+      const PcrRow<T> m = load_row(cur + im);
+      const PcrRow<T> p = load_row(cur + ip);
+      const T alpha = FIRST ? -lo[c] : safe_div(-lo[c], m.di);
+      const T beta = FIRST ? -up[c] : safe_div(-up[c], p.di);
+      b[c] = b[c] + alpha * m.b + beta * p.b;
+      di[c] = di[c] + alpha * m.up + beta * p.lo;
+      lo[c] = alpha * m.lo;
+      up[c] = beta * p.up;
+    }
+  }
+  if (CPT > 1) __syncthreads();  // one buffer: reads done before the next write
+}
 
 // Row-scaled parallel cyclic reduction of ONE system of n rows per block
 // (ops/tridiag.py::pcr_solve): thread t holds rows t + c * blockDim.x,
 // c < CPT, in the arrays. ceil(log2 n) = `steps` doubling levels; rows out of
-// range are identity rows. On return b[c] holds the solution of row c.
+// range are the identity rows of the layout. One barrier per level with one
+// row per thread (CPT = 1), two in the wide builds. On return b[c] holds the
+// solution of row c.
 template <typename T, int CPT>
 __device__ __forceinline__ void pcr_solve(T (&lo)[CPT], T (&di)[CPT], T (&up)[CPT],
-                                          T (&b)[CPT], const PcrSmem<T>& s, int n,
-                                          int steps) {
+                                          T (&b)[CPT], PcrSmem<T>& s, int n, int steps) {
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const T inv = T(1) / di[c];
@@ -85,41 +239,9 @@ __device__ __forceinline__ void pcr_solve(T (&lo)[CPT], T (&di)[CPT], T (&up)[CP
     b[c] = b[c] * inv;
     di[c] = T(1);
   }
-  for (int level = 0, st = 1; level < steps; ++level, st <<= 1) {
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int i = threadIdx.x + c * blockDim.x;
-      if (i < n) {
-        s.lo[i] = lo[c];
-        s.di[i] = di[c];
-        s.up[i] = up[c];
-        s.b[i] = b[c];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int i = threadIdx.x + c * blockDim.x;
-      if (i < n) {
-        const bool hm = i - st >= 0, hp = i + st < n;
-        const T di_m = hm ? s.di[i - st] : T(1);
-        const T di_p = hp ? s.di[i + st] : T(1);
-        const T lo_m = hm ? s.lo[i - st] : T(0);
-        const T up_m = hm ? s.up[i - st] : T(0);
-        const T b_m = hm ? s.b[i - st] : T(0);
-        const T lo_p = hp ? s.lo[i + st] : T(0);
-        const T up_p = hp ? s.up[i + st] : T(0);
-        const T b_p = hp ? s.b[i + st] : T(0);
-        const T alpha = safe_div(-lo[c], di_m);
-        const T beta = safe_div(-up[c], di_p);
-        b[c] = b[c] + alpha * b_m + beta * b_p;
-        di[c] = di[c] + alpha * up_m + beta * lo_p;
-        lo[c] = alpha * lo_m;
-        up[c] = beta * up_p;
-      }
-    }
-    __syncthreads();
-  }
+  if (steps > 0) pcr_level<T, CPT, true>(lo, di, up, b, s, n, 1);
+  for (int level = 1, st = 2; level < steps; ++level, st <<= 1)
+    pcr_level<T, CPT, false>(lo, di, up, b, s, n, st);
 #pragma unroll
   for (int c = 0; c < CPT; ++c) b[c] = b[c] / di[c];
 }

@@ -21,8 +21,9 @@
 //   - insolation (S0 - (S1 x) cos 2pi t) - S2 x^2 and coalbedo a0 - a2 x^2
 //     from the member's parameter row, forcing f[t] + F;
 //   - warm-started Newton for T0 with tolerance max(abstol, reltol |r0|),
-//     iterated while the MEMBER's max |r| exceeds it (a block reduction:
-//     warp shuffles, then shared memory). The JAX kernels iterate until the
+//     iterated while the MEMBER's max |r| exceeds it (a block reduction of
+//     the magnitudes' bit patterns, common.cuh). The residual and its
+//     Jacobian are newton.cuh's, shared with newton_t0.cu. The JAX kernels iterate until the
 //     slowest lane of a 128-member block converges; per-member grouping is
 //     within the same sub-tolerance contract (pallas_year.py:19-23) and
 //     makes members independent: member k of an ensemble is bitwise equal to
@@ -33,19 +34,28 @@
 //   - neighbour values of the diffusion stencil come through shared memory,
 //     boundary-rolled like torch.roll (the wrapped value meets a zero band).
 //
-// What bounds it: nothing touches device memory inside the year, so the
-// kernel is bound by the latency of the dependent chain of each step: about
-// 2 * ceil(log2 nx) + 6 block barriers per Newton iteration, with 192
-// threads of a block doing a few flops between them. Enough resident blocks
-// per SM (members) hide part of that latency; a wide ensemble fills the card,
-// a single run uses one SM.
+// What bounds it: nothing touches device memory inside the year. A step is
+// 3 + (ceil(log2 nx) + 2) u block barriers for u Newton updates, 3 + 10 u on
+// the canonical grid (every exchange between threads is write, one barrier,
+// read on two buffers in turn, common.cuh; 6 + 20 u before the buffers
+// alternated), and between barriers the blocks resident on an SM share its
+// issue slots. Counted in the built code, a canonical float32 step issues
+// about 760 instructions per warp plus about 780 per Newton update, most of
+// them in the 17 IEEE divisions of an update and the 13 of the step's tail;
+// at K = 8192 that is three quarters of the measured year, the flop count a
+// twelfth (PERF.md). So the design spends registers, not flops: the member's
+// parameters and the values derived from them alone stay in shared memory
+// (one row, computed once per year), the first PCR level divides nothing
+// (every diagonal is 1 there), the block max is two integer reductions, and
+// the builds for the canonical grid (blocks of up to 192 threads) are held
+// to the registers at which 6 (float32), 5 (float32 noisy) and 2 (float64)
+// blocks share an SM. A wide ensemble fills the card; a single run uses one
+// SM and is bound by the latency of its own chain (5.9 us per step).
 //
 // The COUNT = true instantiation (iters != nullptr) also counts the member's
 // Newton updates over the year, thread 0 in shared memory, into iters[m]: the
 // work behind the Newton part of the year's operation count. It is a build of
-// its own so that the instantiations that run the model keep their registers
-// (a counter live across the time loop cost the noisy f32 build 2 registers,
-// past the 112 that let 3 blocks of 192 threads share an SM).
+// its own so that the instantiations that run the model keep their registers.
 //
 // Minimums and maximums propagate NaN like jnp.minimum/jnp.maximum (and
 // torch.minimum), and the Newton step clip keeps NaN, so the non-finite
@@ -61,15 +71,15 @@
 // (pallas_year.py:586-591); the offset is the row itself, or the OU value
 // eta = fma(rho, eta, scale * xi[t]) kept in a register (serial), or the row
 // after an in-place log-depth OU scan (assoc). With a crossing output, each
-// step also sums w_i phi_i over the member's cells in cell order (NaN counts
-// as 0) and records the first step where sign * (area - thr) > 0. The noise
-// work is one row fill and a few operations per step; the year stays bound by
-// its barrier chain, and the NOISY build's larger register count (fewer
-// resident blocks per SM, PERF.md) costs more than the noise work itself.
-// The deterministic year is the NOISY = false instantiation, unchanged.
+// step also sums w_i phi_i over the member's cells (NaN counts as 0) in the
+// fixed order of noise.cuh, warps in parallel and one more barrier, and
+// records the first step where sign * (area - thr) > 0. The noise work is one
+// row fill and a few operations per step; what the NOISY build costs is its
+// registers (5 resident blocks per SM instead of 6, PERF.md). The
+// deterministic year is the NOISY = false instantiation.
 #include <type_traits>
 
-#include "common.cuh"
+#include "newton.cuh"
 #include "noise.cuh"
 
 namespace {
@@ -82,99 +92,48 @@ enum Row {
   P_DMAX, P_HMIN, P_KAPPA, P_D, P_TM_POW_M2, P_F, P_S0, P_S1, P_S2, P_A0,
   P_A2, N_ROWS
 };
-
-template <typename T>
-struct Shared {
-  PcrSmem<T> pcr;  // PCR bands and right-hand side, one entry per grid cell
-  T* va;           // neighbour exchange buffers
-  T* vb;
-  T* red;          // one slot per warp for the block reductions
+// values of the step that depend on the member's parameters alone, computed
+// once per year with the step's own operations (models/miz.py::step) and kept
+// beside the parameter row
+enum Derived {
+  Q_NEG_INV_LF = N_ROWS,  // -1 / Lf
+  Q_WELD,                 // kappa alpha / 4
+  Q_DN_DEN,               // Lf alpha Dmin^2 hmin
+  Q_LAT_MELT,             // (-pi / 2) alpha
+  Q_TWO_LF,               // 2 Lf
+  Q_TWO_RL,               // 2 rl
+  N_SHARED
 };
 
-// (v[i-1], v[i+1]) with wraparound, for two fields at once
+// The block's dynamic shared memory, in this order: the PCR buffers, the
+// neighbour exchange, the slots of the two block reductions (Newton's max,
+// the crossing sum), the noise rows.
 template <typename T>
-__device__ __forceinline__ void exchange2(T va, T vb, const Shared<T>& s, int i,
-                                          int nx, bool active, T& am1, T& ap1,
-                                          T& bm1, T& bp1) {
-  if (active) {
-    s.va[i] = va;
-    s.vb[i] = vb;
-  }
-  __syncthreads();
-  if (active) {
-    const int im = i == 0 ? nx - 1 : i - 1;
-    const int ip = i == nx - 1 ? 0 : i + 1;
-    am1 = s.va[im];
-    ap1 = s.va[ip];
-    bm1 = s.vb[im];
-    bp1 = s.vb[ip];
-  }
-  __syncthreads();
+__host__ __device__ inline size_t base_shared_bytes(int nx, int pcr_steps) {
+  return pcr_shared_bytes<T>(nx, pcr_steps) + halo_shared_bytes<T>(nx) +
+         sizeof(T) * (size_t)(2 * RED_SLOTS);
 }
 
-template <typename T>
-__device__ __forceinline__ void exchange1(T v, const Shared<T>& s, int i, int nx,
-                                          bool active, T& vm1, T& vp1) {
-  if (active) s.va[i] = v;
-  __syncthreads();
-  if (active) {
-    vm1 = s.va[i == 0 ? nx - 1 : i - 1];
-    vp1 = s.va[i == nx - 1 ? 0 : i + 1];
-  }
-  __syncthreads();
-}
-
-template <typename T>
-struct Cell {
-  // per-cell geometry and the step's frozen inputs of the T0 residual
-  T x, x2, glo, gdi, gup;
-  T insol, hp, Tw, phi, f;
-};
-
-// T0eq residual and its tridiagonal Jacobian (models/miz.py::_t0_residual,
-// ::_t0_bands)
-template <typename T>
-__device__ __forceinline__ void residual_bands(T T0, const Cell<T>& c, const T* p,
-                                               const Shared<T>& s, int i, int nx,
-                                               bool active, T& r, T& jlo, T& jdi,
-                                               T& jup) {
-  const T k = p[P_K], Tm = p[P_TM], A = p[P_A], B = p[P_B], ai = p[P_AI],
-          D = p[P_D];
-  const T Ti = nan_min(T0, Tm);
-  const T Tb = Ti * c.phi + (T(1) - c.phi) * c.Tw;
-  const T g = c.phi * (T0 < Tm ? T(1) : T(0));
-  T Tbm1 = T(0), Tbp1 = T(0), gm1 = T(0), gp1 = T(0);
-  exchange2(Tb, g, s, i, nx, active, Tbm1, Tbp1, gm1, gp1);
-  if (!active) return;
-  r = k * (Tm - T0) / c.hp;
-  r = r + ai * c.insol;
-  r = r + ((-A) - B * (T0 - Tm));
-  r = r + D * (c.glo * Tbm1 + c.gdi * Tb + c.gup * Tbp1);
-  r = r + c.f;
-  jlo = D * c.glo * gm1;
-  jdi = -k / c.hp - B + D * c.gdi * g;
-  jup = D * c.gup * gp1;
-}
-
-// MAX_THREADS bounds the block so the compiler keeps the register count a
-// block of that size can launch with
-template <typename T, int MAX_THREADS, bool NOISY, bool COUNT>
-__global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
-                                const T* __restrict__ cols, const T* __restrict__ cosv,
-                                const T* __restrict__ fyear, T* __restrict__ cout,
-                                T* __restrict__ wint, T* __restrict__ summ,
-                                T* __restrict__ avg, T* __restrict__ conv,
-                                int* __restrict__ iters, T* __restrict__ raw,
-                                NoiseArgs<T> nz, int K,
-                                int nx, int nt, int w0, int s0, int pcr_steps,
-                                int max_iter, T dt, T abstol, T reltol, T max_step) {
+// Registers a thread may use so that MIN_BLOCKS blocks of MAX_THREADS share
+// an SM; the compiler is held to it.
+template <typename T, int MAX_THREADS, int MIN_BLOCKS, bool NOISY, bool COUNT>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+    miz_year_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
+                    const T* __restrict__ cols, const T* __restrict__ cosv,
+                    const T* __restrict__ fyear, T* __restrict__ cout,
+                    T* __restrict__ wint, T* __restrict__ summ, T* __restrict__ avg,
+                    T* __restrict__ conv, int* __restrict__ iters, T* __restrict__ raw,
+                    NoiseArgs<T> nz, int K, int nx, int nt, int w0, int s0, int pcr_steps,
+                    int max_iter, T dt, T abstol, T reltol, T max_step) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int nxp = blockDim.x;
-  __shared__ T p[N_ROWS];
+  __shared__ T p[N_SHARED];
   __shared__ int n_updates;  // COUNT: the member's Newton updates, by thread 0
-  const Shared<T> s{{sm, sm + nxp, sm + 2 * nxp, sm + 3 * nxp},
-                    sm + 4 * nxp, sm + 5 * nxp, sm + 6 * nxp};
+  PcrSmem<T> pcr = pcr_begin<T>(smem_raw, nx, pcr_steps);
+  unsigned char* at = smem_raw + pcr_shared_bytes<T>(nx, pcr_steps);
+  Halo<T> halo = halo_begin<T, true>(at, nx);
+  T* sm = reinterpret_cast<T*>(at + halo_shared_bytes<T>(nx));
+  RedSmem<T> red{sm, 0};
+  RedSmem<T> cross_red{sm + RED_SLOTS, 0};
 
   const int m = blockIdx.x;
   const int i = threadIdx.x;
@@ -185,83 +144,94 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
   if (i < N_ROWS) p[i] = pars[(size_t)m * N_ROWS + i];
   if (COUNT && i == 0) n_updates = 0;
   __syncthreads();
-  const T Tm = p[P_TM], A = p[P_A], B = p[P_B], ai = p[P_AI], Fb = p[P_FB],
-          cw = p[P_CW], m1 = p[P_M1], Lf = p[P_LF], alpha = p[P_ALPHA],
-          rl = p[P_RL], Dmin = p[P_DMIN], Dmax = p[P_DMAX], hmin = p[P_HMIN],
-          kappa = p[P_KAPPA], D = p[P_D], Tm_pow_m2 = p[P_TM_POW_M2],
-          Foff = p[P_F], S0 = p[P_S0], S1 = p[P_S1], S2 = p[P_S2];
+  if (i == 0) {
+    const T Lf = p[P_LF], alpha = p[P_ALPHA], Dmin = p[P_DMIN];
+    p[Q_NEG_INV_LF] = T(-1) / Lf;
+    p[Q_WELD] = p[P_KAPPA] * alpha / T(4);
+    p[Q_DN_DEN] = Lf * alpha * (Dmin * Dmin) * p[P_HMIN];
+    p[Q_LAT_MELT] = T(-3.14159265358979323846 / 2.0) * alpha;  // -pi/2 (D_t quirk)
+    p[Q_TWO_LF] = T(2) * Lf;
+    p[Q_TWO_RL] = T(2) * p[P_RL];
+  }
+  __syncthreads();
 
-  Cell<T> c{};
-  T Ei = 0, Ew = 0, h = 0, Df = 0, phi = 0, T0 = 0;
+  T0Cell<T> cell[1] = {};
+  T x = 0, x2 = 0;
+  T Ei = 0, Ew = 0, h = 0, Df = 0, phi = 0, T0[1] = {0};
   if (active) {
-    c.x = cols[i];
-    c.x2 = cols[nx + i];
-    c.glo = cols[2 * nx + i];
-    c.gdi = cols[3 * nx + i];
-    c.gup = cols[4 * nx + i];
+    x = cols[i];
+    x2 = cols[nx + i];
+    cell[0].glo = cols[2 * nx + i];
+    cell[0].gdi = cols[3 * nx + i];
+    cell[0].gup = cols[4 * nx + i];
     Ei = cin[0 * plane + idx];
     Ew = cin[1 * plane + idx];
     h = cin[2 * plane + idx];
     Df = cin[3 * plane + idx];
     phi = cin[4 * plane + idx];
-    T0 = cin[5 * plane + idx];
+    T0[0] = cin[5 * plane + idx];
   }
-  const T aw = p[P_A0] - p[P_A2] * c.x2;  // water coalbedo
   const T pi = T(3.14159265358979323846);
-  const T lat_melt_coef = T(-3.14159265358979323846 / 2.0);  // -pi/2 (D_t quirk)
 
   T acc[N_OUT];
 #pragma unroll
   for (int j = 0; j < N_OUT; ++j) acc[j] = T(0);
   T conv_m = T(1);
-  // the member's per-step noise row (after the PCR, exchange and reduction
-  // buffers) and its OU and crossing state
+  // the member's per-step noise row (after the reduction slots) and its OU
+  // and crossing state
   NoiseState<T> ns;
-  if (NOISY) ns = noise_begin(nz, sm + 6 * nxp + 32, m, K, nt);
+  if (NOISY) ns = noise_begin(nz, sm + 2 * RED_SLOTS, m, K, nt);
 
   for (int t = 0; t < nt; ++t) {
+    // the member's parameters are read from shared memory where they are
+    // used: held in registers across the year they cost a block per SM
+    const T Tm = p[P_TM], A = p[P_A], B = p[P_B], D = p[P_D], cw = p[P_CW];
     // -- step inputs ------------------------------------------------------
-    c.insol = (S0 - (S1 * c.x) * cosv[t]) - S2 * c.x2;
-    c.f = fyear[t] + Foff;
-    if (NOISY) c.f = noise_forcing(nz, ns, c.f, t);
+    const T insol = (p[P_S0] - (p[P_S1] * x) * cosv[t]) - p[P_S2] * x2;
+    T f = fyear[t] + p[P_F];
+    if (NOISY) f = noise_forcing(nz, ns, f, t);
 
     // -- temperatures ------------------------------------------------------
     const T den = (T(1) - phi) * cw;
     T Tw = Tm + (den == T(0) ? T(0) : Ew / den);
     if (is_nan(Tw)) Tw = T(0);
-    c.Tw = Tw;
-    c.phi = phi;
-    c.hp = h == T(0) ? hmin : h;
+    cell[0].phi = phi;
+    cell[0].water = (T(1) - phi) * Tw;
+    cell[0].solar = p[P_AI] * insol;
+    cell[0].kh = h == T(0) ? p[P_HMIN] : h;
+    const T0Par<T> tp{p[P_K], Tm, A, B, D, f};
 
     // -- Newton for T0 (per member) ---------------------------------------
-    T r = T(0), jlo = T(0), jdi = T(1), jup = T(0);
-    residual_bands(T0, c, p, s, i, nx, active, r, jlo, jdi, jup);
-    T rnorm = block_max(active ? abs_val(r) : T(0), s.red);
+    T r[1] = {T(0)}, jlo[1] = {T(0)}, jdi[1] = {T(1)}, jup[1] = {T(0)};
+    t0_residual_bands<T, 1, true, false>(T0, cell, tp, halo, nx, r, jlo, jdi, jup);
+    T rnorm = block_max_magnitude(active ? abs_val(r[0]) : T(0), red);
     const T tol = nan_max(abstol, reltol * rnorm);
     for (int it = 0; it < max_iter && rnorm > tol; ++it) {
-      T lo[1] = {jlo}, di[1] = {jdi}, up[1] = {jup}, delta[1] = {-r};
-      pcr_solve<T, 1>(lo, di, up, delta, s.pcr, nx, pcr_steps);
-      if (active) T0 = T0 + clip_step(delta[0], max_step);
-      residual_bands(T0, c, p, s, i, nx, active, r, jlo, jdi, jup);
-      rnorm = block_max(active ? abs_val(r) : T(0), s.red);
+      T delta[1] = {-r[0]};
+      pcr_solve<T, 1>(jlo, jdi, jup, delta, pcr, nx, pcr_steps);
+      if (active) T0[0] = T0[0] + clip_step(delta[0], max_step);
+      t0_residual_bands<T, 1, true, false>(T0, cell, tp, halo, nx, r, jlo, jdi, jup);
+      rnorm = block_max_magnitude(active ? abs_val(r[0]) : T(0), red);
       if (COUNT && i == 0) ++n_updates;
     }
     conv_m = nan_min(conv_m, rnorm <= tol ? T(1) : T(0));
 
     // -- the rest of the step (models/miz.py::step) -----------------------
-    T Ti = nan_min(T0, Tm);
+    const T Lf = p[P_LF], alpha = p[P_ALPHA], Dmin = p[P_DMIN], hmin = p[P_HMIN];
+    T Ti = nan_min(T0[0], Tm);
     if (h == T(0)) Ti = T(0);
     const bool zeroD = Df == T(0);
     const T n = zeroD ? T(0) : phi / (alpha * (Df * Df));
 
-    const T Tb = Ti * phi + (T(1) - phi) * Tw;
+    const T Tb = Ti * phi + cell[0].water;
     const T L = A + B * (Tb - Tm);
     T Tbm1 = T(0), Tbp1 = T(0);
-    exchange1(Tb, s, i, nx, active, Tbm1, Tbp1);
-    const T dTb = D * (c.glo * Tbm1 + c.gdi * Tb + c.gup * Tbp1);
-    const T Fvi = ai * c.insol - L + dTb + Fb + c.f;
-    const T Fvw = aw * c.insol - L + dTb + Fb + c.f;
-    const T wl = m1 * (Tw - Tm_pow_m2);
+    exchange_rolled(Tb, halo, i, nx, Tbm1, Tbp1);
+    const T dTb = D * (cell[0].glo * Tbm1 + cell[0].gdi * Tb + cell[0].gup * Tbp1);
+    const T aw = p[P_A0] - p[P_A2] * x2;  // water coalbedo
+    const T Fvi = cell[0].solar - L + dTb + p[P_FB] + f;
+    const T Fvw = aw * insol - L + dTb + p[P_FB] + f;
+    const T wl = p[P_M1] * (Tw - p[P_TM_POW_M2]);
     const T Flat = zeroD ? T(0) : phi * h * Lf * wl * pi / (alpha * Df);
 
     const T rEi = Ei + (phi * Fvi + Flat) * dt;
@@ -273,27 +243,27 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
     T Ei1 = cEi + psiEwdt;
     const T Ew1 = cEw + psiEidt;
 
-    const T Drl = Df + T(2) * rl;
+    const T Drl = Df + p[Q_TWO_RL];
     const T ring = alpha * n * (Drl * Drl - Df * Df);
     const T Al = nan_min(ring, T(1) - phi);
     const T psiEw = psiEwdt / dt;
     const T Ql = phi == T(1) ? T(0) : Al / (T(1) - phi) * psiEw;
     const T Qp = psiEw - Ql;
-    const T dn = dt * (-Qp / (Lf * alpha * (Dmin * Dmin) * hmin));
+    const T dn = dt * (-Qp / p[Q_DN_DEN]);
 
-    const T lat_melt = lat_melt_coef * alpha * wl;
-    const T lg_den = T(2) * Lf * h * phi;
+    const T lat_melt = p[Q_LAT_MELT] * wl;
+    const T lg_den = p[Q_TWO_LF] * h * phi;
     T lat_grow = lg_den == T(0) ? T(0) : -Df / lg_den * Ql;
     if (h == T(0)) lat_grow = T(0);
-    const T weld = kappa * alpha / T(4) * phi * (Df * (Df * Df));
+    const T weld = p[Q_WELD] * phi * (Df * (Df * Df));
     const T rD = Df + (lat_melt + lat_grow + weld) * dt;
     const T total = n + dn;
     const bool zero_total = total == T(0);
     T D1 = zero_total ? T(0) : (n * rD + dn * Dmin) / total;
-    D1 = nan_min(nan_max(D1, Dmin), Dmax);
+    D1 = nan_min(nan_max(D1, Dmin), p[P_DMAX]);
     if (Ei1 == T(0)) D1 = T(0);
 
-    const T rh = nan_max(h + (T(-1) / Lf * Fvi) * dt, T(0));
+    const T rh = nan_max(h + (p[Q_NEG_INV_LF] * Fvi) * dt, T(0));
     const T h1 = zero_total ? T(0) : (n * rh + dn * hmin) / total;
 
     T phi1 = h1 == T(0) ? T(0) : -Ei1 / (Lf * h1);
@@ -331,14 +301,14 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
     }
     if (NOISY && nz.cross_out != nullptr) {
       // the instantaneous ice area, phi with NaN counted as 0
-      if (active) s.va[i] = nz.wts[i] * (is_nan(phi1) ? T(0) : phi1);
-      noise_crossing(ns, s.va, nx, t);
+      const T part = active ? nz.wts[i] * (is_nan(phi1) ? T(0) : phi1) : T(0);
+      noise_crossing(ns, part, cross_red, t);
     }
   }
   if (NOISY) noise_end(nz, ns, m, nt);
 
   if (active) {
-    const T carry[N_CARRY] = {Ei, Ew, h, Df, phi, T0};
+    const T carry[N_CARRY] = {Ei, Ew, h, Df, phi, T0[0]};
 #pragma unroll
     for (int j = 0; j < N_CARRY; ++j) cout[j * plane + idx] = carry[j];
     // same `sum / nt` arithmetic as the JAX kernel and storage path
@@ -350,14 +320,14 @@ __global__ void __launch_bounds__(MAX_THREADS) miz_year_kernel(const T* __restri
   if (COUNT && i == 0) iters[m] = n_updates;
 }
 
-template <typename T, int MAX_THREADS, bool NOISY, bool COUNT>
+template <typename T, int MAX_THREADS, int MIN_BLOCKS, bool NOISY, bool COUNT>
 int launch_block(int K, int threads, size_t shmem, cudaStream_t stream,
                  const void* cin, const void* pars, const void* cols,
                  const void* cosv, const void* f, void* cout, void* wint,
                  void* summ, void* avg, void* conv, void* iters, void* raw,
                  const NoiseArgs<T>& nz, int nx, int nt, int w0, int s0, int pcr_steps,
                  int max_iter, double dt, double abstol, double reltol, double max_step) {
-  auto kernel = miz_year_kernel<T, MAX_THREADS, NOISY, COUNT>;
+  auto kernel = miz_year_kernel<T, MAX_THREADS, MIN_BLOCKS, NOISY, COUNT>;
   const cudaError_t err = allow_shared(kernel, shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<K, threads, shmem, stream>>>(
@@ -370,6 +340,15 @@ int launch_block(int K, int threads, size_t shmem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
+// Blocks of 192 threads (the canonical nx = 180) that share an SM, by the
+// registers the build is held to: float32 56 (deterministic, six blocks) and
+// 64 (noisy, five), float64 168 (two). The float32 caps spill a few values
+// (52 and 164 bytes) and are faster all the same: measured, PERF.md.
+template <typename T, bool NOISY>
+constexpr int canonical_blocks() {
+  return sizeof(T) == 8 ? 2 : (NOISY ? 5 : 6);
+}
+
 template <typename T, bool NOISY, bool COUNT>
 int launch_threads(int K, int threads, size_t shmem, cudaStream_t st, const void* cin,
                    const void* pars, const void* cols, const void* cosv, const void* f,
@@ -377,13 +356,18 @@ int launch_threads(int K, int threads, size_t shmem, cudaStream_t st, const void
                    void* raw, const NoiseArgs<T>& nz, int nx, int nt, int w0, int s0,
                    int pcr_steps, int max_iter, double dt, double abstol, double reltol,
                    double max_step) {
-  // the canonical grid (nx = 180) takes the 256-thread build, which may use
-  // more registers per thread than a 1024-thread block allows
-  if (threads <= 256)
-    return launch_block<T, 256, NOISY, COUNT>(
+  // three builds by block size: up to 192 threads with the register cap that
+  // fills an SM with the canonical grid's blocks, up to 256 with what a
+  // block of 256 can have, and up to 1024
+  if (threads <= 192)
+    return launch_block<T, 192, canonical_blocks<T, NOISY>(), NOISY, COUNT>(
         K, threads, shmem, st, cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters,
         raw, nz, nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol, max_step);
-  return launch_block<T, 1024, NOISY, COUNT>(
+  if (threads <= 256)
+    return launch_block<T, 256, 1, NOISY, COUNT>(
+        K, threads, shmem, st, cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters,
+        raw, nz, nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol, max_step);
+  return launch_block<T, 1024, 1, NOISY, COUNT>(
       K, threads, shmem, st, cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters,
       raw, nz, nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol, max_step);
 }
@@ -400,7 +384,7 @@ int launch(const void* cin, const void* pars, const void* cols, const void* cosv
   const NoiseArgs<T> nz = noise_args<T>(noise, keys, ou, eta_out, cross, cross_out, wts,
                                         ou_mode, ou_unroll);
   const bool noisy = noise != nullptr || keys != nullptr;
-  const size_t shmem = (size_t)(6 * threads + 32) * sizeof(T) +
+  const size_t shmem = base_shared_bytes<T>(nx, pcr_steps) +
                        (noisy ? noise_shared_bytes<T>(nt, ou_mode) : 0);
   if (shmem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

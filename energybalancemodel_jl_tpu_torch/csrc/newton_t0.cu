@@ -5,90 +5,84 @@
 // by pallas_solve_T0), the solver='pallas' path of the batched engine. ONE
 // THREAD BLOCK PER MEMBER, cells strided over at most 1024 threads (1, 2 or 4
 // per thread, n <= 4096). Each of `iters` iterations evaluates the T0eq
-// residual and its tridiagonal Jacobian (neighbour values through shared
-// memory, zero outside the grid), solves the Jacobian by common.cuh's PCR,
-// clips the update to +-max_step and sets a non-finite update to 0. There is
-// no convergence test: a converged cell takes ~0 steps. The operations and
-// their order are those of ops/newton_t0.py::newton_t0_reference.
+// residual and its tridiagonal Jacobian (newton.cuh, shared with the year
+// kernel; neighbour values through shared memory, zero outside the grid),
+// solves the Jacobian by common.cuh's PCR, clips the update to +-max_step and
+// sets a non-finite update to 0. There is no convergence test: a converged
+// cell takes ~0 steps. The operations and their order are those of
+// ops/newton_t0.py::newton_t0_reference.
 //
 // What bounds it: device memory sees the five (K, n) inputs read once and T0
-// written once; in between, per iteration, 2 barriers for the neighbour
-// exchange and 2 * ceil(log2 n) for the PCR levels. At (8192, 180) the
-// traffic is ~35 MB in f32, so a call is bound by the barrier chain and launch
-// latency, not by bytes.
-#include "common.cuh"
+// written once, ~35 MB in float32 at (8192, 180), microseconds at the card's
+// bandwidth. In between, an iteration is one barrier for the neighbour
+// exchange and one per PCR level (every exchange writes two buffers in turn,
+// common.cuh): 1 + ceil(log2 n) = 9 at n = 180, 54 for the 6 iterations of a
+// call (108 before the buffers alternated). Between barriers a level is one
+// 16-byte store and two 16-byte loads per row in float32 and two IEEE
+// divisions (none at the first level), so a call is bound by the
+// instructions the six blocks resident on an SM issue between barriers, not
+// by bytes or flops; and a caller that passes its scalars as Python numbers
+// waits longer for the wrapper's seven small copies than for the kernel
+// (PERF.md). n <= 256 runs a 256-thread build that is not compiled under the
+// register cap of a 1024-thread block; wider systems run the 1024-thread
+// builds (two barriers per level and per exchange above n = 1024).
+#include "newton.cuh"
 
 namespace {
 
-template <typename T, int CPT>
-__global__ void __launch_bounds__(1024)
+template <typename T>
+size_t newton_shared_bytes(int n, int steps) {
+  return pcr_shared_bytes<T>(n, steps) + halo_shared_bytes<T>(n);
+}
+
+template <typename T, int CPT, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
     newton_t0_kernel(const T* __restrict__ T0in, const T* __restrict__ hp,
                      const T* __restrict__ Tw, const T* __restrict__ phi,
                      const T* __restrict__ insol, const T* __restrict__ bands,
                      const T* __restrict__ D, const T* __restrict__ scal,
                      T* __restrict__ T0out, int n, int iters, int steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int rows = CPT * blockDim.x;
-  const PcrSmem<T> s{sm, sm + rows, sm + 2 * rows, sm + 3 * rows};
-  T* vTb = sm + 4 * rows;  // neighbour exchange of Tb and g
-  T* vg = sm + 5 * rows;
+  PcrSmem<T> s = pcr_begin<T>(smem_raw, n, steps);
+  Halo<T> halo = halo_begin<T, false>(smem_raw + pcr_shared_bytes<T>(n, steps), n);
   const size_t m = blockIdx.x;
-  const T Dm = D[m];
   // k, Tm, A, B, ai, f, max_step (ops/newton_t0.py), on the device: no host
   // round trip for scalars that are tensors there
-  const T k = scal[0], Tm = scal[1], A = scal[2], B = scal[3], ai = scal[4],
-          f = scal[5], max_step = scal[6];
+  const T0Par<T> par{scal[0], scal[1], scal[2], scal[3], D[m], scal[5]};
+  const T ai = scal[4], max_step = scal[6];
 
-  // per cell: the iterate and the loop-invariant terms hoisted out of the
-  // iteration (k/hp, (1 - phi) Tw, ai insol), and the stencil bands
-  T T0[CPT], k_over_h[CPT], one_m_phi_Tw[CPT], solar_ice[CPT], ph[CPT];
-  T glo[CPT], gdi[CPT], gup[CPT];
+  // per cell: the iterate, the stencil bands, and the loop-invariant terms
+  // hoisted out of the iteration (k/hp, (1 - phi) Tw, ai insol)
+  T T0[CPT];
+  T0Cell<T> cell[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int i = threadIdx.x + c * blockDim.x;
     const int j = i < n ? i : 0;
     const size_t idx = m * n + j;
     T0[c] = T0in[idx];
-    k_over_h[c] = k / hp[idx];
-    ph[c] = phi[idx];
-    one_m_phi_Tw[c] = (T(1) - ph[c]) * Tw[idx];
-    solar_ice[c] = ai * insol[idx];
-    glo[c] = bands[j];
-    gdi[c] = bands[n + j];
-    gup[c] = bands[2 * n + j];
+    cell[c].kh = par.k / hp[idx];
+    cell[c].phi = phi[idx];
+    cell[c].water = (T(1) - cell[c].phi) * Tw[idx];
+    cell[c].solar = ai * insol[idx];
+    cell[c].glo = bands[j];
+    cell[c].gdi = bands[n + j];
+    cell[c].gup = bands[2 * n + j];
   }
+  // the halo's zero cells are written before the first exchange's barrier
 
+  T r[CPT], lo[CPT], di[CPT], up[CPT], b[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {  // rows beyond the system: identity
+    r[c] = T(0);
+    lo[c] = T(0);
+    di[c] = T(1);
+    up[c] = T(0);
+  }
   for (int it = 0; it < iters; ++it) {
-    T Tb[CPT], g[CPT];
+    t0_residual_bands<T, CPT, false, true>(T0, cell, par, halo, n, r, lo, di, up);
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int i = threadIdx.x + c * blockDim.x;
-      const T Ti = nan_min(T0[c], Tm);
-      Tb[c] = Ti * ph[c] + one_m_phi_Tw[c];
-      g[c] = ph[c] * (T0[c] < Tm ? T(1) : T(0));
-      if (i < n) {
-        vTb[i] = Tb[c];
-        vg[i] = g[c];
-      }
-    }
-    __syncthreads();
-    T lo[CPT], di[CPT], up[CPT], b[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int i = threadIdx.x + c * blockDim.x;
-      const bool hm = i >= 1, hp1 = i + 1 < n;  // zero outside the grid
-      const T Tbm1 = hm ? vTb[i - 1] : T(0), Tbp1 = hp1 ? vTb[i + 1] : T(0);
-      const T gm1 = hm ? vg[i - 1] : T(0), gp1 = hp1 ? vg[i + 1] : T(0);
-      const T dTb = Dm * (glo[c] * Tbm1 + gdi[c] * Tb[c] + gup[c] * Tbp1);
-      const T r = k_over_h[c] * (Tm - T0[c]) + solar_ice[c] +
-                  ((-A) - B * (T0[c] - Tm)) + dTb + f;
-      lo[c] = Dm * glo[c] * gm1;
-      di[c] = -k_over_h[c] - B + Dm * gdi[c] * g[c];
-      up[c] = Dm * gup[c] * gp1;
-      b[c] = -r;
-    }
-    __syncthreads();
+    for (int c = 0; c < CPT; ++c) b[c] = -r[c];
     pcr_solve<T, CPT>(lo, di, up, b, s, n, steps);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) T0[c] = T0[c] + clip_step(b[c], max_step);
@@ -101,13 +95,13 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <typename T, int CPT>
+template <typename T, int CPT, int MAX_THREADS>
 int launch_cells(cudaStream_t stream, const void* T0, const void* hp, const void* Tw,
                  const void* phi, const void* insol, const void* bands, const void* D,
                  const void* scal, void* out, int K, int n, int iters, int steps) {
   const int threads = round_up_32((n + CPT - 1) / CPT);
-  const size_t shmem = (size_t)6 * CPT * threads * sizeof(T);
-  auto kernel = newton_t0_kernel<T, CPT>;
+  const size_t shmem = newton_shared_bytes<T>(n, steps);
+  auto kernel = newton_t0_kernel<T, CPT, MAX_THREADS>;
   const cudaError_t err = allow_shared(kernel, shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<K, threads, shmem, stream>>>(
@@ -126,14 +120,18 @@ int launch(const void* T0, const void* hp, const void* Tw, const void* phi,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (rows_per_thread(n)) {
     case 1:
-      return launch_cells<T, 1>(st, T0, hp, Tw, phi, insol, bands, D, scal, out, K, n,
-                                iters, steps);
+      // the canonical n = 180 takes the 256-thread build
+      if (n <= 256)
+        return launch_cells<T, 1, 256>(st, T0, hp, Tw, phi, insol, bands, D, scal, out, K, n,
+                                       iters, steps);
+      return launch_cells<T, 1, 1024>(st, T0, hp, Tw, phi, insol, bands, D, scal, out, K, n,
+                                      iters, steps);
     case 2:
-      return launch_cells<T, 2>(st, T0, hp, Tw, phi, insol, bands, D, scal, out, K, n,
-                                iters, steps);
+      return launch_cells<T, 2, 1024>(st, T0, hp, Tw, phi, insol, bands, D, scal, out, K, n,
+                                      iters, steps);
     default:
-      return launch_cells<T, 4>(st, T0, hp, Tw, phi, insol, bands, D, scal, out, K, n,
-                                iters, steps);
+      return launch_cells<T, 4, 1024>(st, T0, hp, Tw, phi, insol, bands, D, scal, out, K, n,
+                                      iters, steps);
   }
 }
 

@@ -8,11 +8,13 @@
 // versions of ops/_year.py operation for operation: the recurrence is
 // eta = fma(rho, eta, scale * xi) (XLA's contraction of rho * eta + scale * xi),
 // the scan y_t = fma(rho^d, y_{t-d}, y_t), p_t = p_t * p_{t-d}, then
-// eta_t = fma(p_t, eta0, y_t), and the crossing area is summed in cell order.
+// eta_t = fma(p_t, eta0, y_t), and the crossing area is summed in the fixed
+// order of ops/_year.py::block_sum.
 #pragma once
 
 #include <cstdint>
 
+#include "common.cuh"
 #include "prng.cuh"
 
 namespace {
@@ -128,17 +130,25 @@ __device__ __forceinline__ T noise_forcing(const NoiseArgs<T>& nz, NoiseState<T>
   return f + ns.row[t];
 }
 
-// after the block wrote w_i * field_i to buf[i] for its nx cells: thread 0
-// sums them in cell order and records a first crossing at step t
+// The crossing area of step t from each thread's part (w_i * field_i of its
+// cells, added in cell order; 0 for a thread with none), in the fixed order
+// of ops/_year.py::block_sum: within a warp a halving tree over the lanes
+// (lane l adds lane l + 16, then + 8, 4, 2, 1; the shuffle butterfly gives
+// lane 0 that sum), then the warps' sums in warp order, by thread 0, which
+// records a first crossing. One barrier: the warps' slots are two sets
+// written in turn (common.cuh).
 template <typename T>
-__device__ __forceinline__ void noise_crossing(NoiseState<T>& ns, const T* buf, int nx, int t) {
+__device__ __forceinline__ void noise_crossing(NoiseState<T>& ns, T part, RedSmem<T>& red,
+                                               int t) {
+  for (int o = 16; o > 0; o >>= 1) part = part + __shfl_xor_sync(0xffffffffu, part, o);
+  T* slots = red_turn(red);
+  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = part;
   __syncthreads();
   if (threadIdx.x == 0) {
-    T area = buf[0];
-    for (int j = 1; j < nx; ++j) area = area + buf[j];
+    T area = slots[0];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) area = area + slots[w];
     if (ns.first < T(0) && ns.sign * (area - ns.thr) > T(0)) ns.first = T(t);
   }
-  __syncthreads();
 }
 
 // the year-end OU value and the first crossing step of member m

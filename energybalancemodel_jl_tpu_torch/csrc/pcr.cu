@@ -14,7 +14,8 @@
 // (row stride n); the right-hand side and the solution are (K, n).
 //
 // What bounds it: device memory sees the four inputs read once and the
-// solution written once; in between, 2 * ceil(log2 n) block barriers. At
+// solution written once; in between, ceil(log2 n) block barriers (one per
+// level up to n = 1024, two above: common.cuh). At
 // (K, n) = (8192, 180) that is ~30 MB of traffic in f32, microseconds at
 // the card's bandwidth, so a call is bound by launch latency and the barrier
 // chain, not by bytes.
@@ -28,9 +29,7 @@ __global__ void __launch_bounds__(1024)
                const T* __restrict__ up, const T* __restrict__ b, T* __restrict__ x,
                int n, int lo_stride, int di_stride, int up_stride, int steps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int rows = CPT * blockDim.x;
-  const PcrSmem<T> s{sm, sm + rows, sm + 2 * rows, sm + 3 * rows};
+  PcrSmem<T> s = pcr_begin<T>(smem_raw, n, steps);
   const size_t m = blockIdx.x;
 
   T l[CPT], d[CPT], u[CPT], r[CPT];
@@ -56,7 +55,7 @@ int launch_cells(cudaStream_t stream, const void* lo, const void* di, const void
                  const void* b, void* x, int K, int n, int lo_stride, int di_stride,
                  int up_stride, int steps) {
   const int threads = round_up_32((n + CPT - 1) / CPT);
-  const size_t shmem = (size_t)4 * CPT * threads * sizeof(T);
+  const size_t shmem = pcr_shared_bytes<T>(n, steps);
   auto kernel = pcr_kernel<T, CPT>;
   const cudaError_t err = allow_shared(kernel, shmem);
   if (err != cudaSuccess) return (int)err;

@@ -20,7 +20,8 @@ from . import prng
 __all__ = ["member_columns", "check_year_args", "check_width", "check_noise_args",
            "check_crossing_args", "trapezoid_weights", "ou_path", "assoc_ou_path",
            "classic_ou_unroll", "noise_offsets", "member_rows", "keys_tensor",
-           "CrossingTracker", "NoiseLaunch", "year_result", "MAX_SHARED_BYTES"]
+           "block_sum", "block_layout", "pcr_shared_bytes", "CrossingTracker", "NoiseLaunch",
+           "year_result", "MAX_SHARED_BYTES"]
 
 
 def member_columns(par, names, K: int, dtype, device):
@@ -238,13 +239,58 @@ def noise_offsets(noise, noise_ou, noise_keys, ou_assoc, K: int, nt: int, dtype,
     return path, path[-1]
 
 
+def block_layout(n: int):
+    """``(rows per thread, threads)`` of the block that holds an ``n``-row
+    member in the kernels: rows strided over at most 1024 threads, whole
+    warps (``csrc/common.cuh::rows_per_thread``)."""
+    cpt = 1 if n <= 1024 else (2 if n <= 2048 else 4)
+    return cpt, -(-(-(-n // cpt)) // 32) * 32
+
+
+def pcr_shared_bytes(n: int, steps: int, itemsize: int) -> int:
+    """The shared memory of a block's PCR solves of ``n`` rows
+    (``csrc/common.cuh::pcr_shared_bytes``): two padded buffers of four-value
+    rows up to ``n = 1024``, one buffer with one identity row on each side
+    above."""
+    if n > 1024:
+        return 4 * itemsize * (n + 2)
+    pad = 1 << (steps - 1) if steps > 0 else 0
+    return 4 * itemsize * (2 * n + 3 * pad)
+
+
+def block_sum(v) -> torch.Tensor:
+    """``sum_i v[..., i]`` in the fixed order a thread block of the year
+    kernels sums its member's cells (``csrc/noise.cuh::noise_crossing``), so
+    kernel and plain version agree bit for bit. With the block of
+    :func:`block_layout`, cells beyond the grid counting as 0: a thread adds
+    its cells ``t, t + threads, ...`` in that order; within a warp of 32
+    threads a halving tree (lane ``l`` adds lane ``l + 16``, then ``+ 8, 4,
+    2, 1``); then the warps' sums in warp order."""
+    n = v.shape[-1]
+    cpt, threads = block_layout(n)
+    padded = torch.zeros(v.shape[:-1] + (cpt * threads,), dtype=v.dtype, device=v.device)
+    padded[..., :n] = v
+    cells = padded.reshape(v.shape[:-1] + (cpt, threads))
+    part = cells[..., 0, :]
+    for c in range(1, cpt):
+        part = part + cells[..., c, :]
+    lanes = part.reshape(v.shape[:-1] + (threads // 32, 32))
+    for half in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :half] + lanes[..., half:2 * half]
+    warps = lanes[..., 0]
+    total = warps[..., 0]
+    for w in range(1, warps.shape[-1]):
+        total = total + warps[..., w]
+    return total
+
+
 class CrossingTracker:
     """The first step at which a member's instantaneous ice area crosses its
     threshold: ``sign * (area - thr) > 0``, recorded as the step index (a
     float of the run's dtype; -1 where never crossed), JAX
-    ``pallas_year.py:610-619``. The area is ``sum_i w_i field_i`` summed in
-    cell order, as the kernels sum it; ``field`` is MIZ's ``phi`` (NaN
-    counted as 0) or Classic's ``E < 0``."""
+    ``pallas_year.py:610-619``. The area is ``sum_i w_i field_i`` in the
+    order of :func:`block_sum`, as the kernels sum it; ``field`` is MIZ's
+    ``phi`` (NaN counted as 0) or Classic's ``E < 0``."""
 
     def __init__(self, model: str, crossing, st, K: int, dtype, device):
         self.field = "phi" if model == "MIZ" else "E"
@@ -258,9 +304,7 @@ class CrossingTracker:
             v = torch.where(v == v, v, torch.zeros((), dtype=v.dtype, device=v.device))
         else:
             v = (v < 0.0).to(v.dtype)
-        area = self.w[0] * v[:, 0]
-        for i in range(1, v.shape[1]):
-            area = area + self.w[i] * v[:, i]
+        area = block_sum(self.w * v)
         crossed = (self.first < 0) & (self.sign * (area - self.thr) > 0)
         self.first = torch.where(crossed, torch.full_like(self.first, float(t)), self.first)
 

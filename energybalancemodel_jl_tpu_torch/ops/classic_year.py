@@ -39,7 +39,7 @@ from ..utils.collection import Collection
 from . import _build
 from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args, check_noise_args,
                     check_width, check_year_args, classic_ou_unroll, member_columns,
-                    noise_offsets, year_result)
+                    noise_offsets, pcr_shared_bytes, year_result)
 from .tridiag import pcr_steps
 
 __all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
@@ -145,10 +145,10 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the classic_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
-    cpt = 1 if nx <= 1024 else (2 if nx <= 2048 else 4)  # csrc/common.cuh rows_per_thread
-    threads = -(-(-(-nx // cpt)) // 32) * 32  # ceil(nx / cpt) rounded up to whole warps
+    # the PCR buffers and the crossing sum's slots (csrc/classic_year.cu)
+    size = torch.empty((), dtype=dtype).element_size()
     nz = NoiseLaunch(noise, noise_ou, noise_keys, ou_assoc, crossing, st, K, dtype, device,
-                     4 * cpt * threads * torch.empty((), dtype=dtype).element_size(),
+                     pcr_shared_bytes(nx, pcr_steps(nx), size) + 64 * size,
                      unroll=classic_ou_unroll(st.nt))
     pars = member_params(par, K, st.dt, dtype, device)
     # per-cell columns (5, nx): x, x^2 and the uniform-grid bands

@@ -37,8 +37,9 @@ from ..models.base import StepConfig
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from . import _build
-from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args, check_noise_args,
-                    check_width, check_year_args, member_columns, noise_offsets, year_result)
+from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args,
+                    check_noise_args, check_width, check_year_args, member_columns,
+                    noise_offsets, pcr_shared_bytes, year_result)
 from .diffusion import diffusion_bands
 from .tridiag import pcr_steps
 
@@ -182,9 +183,12 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the miz_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
-    threads = -(-nx // 32) * 32
+    # csrc/miz_year.cu::base_shared_bytes: the PCR buffers, the neighbour
+    # exchange, two sets of reduction slots
+    size = pars.element_size()
+    base = pcr_shared_bytes(nx, pcr_steps(nx), size) + 4 * size * (nx + 2) + 128 * size
     nz = NoiseLaunch(noise, noise_ou, noise_keys, ou_assoc, crossing, st, K, dtype, device,
-                     (6 * threads + 32) * pars.element_size())
+                     base)
     cols, cosv = _year_tables(st, dtype, device)
     cin = torch.stack([carry[k] for k in CARRY_KEYS])  # (6, K, nx), contiguous
     f = f.contiguous()

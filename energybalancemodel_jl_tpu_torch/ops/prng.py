@@ -18,7 +18,9 @@ draws (JAX ``stochastic.py:40-47``).
   draw kernel (``csrc/prng.cuh``, :mod:`.normal_table`) uses ``__fmaf_rn``
   at the same places.
 - :func:`normal_table_f64`: the float64 table of the f64 engines, plain
-  PyTorch only (JAX builds it in XLA, outside any kernel).
+  PyTorch only (JAX builds it in XLA, outside any kernel), with XLA's own
+  float64 ``erfinv`` (:func:`erfinv_f64`, :func:`log1p_f64`,
+  :func:`sqrt_f64`).
 
 Only the partitionable threefry layout is reproduced (JAX's default since
 0.4.30): element ``t`` of a length-``nt`` draw uses counter words ``(0, t)``.
@@ -32,8 +34,9 @@ import torch
 
 __all__ = [
     "prng_key", "fold_in", "member_year_keys", "threefry2x32", "fma_f32",
-    "fma_f64", "log1p_f32", "erfinv_f32", "normal_from_bits", "normal_table",
-    "normal_table_f64",
+    "fma_f64", "log1p_f32", "erfinv_f32", "log1p_f64", "sqrt_f64", "erfinv_f64",
+    "normal_from_bits",
+    "normal_table", "normal_table_f64",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -72,6 +75,43 @@ LOGF_C = tuple(_f(h) for h in (
 ))
 LOGF_LN2_LO = _f("BF2BD01060000000")
 LOGF_LN2_HI = _f("3FE6300000000000")
+# XLA:CPU's float64 log1p: the same rational with float64 coefficients for
+# |x| < sqrt(2) - 1, else the C library's log of 1 + x
+LOG1P64_SMALL = _f("3FDA827999FCEF32")
+LOG1P64_Q = tuple(_f(h) for h in ("402E20359E903E37", "4054C30B52213498", "406BB86590FCFB56",
+                                  "407351945DC908A5", "406B0DB13E48E066", "404E0F304466448E"))
+LOG1P64_P0 = _f("3F07BC0962B395CA")
+LOG1P64_P = tuple(_f(h) for h in ("3FDFE818A0FE1A83", "401A509F46F4FA53", "403DE9738B8CB9C9",
+                                  "404E798EB86C3351", "404C8E7597479A10", "40340A202D99830A"))
+# the double-precision erfinv that chlo.erf_inv lowers to: three polynomials,
+# in w - 3.125 for w < 6.25, in sqrt(w) - 3.25 for w < 16, else in
+# sqrt(w) - 5 (leading coefficient first), w = -log1p(-u^2)
+ERFINV64_P1 = (
+    -3.64441206401782e-21, -1.6850591381820166e-19, 1.28584807152564e-18,
+    1.1157877678025181e-17, -1.333171662854621e-16, 2.0972767875968562e-17,
+    6.637638134358324e-15, -4.054566272975207e-14, -8.151934197605472e-14,
+    2.6335093153082323e-12, -1.2975133253453532e-11, -5.415412054294628e-11,
+    1.0512122733215323e-09, -4.112633980346984e-09, -2.9070369957882005e-08,
+    4.2347877827932404e-07, -1.3654692000834679e-06, -1.3882523362786469e-05,
+    0.00018673420803405714, -0.000740702534166267, -0.006033670871430149,
+    0.24015818242558962, 1.6536545626831027,
+)
+ERFINV64_P2 = (
+    2.2137376921775787e-09, 9.075656193888539e-08, -2.7517406297064545e-07,
+    1.8239629214389228e-08, 1.5027403968909828e-06, -4.013867526981546e-06,
+    2.9234449089955446e-06, 1.2475304481671779e-05, -4.7318229009055734e-05,
+    6.828485145957318e-05, 2.4031110387097894e-05, -0.0003550375203628475,
+    0.0009532893797373805, -0.0016882755560235047, 0.002491442096107851,
+    -0.003751208507569241, 0.005370914553590064, 1.0052589676941592, 3.0838856104922208,
+)
+ERFINV64_P3 = (
+    -2.7109920616438573e-11, -2.555641816996525e-10, 1.5076572693500548e-09,
+    -3.789465440126737e-09, 7.61570120807834e-09, -1.496002662714924e-08,
+    2.914795345090108e-08, -6.771199775845234e-08, 2.2900482228026655e-07,
+    -9.9298272942317e-07, 4.526062597223154e-06, -1.968177810553167e-05,
+    7.599527703001776e-05, -0.00021503011930044477, -0.00013871931833623122,
+    1.0103004648645344, 4.849906401408584,
+)
 # U(lo, 1): lo = nextafter(-1, 0); hi - lo rounds to 2.0 in float32
 UNIFORM_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32))
 UNIFORM_SPAN = float(np.float32(1.0) - np.float32(UNIFORM_LO))
@@ -276,14 +316,64 @@ def normal_table(keys, nt: int, device=None):
     return normal_from_bits(o0 ^ o1)
 
 
+def log1p_f64(x):
+    """``log1p`` of a float64 tensor as XLA:CPU emits it for float64, on
+    ``-1 < x <= 0``: the rational ``x + (x^3 P(x)/Q(x) - x^2/2)`` for
+    ``|x| < sqrt(2) - 1`` (every Horner step one fused multiply-add), else
+    the logarithm of ``1 + x``. XLA calls the C library's ``log`` there and
+    this calls ``torch.log``: the two may round differently (ROADMAP Queue
+    3)."""
+    f64 = lambda v: torch.full_like(x, v)
+    q = x + LOG1P64_Q[0]
+    for c in LOG1P64_Q[1:]:
+        q = fma_f64(q, x, f64(c))
+    p = f64(LOG1P64_P0)
+    for c in LOG1P64_P:
+        p = fma_f64(p, x, f64(c))
+    xx2 = x * x
+    s = (x * xx2) * (p / q)
+    s = fma_f64(xx2, f64(-0.5), s)
+    return torch.where(x.abs() < LOG1P64_SMALL, x + s, torch.log(x + 1.0))
+
+
+def sqrt_f64(w):
+    """The correctly rounded float64 square root on any device. PyTorch's
+    float64 ``sqrt`` on the CPU is not always correctly rounded (measured: 5
+    of 10^6 draws moved); one Newton correction from the exact residual
+    ``w - r^2`` (a fused multiply-add) settles the last bit."""
+    r = torch.sqrt(w)
+    fixed = r + fma_f64(-r, r, w) / (2.0 * r)
+    return torch.where(r > 0, fixed, r)
+
+
+def erfinv_f64(u):
+    """``erfinv`` of a float64 tensor, ``|u| < 1``, as XLA:CPU evaluates
+    ``lax.erf_inv`` in float64: ``w = -log1p(-u^2)`` (here ``1 - u^2`` is a
+    product and a sum, two roundings, unlike the float32 pipeline), then one
+    of three polynomials in a shifted ``w`` or ``sqrt(w)``, each Horner step
+    one fused multiply-add, times ``u``."""
+    w = -log1p_f64(u * -u)
+    root = sqrt_f64(w)
+    branches = []
+    for coefs, arg in ((ERFINV64_P1, w - 3.125), (ERFINV64_P2, root - 3.25),
+                       (ERFINV64_P3, root - 5.0)):
+        p = torch.full_like(u, coefs[0])
+        for c in coefs[1:]:
+            p = fma_f64(p, arg, torch.full_like(u, c))
+        branches.append(p)
+    p = torch.where(w < 6.25, branches[0], torch.where(w < 16.0, branches[1], branches[2]))
+    return p * u
+
+
 def normal_table_f64(keys, nt: int, device=None):
     """The float64 ``(nt, K)`` table of the f64 engines, drawn as
     ``jax.random.normal(key, (nt,), float64)`` draws: 64-bit words
     ``(o0 << 32) | o1``, a 52-bit mantissa fill to U(lo, 1), then
-    ``sqrt(2) * erfinv`` in float64 (here ``torch.special.erfinv``). The
-    words and the uniforms are JAX's bit for bit; the erfinv is not XLA's
-    own float64 polynomial, so a draw may differ from JAX's in its last
-    bits (ROADMAP Queue 3)."""
+    ``sqrt(2) * erfinv`` in float64 (:func:`erfinv_f64`, XLA's own
+    polynomial). The words and the uniforms are JAX's bit for bit; a draw
+    whose ``log1p`` takes the logarithm may differ from JAX's in its last
+    bits where ``torch.log`` and the C library's ``log`` round differently
+    (ROADMAP Queue 3)."""
     if device is None:
         device = keys.device if torch.is_tensor(keys) else "cpu"
     o0, o1 = _cipher_table(keys, nt, device)
@@ -294,4 +384,4 @@ def normal_table_f64(keys, nt: int, device=None):
     span = 1.0 - lo                                        # rounds to 2.0
     u = torch.maximum(torch.full_like(f, lo), fma_f64(f, torch.full_like(f, span),
                                                      torch.full_like(f, lo)))
-    return float(np.sqrt(2.0)) * torch.special.erfinv(u)
+    return float(np.sqrt(2.0)) * erfinv_f64(u)

@@ -1,0 +1,346 @@
+"""Time the port's kernels at the main paths' shapes, and compare two
+checkouts of the package on one card in one session.
+
+Two commands, run from the root of a checkout on a machine with a CUDA device
+and nvcc::
+
+    python energybalancemodel_jl_tpu_torch/tools/kernel_times.py measure
+    python energybalancemodel_jl_tpu_torch/tools/kernel_times.py compare \\
+        --parent _checkout/parent --out kernel_times.json
+
+(as a script, not with ``-m``: the package it measures is the one under
+``--root``, imported after the arguments are read)
+
+``measure`` builds the kernels of the package under ``--root`` (default: this
+checkout), prints each kernel's registers as ptxas reports them, then times
+(``ms``: CUDA events around wrapper calls after a warm-up launch, which
+holds what the host takes to issue them; ``device_ms``, on some rows: the
+kernel alone, from ``torch.profiler``), on the canonical grid
+``SpaceTime.sin(180, 2000, 1)``:
+
+- the MIZ year: deterministic at K=8192 in float32 from zero init and from
+  the ice-free state of a 40-year run at F=+15, at K=1, in float64; the noisy
+  builds from that state (sigma=0, keys/serial, keys/crossing, and the
+  float64 table/OU), each with the member's Newton updates counted;
+- the Classic year at K=8192 (deterministic in float32 and float64,
+  keys/serial, keys/crossing);
+- K10 (``newton_t0``, 6 iterations; its scalars as Python numbers, and as
+  tensors on the device) and K11 (``pcr_fused``) per call at (8192, 180);
+- the wall time of ``transitions`` (MIZ, K=8192, 3 years, keys/serial) and of
+  the 88 K=1 deterministic years its references cost (2 x 40 years of
+  ``integrate`` + 8 reference-area years).
+
+Every timed result is hashed (SHA-256 of its bytes), so two checkouts whose
+kernels round alike print equal hashes. ``compare`` runs ``measure`` in a
+process of its own for the parent, this checkout, this checkout, the parent,
+in that order, and prints the rows side by side with the card's name and
+power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+CANONICAL = (180, 2000)
+K_MAIN = 8192
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_rows(log):
+    """kernel<dtype,template values> -> 'N registers[, S bytes spilled]' from
+    an ``-Xptxas -v`` log."""
+    rows, name, spill = {}, None, "0"
+    for line in log.splitlines():
+        m = re.search(r"(miz_year_kernel|classic_year_kernel|pcr_kernel|newton_t0_kernel|"
+                      r"normal_table_kernel|normal_bits_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
+                      line)
+        if m and "entry function" in line:
+            args = [{"f": "f32", "d": "f64"}[m.group(2)]] if m.group(2) else []
+            args += [v for _, v in re.findall(r"L([ib])(\d+)E", m.group(3) or "")]
+            name, spill = f"{m.group(1)}<{','.join(args)}>", "0"
+        elif name and "bytes spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows[name] = f"{regs} registers" + (f", {spill} bytes spilled" if spill != "0" else "")
+            name = None
+    return rows
+
+
+def measure(root, flags, rows_wanted):
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.models.base import default_step_config, get_model
+    from energybalancemodel_jl_tpu_torch.ops import _build, prng
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
+    from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import CARRY_KEYS, miz_year
+    from energybalancemodel_jl_tpu_torch.ops.newton_t0 import newton_t0
+    from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    if flags:
+        _build.NVCC_FLAGS = tuple(_build.NVCC_FLAGS) + tuple(flags)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.load_library()
+    result = {"root": root, "flags": flags, "gpu": nvidia_smi(),
+              "build_s": time.perf_counter() - t0, "rows": {}}
+    result["ptxas"] = ptxas_rows(_build.build_log())
+
+    def digest(out):
+        h = hashlib.sha256()
+        for v in out:
+            if torch.is_tensor(v):
+                h.update(v.detach().cpu().numpy().tobytes())
+            elif v is not None and hasattr(v, "items"):
+                for _, w in sorted(v.items()):
+                    h.update(w.detach().cpu().numpy().tobytes())
+            elif isinstance(v, tuple):
+                for coll in v:
+                    for _, w in sorted(coll.items()):
+                        h.update(w.detach().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def kernel_time(fn, n=3):
+        out = fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / n, out
+
+    def device_time(fn, n, kernel):
+        """ms per call that the device spent in kernels whose name holds
+        ``kernel``, from torch.profiler; None if it recorded no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                total += getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+        return total / n / 1e3 if total else None
+
+    def row(name, fn, n=3, count=None, kernel=None):
+        if rows_wanted and not any(name.startswith(w) for w in rows_wanted):
+            return
+        ms, out = kernel_time(fn, n)
+        entry = {"ms": ms, "sha": digest(out if isinstance(out, tuple) else (out,))}
+        if kernel is not None:
+            entry["device_ms"] = device_time(fn, n, kernel)
+        if count is not None:
+            entry["newton_updates_per_member_step"] = count()
+        result["rows"][name] = entry
+        print(f"  {name}: {json.dumps(entry)}", flush=True)
+
+    nx, nt = CANONICAL
+    st1 = ebt.SpaceTime.sin(nx, nt, 1)
+    mpar = ebt.default_parameters("MIZ")
+    cpar = ebt.default_parameters("Classic")
+
+    def miz_setup(K, dtype):
+        par = dict(mpar)
+        par["D"] = np.linspace(0.55, 0.65, K)
+        carry = ebt.Collection(
+            {k: torch.zeros((K, nx), dtype=dtype, device=dev) for k in CARRY_KEYS})
+        return carry, par, torch.zeros(nt, dtype=dtype, device=dev), st1
+
+    def counted(args, cfg, **kw):
+        K = args[0]["Ei"].shape[0]
+
+        def count():
+            n = torch.zeros(K, dtype=torch.int32, device=dev)
+            miz_year(*args, cfg, newton_iters=n, **kw)
+            return int(n.sum()) / K / nt
+        return count
+
+    cfg32, cfg64 = default_step_config("float32"), default_step_config("float64")
+    for label, K, dtype, cfg in (("miz det f32 K=8192 zero init", K_MAIN, torch.float32, cfg32),
+                                 ("miz det f32 K=1 zero init", 1, torch.float32, cfg32),
+                                 ("miz det f64 K=8192 zero init", K_MAIN, torch.float64, cfg64)):
+        args = miz_setup(K, dtype)
+        row(label, lambda: miz_year(*args, cfg), count=counted(args, cfg),
+            kernel="miz_year_kernel")
+
+    # the ice-free state of 40 years at F=+15, and the ice-covered one at -25
+    st40 = ebt.SpaceTime.sin(nx, nt, 40)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refs = {}
+    for name, F in (("a", 15.0), ("b", -25.0)):
+        sol = ebt.integrate("MIZ", st40, ebt.Forcing(F), mpar, ebt.zeros_init(st40),
+                            dtype="float32", device=dev, progress=False)
+        refs[name] = ebt.Collection({k: sol.raw[k][-1] for k in ("Ei", "Ew", "h", "D", "phi")})
+    result["rows"]["miz 80 K=1 reference years (2 x integrate 40 y), wall"] = {
+        "ms": (time.perf_counter() - t0) * 1e3}
+    print(f"  reference runs: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    rho = float(np.exp(-1.0 / nt / 0.05))
+    keys = prng.member_year_keys(0, K_MAIN, 0)
+    thr_sgn = (torch.linspace(0.0, 1.0, K_MAIN, device=dev),
+               torch.tensor([1.0, -1.0], device=dev).repeat(K_MAIN // 2))
+
+    def attractor_inputs(model, state, par, F, sigma, dtype):
+        carry = get_model(model).init_carry(state, st1, dtype, dev)
+        carry = ebt.Collection({k: v.expand((K_MAIN,) + tuple(v.shape)).contiguous()
+                                for k, v in carry.items()})
+        ou = (rho, sigma * float(np.sqrt(1.0 - rho * rho)),
+              torch.zeros(K_MAIN, dtype=dtype, device=dev))
+        return (carry, par, torch.full((nt,), F, dtype=dtype, device=dev), st1), ou
+
+    a32, ou32 = attractor_inputs("MIZ", refs["a"], mpar, 0.0, 4.0, torch.float32)
+    a64, ou64 = attractor_inputs("MIZ", refs["a"], mpar, 0.0, 4.0, torch.float64)
+    miz_modes = {
+        "miz det f32 K=8192 ice-free state": (a32, cfg32, {}),
+        "miz noisy sigma=0 f32": (a32, cfg32, dict(noise_keys=keys,
+                                                   noise_ou=(rho, 0.0, ou32[2]))),
+        "miz keys/serial f32": (a32, cfg32, dict(noise_keys=keys, noise_ou=ou32)),
+        "miz keys/crossing f32": (a32, cfg32, dict(noise_keys=keys, noise_ou=ou32,
+                                                   crossing=thr_sgn)),
+        "miz table/OU f64": (a64, cfg64, dict(
+            noise=torch.as_tensor(np.random.default_rng(3).normal(size=(nt, K_MAIN)),
+                                  device=dev), noise_ou=ou64)),
+    }
+    for label, (args, cfg, kw) in miz_modes.items():
+        row(label, lambda: miz_year(*args, cfg, **kw), n=2, count=counted(args, cfg, **kw))
+
+    # Classic from the warm init
+    par = dict(cpar)
+    par["D"] = np.linspace(0.55, 0.65, K_MAIN)
+    E = torch.full((K_MAIN, nx), 30.0, dtype=torch.float32, device=dev)
+    cargs = (ebt.Collection(E=E, Tg=E / par["cw"]), par,
+             torch.zeros(nt, dtype=torch.float32, device=dev), st1)
+    cou = (rho, 8.0 * float(np.sqrt(1.0 - rho * rho)),
+           torch.zeros(K_MAIN, dtype=torch.float32, device=dev))
+    row("classic det f32 K=8192", lambda: classic_year(*cargs, cfg32),
+        kernel="classic_year_kernel")
+    E64 = E.double()
+    cargs64 = (ebt.Collection(E=E64, Tg=E64 / par["cw"]), par,
+               torch.zeros(nt, dtype=torch.float64, device=dev), st1)
+    row("classic det f64 K=8192", lambda: classic_year(*cargs64, cfg64))
+    row("classic keys/serial f32", lambda: classic_year(*cargs, cfg32, noise_keys=keys,
+                                                        noise_ou=cou))
+    row("classic keys/crossing f32", lambda: classic_year(*cargs, cfg32, noise_keys=keys,
+                                                          noise_ou=cou, crossing=thr_sgn))
+
+    # K11 and K10 at (8192, 180)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    g = np.random.default_rng(13)
+    lo, up = g.normal(size=(K_MAIN, nx)), g.normal(size=(K_MAIN, nx))
+    bands = (t(lo), t(np.abs(lo) + np.abs(up) + 1.0), t(up))
+    b = t(g.normal(size=(K_MAIN, nx)))
+    row("K11 pcr_fused f32 (8192, 180)", lambda: pcr_fused(*bands, b), n=20,
+        kernel="pcr_kernel")
+    geom = diffusion_bands(st1)
+    insol = (mpar["S0"] - mpar["S1"] * st1.x * np.cos(2 * np.pi * 0.3)) - mpar["S2"] * st1.x ** 2
+    g = np.random.default_rng(12)
+    nargs = [t(g.normal(-5.0, 5.0, (K_MAIN, nx))),
+             t(np.abs(g.normal(1.0, 0.5, (K_MAIN, nx))) + mpar["hmin"]),
+             t(g.normal(0.0, 3.0, (K_MAIN, nx))), t(g.uniform(0.0, 1.0, (K_MAIN, nx))),
+             t(np.tile(insol, (K_MAIN, 1))), t(geom.lo), t(geom.di), t(geom.up),
+             t(np.linspace(0.55, 0.65, K_MAIN)), mpar["k"], mpar["Tm"], mpar["A"], mpar["B"],
+             mpar["ai"], 0.0]
+    row("K10 newton_t0 f32 (8192, 180) 6 iterations",
+        lambda: newton_t0(*nargs, max_step=50.0, iters=6), n=20, kernel="newton_t0_kernel")
+    # the scalars as the batched engine passes them: tensors on the device
+    dargs = nargs[:9] + [t(v) for v in nargs[9:]]
+    step = t(50.0)
+    row("K10 newton_t0 f32, scalars on the device",
+        lambda: newton_t0(*dargs, max_step=step, iters=6), n=20, kernel="newton_t0_kernel")
+
+    # the transitions main path: wall time, kernels and host
+    if not rows_wanted or "transitions" in rows_wanted:
+        for _ in range(2):  # the first call warms the allocator
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ebt.transitions("MIZ", st1, ebt.Forcing(0.0), mpar, refs["a"], refs["b"],
+                                  sigma=4.0, tau=0.05, K=K_MAIN, years=3, seed=0,
+                                  dtype="float32", device=dev)
+            wall = time.perf_counter() - t0
+        result["rows"]["transitions MIZ K=8192 3 years keys/serial, wall"] = {
+            "ms": wall * 1e3, "sha": hashlib.sha256(
+                np.ascontiguousarray(res.areas).tobytes()).hexdigest()[:16]}
+        print(f"  transitions: {wall:.3f} s", flush=True)
+    return result
+
+
+def compare(parent, out, rows_wanted):
+    runs = []
+    for root in (parent, ".", ".", parent):
+        cmd = [sys.executable, os.path.abspath(__file__), "measure", "--root", root, "--json"]
+        if rows_wanted:
+            cmd += ["--rows", *rows_wanted]
+        print(f"== measure {root}", flush=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        sys.stdout.write(proc.stdout[-6000:])
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-6000:])
+            raise SystemExit(f"measure {root} failed")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    gpu = runs[0]["gpu"]
+    print(f"card: {gpu}")
+    print(f"{'row':58s} {'parent':>9s} {'change':>9s} {'change':>9s} {'parent':>9s}  ratio  same bits")
+    for name in runs[1]["rows"]:
+        ms = [r["rows"].get(name, {}).get("ms", float("nan")) for r in runs]
+        shas = {r["rows"].get(name, {}).get("sha") for r in runs}
+        ratio = (ms[0] + ms[3]) / (ms[1] + ms[2])
+        print(f"{name:58s} {ms[0]:9.3f} {ms[1]:9.3f} {ms[2]:9.3f} {ms[3]:9.3f}  {ratio:5.2f}  "
+              f"{len(shas) == 1}")
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as fh:
+            json.dump({"gpu": gpu, "order": ["parent", "change", "change", "parent"],
+                       "runs": runs}, fh, indent=1)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    m = sub.add_parser("measure")
+    m.add_argument("--root", default=".")
+    m.add_argument("--nvcc-flag", action="append", default=[])
+    m.add_argument("--rows", nargs="*", default=[])
+    m.add_argument("--json", action="store_true", help="print the result as one JSON line")
+    c = sub.add_parser("compare")
+    c.add_argument("--parent", required=True)
+    c.add_argument("--out", default="")
+    c.add_argument("--rows", nargs="*", default=[])
+    args = ap.parse_args(argv)
+    if args.cmd == "measure":
+        res = measure(args.root, args.nvcc_flag, args.rows)
+        print(f"card: {res['gpu']}; built in {res['build_s']:.1f} s")
+        for k, v in res["ptxas"].items():
+            print(f"  {k}: {v}")
+        if args.json:
+            print(json.dumps(res))
+    else:
+        compare(args.parent, args.out, args.rows)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -126,6 +126,22 @@ def test_members_equal_solo_runs_bitwise(cuda, dtype):
             assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
 
 
+# Newton updates of all members over one canonical year from zero init, as
+# the kernel counted them before its communication layer was redesigned (one
+# barrier per exchange, packed PCR rows, the integer block max): the redesign
+# moves values between threads and changes no iterate
+NEWTON_UPDATES_BEFORE = {(torch.float32, 8192): 18761277, (torch.float32, 1): 2304,
+                         (torch.float64, 8192): 18740968}
+
+
+@pytest.mark.parametrize("dtype,K", list(NEWTON_UPDATES_BEFORE), ids=lambda v: str(v))
+def test_newton_update_counts_unchanged_by_the_redesign(cuda, dtype, K):
+    st, par, carry, f = setup(cuda, dtype, nx=180, nt=2000, K=K)
+    n = torch.zeros(K, dtype=torch.int32, device=cuda)
+    miz_year(carry, par, f, st, default_step_config(dtype_name(dtype)), newton_iters=n)
+    assert int(n.sum()) == NEWTON_UPDATES_BEFORE[dtype, K]
+
+
 def test_unsupported_inputs_raise_instead_of_running_the_plain_version(cuda):
     before = miz_year.launches
     st, par, carry, f = setup(cuda, torch.float64, nx=1025, nt=10, K=2)
@@ -223,7 +239,13 @@ def test_classic_members_equal_solo_runs_bitwise(cuda):
             assert bitwise(x, y)
 
 
-@pytest.mark.parametrize("n", [1, 7, 180, 1500, 4096])
+# one case per shape class of the padded, packed PCR rows: no level, one
+# level, around a warp, the canonical grid, the widest one-row-per-thread
+# system, and the 2- and 4-row builds with their one clamped buffer
+SHAPE_CLASSES = [1, 2, 7, 31, 32, 33, 180, 1024, 1025, 1500, 4096]
+
+
+@pytest.mark.parametrize("n", SHAPE_CLASSES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pcr_kernel_matches_plain_bitwise(cuda, dtype, n):
     g = torch.Generator().manual_seed(n)
@@ -255,6 +277,26 @@ def test_newton_t0_kernel_matches_plain_bitwise(cuda, dtype, K, nx):
     before = newton_t0.launches
     x = newton_t0(*args, max_step=50.0, iters=6)
     assert newton_t0.launches == before + 1
+    assert bitwise(x, newton_t0_reference(*args, max_step=50.0, iters=6))
+
+
+@pytest.mark.parametrize("n", SHAPE_CLASSES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_t0_kernel_shape_classes_bitwise(cuda, dtype, n):
+    """K10 at every shape class of the shared PCR and exchange layer, on
+    seeded fields and stencil bands (no grid is needed for the arithmetic)."""
+    rng = np.random.default_rng(100 + n)
+    K = 5
+    par = ebt.default_parameters("MIZ")
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=cuda)
+    glo, gup = rng.uniform(0.5, 2.0, n), rng.uniform(0.5, 2.0, n)
+    glo[0] = gup[-1] = 0.0
+    args = [t(rng.normal(-5.0, 5.0, (K, n))), t(np.abs(rng.normal(1.0, 0.5, (K, n))) + 0.1),
+            t(rng.normal(0.0, 3.0, (K, n))), t(rng.uniform(0.0, 1.0, (K, n))),
+            t(rng.uniform(100.0, 400.0, (K, n))), t(glo), t(-(glo + gup)), t(gup),
+            t(np.linspace(0.5, 0.7, K)), par["k"], par["Tm"], par["A"], par["B"], par["ai"], 0.7]
+    x = newton_t0(*args, max_step=50.0, iters=6)
+    assert torch.isfinite(x).all()
     assert bitwise(x, newton_t0_reference(*args, max_step=50.0, iters=6))
 
 

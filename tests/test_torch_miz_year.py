@@ -195,9 +195,18 @@ def test_kernel_build_is_keyed_by_headers_too(tmp_path):
     shutil.copytree(_build.CSRC_DIR, csrc)
     before = _build._library_path(csrc)
     assert before == _build._library_path()  # the copy hashes as the package
-    header = csrc / "common.cuh"
-    header.write_bytes(header.read_bytes() + b"// edited\n")
-    assert _build._library_path(csrc) != before
+    headers = sorted(h.name for h in csrc.glob("*.cuh"))
+    assert headers == ["common.cuh", "newton.cuh", "noise.cuh", "prng.cuh"]
+    for name in headers:
+        header = csrc / name
+        header.write_bytes(header.read_bytes() + b"// edited\n")
+        after = _build._library_path(csrc)
+        assert after != before, name
+        before = after
+    # the residual is one function, shared by the two kernels that use it
+    for user in ("miz_year.cu", "newton_t0.cu"):
+        text = (csrc / user).read_text()
+        assert '#include "newton.cuh"' in text and "t0_residual_bands<" in text, user
     exported = {"ebm_cuda_error_string", "ebm_normal_table", "ebm_normal_bits"} | {
         f"ebm_{k}_{d}" for k in ("miz_year", "classic_year", "pcr", "newton_t0")
         for d in ("f32", "f64")}
