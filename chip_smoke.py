@@ -12,7 +12,9 @@ failure):
 1. the card (``nvidia-smi`` name and power limit) and the toolchain;
 2. build the kernels from ``energybalancemodel_jl_tpu_torch/csrc`` (one nvcc
    per source, in parallel), print each kernel's registers, and hold the MIZ
-   builds of the canonical grid to the blocks per SM their design names;
+   builds of the canonical grid, and every Classic and K11 build (the block
+   builds and the warp builds, one member or system per warp), to the blocks
+   or members per SM their design names;
 3. the MIZ kernel against its plain PyTorch version on the card: a small
    grid point by point in float64 and float32 (raw-collected year included),
    the canonical grid at the main path's width point by point with fixed
@@ -28,21 +30,24 @@ failure):
    the kernel's raw-collected year at K=1, and the plain version at K=8192
    f32;
 7. the Classic kernel against its plain version, bitwise: nx=40/nt=1000
-   K=8 with D, S1 and F swept (f64 and f32, warm init and zeros, 2 years,
-   the second raw-collected), the canonical grid at K=8192, the nx=4096
-   single run, and members against solo runs;
+   K=8 with D, S1 and F swept (f64 and f32, warm init and zeros on the warp
+   builds, warm init on the block build too; 2 years, the second
+   raw-collected), the canonical grid at K=8192, the nx=4096 single run, and
+   members against solo runs;
 8. the Classic main path: a K=8192 canonical ensemble (``engine='auto'``)
    and a 3-year single run through ``integrate`` (3 launches);
 9. the batched PCR (K11) and the fixed-iteration Newton for T0 (K10)
    against their plain versions bitwise at the canonical (8192, 180), then
    one canonical MIZ year on ``ensemble_integrate(engine='batched')`` with
    ``solver='pcr_fused'`` and with ``solver='pallas'``;
-10. the Classic kernel timed per model year (K=1, K=8192, f32, f64; the
-    plain version at K=8192 f32), and the K11 and K10 kernels per wrapper
-    call and per kernel on the device, each beside its plain version;
+10. the Classic kernel timed per model year on both builds at the K around
+    its dispatch (``ops/classic_year.py::WARP_MIN_K``), then as the kernel
+    picks (K=1, K=8192, f32, f64; the plain version at K=8192 f32), and the
+    K11 and K10 kernels per wrapper call and per kernel on the device, each
+    beside its plain version;
 11. the draw kernel against its plain version, bitwise: all 2^23 mantissas
     the pipeline can see, and the (2000, 8192) table of seed 0; the float64
-    draws (plain PyTorch) on the card against the CPU's;
+    draws (plain PyTorch) on the card against the CPU's, bitwise;
 12. every noise mode of the MIZ and Classic kernels (table, table/OU,
     keys/serial, keys/assoc, crossing) against its plain version at nx=40,
     and sigma = 0 against the deterministic kernel at the main path's shape
@@ -161,6 +166,44 @@ def check_miz_occupancy(ptxas):
     return found
 
 
+# The Classic and K11 builds (csrc/classic_year.cu, csrc/pcr.cu) and the
+# members (systems) per SM each design names: a block build keeps one member
+# per block and is held to the blocks of its template (192 threads: 5 in
+# float32, 3 in float64, 2 noisy float64); a warp build keeps WARPS members
+# per block and is held to the blocks its __launch_bounds__ name. Registers
+# are allocated per warp in units of 8 per thread, 65,536 per SM.
+def members_per_sm(regs, threads_per_block, members_per_block):
+    per_warp = -(-regs // 8) * 8 * 32
+    blocks = (65536 // per_warp) // (threads_per_block // 32)
+    return blocks * members_per_block
+
+
+def check_classic_occupancy(ptxas):
+    """Fail when a Classic or K11 build keeps fewer members per SM than its
+    design names; returns ``{build: (registers, members per SM, design)}``."""
+    found = {}
+    for name, used in ptxas.items():
+        regs = int(used.split()[0])
+        m = re.match(r"classic_year_kernel<(f32|f64),1,192,(\d+),([01])>", name)
+        if m:
+            found[name] = regs, members_per_sm(regs, 192, 1), int(m.group(2))
+        m = re.match(r"classic_warp_kernel<(f32|f64),(\d+),(\d+),(\d+),([01]),([01])>", name)
+        if m:
+            warps, blocks = int(m.group(3)), int(m.group(4))
+            found[name] = regs, members_per_sm(regs, 32 * warps, warps), warps * blocks
+        m = re.match(r"pcr_warp_kernel<(f32|f64),(\d+),(\d+),(\d+)>", name)
+        if m:
+            warps, blocks = int(m.group(3)), int(m.group(4))
+            found[name] = regs, members_per_sm(regs, 32 * warps, warps), warps * blocks
+    for name, (regs, members, want) in found.items():
+        if members < want:
+            fail(f"{name}: {regs} registers, {members} members per SM, the design needs {want}")
+    kinds = {n.split("<")[0] for n in found}
+    if kinds != {"classic_year_kernel", "classic_warp_kernel", "pcr_warp_kernel"}:
+        fail(f"Classic and K11 builds missing from the ptxas log: found {sorted(found)}")
+    return found
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -172,6 +215,7 @@ def main():
     from energybalancemodel_jl_tpu_torch.models.base import (StepConfig, default_step_config,
                                                               dtype_name, get_model)
     from energybalancemodel_jl_tpu_torch.ops import _build, prng
+    from energybalancemodel_jl_tpu_torch.ops import classic_year as classic_mod
     from energybalancemodel_jl_tpu_torch.ops.classic_year import (classic_year,
                                                                    classic_year_reference)
     from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
@@ -206,6 +250,10 @@ def main():
     say(2, "MIZ builds of the canonical grid, blocks of 192 threads per SM: " + ", ".join(
         f"{dt} {kind}{' count' if cnt else ''} {b}" for (dt, kind, cnt), b in occupancy.items())
         + f" (needed: {MIZ_BLOCKS_PER_SM})")
+    classic_occ = check_classic_occupancy(ptxas)
+    say(2, "Classic and K11 builds, registers and members (systems) per SM (design): " + ", ".join(
+        f"{name} {regs} regs {members} ({want})"
+        for name, (regs, members, want) in classic_occ.items()))
 
     def setup(nx, nt, K, dtype, D=(0.55, 0.65)):
         st = ebt.SpaceTime.sin(nx, nt, 1)
@@ -448,14 +496,27 @@ def main():
         return st, par, carry, f
 
     cfg_of = lambda dtype: default_step_config(dtype_name(dtype))
+
+    def on_build(kind, fn):
+        """``fn()`` with the Classic grids of nx <= 256 on the kernel's warp
+        builds from K = 1 (``"warp"``) or on its block build (``"block"``)."""
+        saved = classic_mod.WARP_MIN_K
+        classic_mod.WARP_MIN_K = 1 if kind == "warp" else 2 ** 30
+        try:
+            return fn()
+        finally:
+            classic_mod.WARP_MIN_K = saved
+
     wsmall = {}
     for dtype in (torch.float64, torch.float32):
-        for warm in (True, False):
+        for warm, build in ((True, "warp"), (False, "warp"), (True, "block")):
             st, par, carry, f = classic_setup(40, 1000, 8, dtype, warm, ("D", "S1", "F"))
-            out_k = years(classic_year, carry, par, f, st, cfg_of(dtype), 2, raw_last=True)
+            out_k = on_build(build, lambda: years(classic_year, carry, par, f, st, cfg_of(dtype),
+                                                  2, raw_last=True))
             out_p = years(classic_year_reference, carry, par, f, st, cfg_of(dtype), 2,
                           raw_last=True)
-            label = f"classic {dtype_name(dtype)} nx=40 {'warm' if warm else 'zeros'}"
+            label = (f"classic {dtype_name(dtype)} nx=40 {'warm' if warm else 'zeros'} "
+                     f"{build} build")
             w = compare(out_k, out_p, label, BAR_BITWISE)
             wsmall[label] = max(w.values())
             say(7, f"{label} nt=1000 K=8 D,S1,F swept 2y (year 2 raw-collected): "
@@ -644,6 +705,18 @@ def main():
         return (time.perf_counter() - t0) * 1e3 / n
 
     ctiming = {}
+    # the K dispatch of ops/classic_year.py (WARP_MIN_K): both builds at K
+    # around it, f32, the canonical grid
+    build_ms = {}
+    for K in sorted({1, max(1, classic_mod.WARP_MIN_K - 1), classic_mod.WARP_MIN_K, 132}):
+        st, par, carry, f = classic_setup(*CANONICAL, K, torch.float32)
+        for build in ("warp", "block"):
+            build_ms[K, build] = on_build(build, lambda: kernel_time(
+                lambda: classic_year(carry, par, f, st, cfg_of(torch.float32)), 3))
+    say(10, json.dumps(dict(kernel="classic_year", dtype="torch.float32", gpu=smi,
+                            warp_min_k=classic_mod.WARP_MIN_K,
+                            ms_per_year_by_build={f"K={K} {b}": v
+                                                  for (K, b), v in build_ms.items()})))
     for dtype in (torch.float32, torch.float64):
         for K in (1, K_MAIN):
             st, par, carry, f = classic_setup(*CANONICAL, K, dtype)
@@ -662,7 +735,7 @@ def main():
     bands = (t(lo), t(np.abs(lo) + np.abs(up) + 1.0), t(up))
     b = t(g.normal(size=(K_MAIN, nx)))
     pcr_ms = kernel_time(lambda: pcr_fused(*bands, b), 20)
-    pcr_device_ms = device_time(lambda: pcr_fused(*bands, b), 20, "pcr_kernel")
+    pcr_device_ms = device_time(lambda: pcr_fused(*bands, b), 20, "pcr_")
     pcr_plain_ms = host_time(lambda: pcr_solve(*bands, b), 20)
     say(10, json.dumps(dict(kernel="pcr_fused", shape=f"({K_MAIN}, {nx}) f32 per-system bands",
                             kernel_ms_per_call=pcr_ms, device_ms_per_call=pcr_device_ms,
@@ -692,18 +765,17 @@ def main():
             f"table of seed 0 bitwise; finite={bool(torch.isfinite(tab_k).all())}, "
             f"std={float(tab_k.std()):.5f}")
     del tab_k, tab_p
-    # the float64 table has no kernel (plain PyTorch on the card): how far the
-    # card's draws are from the same function on the CPU, whose distance to
-    # JAX's the CPU tests hold
+    # the float64 table has no kernel (plain PyTorch on the card): the card's
+    # draws against the same function on the CPU, whose draws the CPU tests
+    # hold bitwise to JAX's
     keys_f64 = prng.member_year_keys(3, 500, 2)
     t64_card = prng.normal_table_f64(keys_f64, CANONICAL[1], dev).cpu()
     t64_cpu = prng.normal_table_f64(keys_f64, CANONICAL[1], "cpu")
-    off = t64_card != t64_cpu
-    rel64 = float(((t64_card - t64_cpu).abs() / t64_cpu.abs()).max())
-    if rel64 > 1e-15:
-        fail(f"float64 draws on the card differ from the CPU's by {rel64:.3e} relative")
-    say(11, f"float64 draws, card vs CPU (plain PyTorch both, 10^6 draws): "
-            f"{int(off.sum())} differ, max relative {rel64:.3e}")
+    off = int((t64_card.view(torch.int64) != t64_cpu.view(torch.int64)).sum())
+    if off:
+        fail(f"float64 draws: {off} of {t64_cpu.numel()} on the card differ from the CPU's")
+    say(11, f"float64 draws, card vs CPU (plain PyTorch both, {t64_cpu.numel()} draws): "
+            f"bitwise, {off} differ")
 
     # -- 12. every noise mode, MIZ and Classic, kernel against plain -----------
     OU = (0.95, 3.0, 0.5)
@@ -1078,6 +1150,7 @@ def main():
               ctiming[torch.float32, K_MAIN][0], ctiming[torch.float32, K_MAIN][1],
               year_bound("Classic", "det"), also_replaces=f"{py}:1378",
               max_abs_err_nx40=max(wsmall.values()), max_abs_err_nx4096_K1=max(whi.values()),
+              ms_K1=ctiming[torch.float32, 1][0], warp_min_k=classic_mod.WARP_MIN_K,
               shape=year_shape, path="ensemble_integrate (phase 8)"),
         entry("pcr_fused", "pcr.cu", "energybalancemodel_jl_tpu/ops/pallas_tridiag.py:29",
               solver_launches["pcr_fused"], pcr_err, pcr_ms, pcr_plain_ms,

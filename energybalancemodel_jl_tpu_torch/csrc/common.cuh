@@ -1,7 +1,8 @@
 // Device code shared by the package's kernels (miz_year.cu, classic_year.cu,
 // pcr.cu, newton_t0.cu): NaN-aware helpers, a block-wide max of magnitudes,
-// and the row-scaled parallel cyclic reduction of ops/tridiag.py::pcr_solve
-// in shared memory.
+// and the row-scaled parallel cyclic reduction of ops/tridiag.py::pcr_solve,
+// for one system per block in shared memory (pcr_solve) and for one system
+// per warp in registers (warp_pcr_solve).
 //
 // Every helper performs the same operations in the same order as the plain
 // PyTorch code it stands for, so a kernel built with -fmad=false rounds where
@@ -246,16 +247,148 @@ __device__ __forceinline__ void pcr_solve(T (&lo)[CPT], T (&di)[CPT], T (&up)[CP
   for (int c = 0; c < CPT; ++c) b[c] = b[c] / di[c];
 }
 
+// The same row-scaled PCR with ONE system per warp, in registers: row i of
+// n <= 32 S rows (S <= 8) at lane i % 32, slot i / 32 of the arrays. Rows at
+// or beyond n are identity rows (lo = up = b = 0, di = 1), set on entry and
+// never updated, like the block layout's padding, and so are the neighbours
+// beyond both ends of the system.
+//
+// A level at stride st < 32 rotates each slot's four values by st lanes
+// (one shuffle each, both ways): row i's neighbour i - st is the rotated
+// value of its own slot for lanes >= st and of the slot below otherwise, and
+// i + st likewise from the slot above. At st >= 32 the neighbours are in
+// the same lane, st / 32 slots away: a register move. Slots are updated in
+// order, each from rotations taken before its own update and that of the
+// slot above, so every row reads its neighbours' values of the level
+// before, as the plain version does. No barrier and no shared memory.
+template <typename T>
+struct WarpRow {
+  T lo, di, up, b;
+};
+
+template <typename T>
+__device__ __forceinline__ WarpRow<T> identity_row() {
+  return {T(0), T(1), T(0), T(0)};
+}
+
+template <typename T, bool FIRST>
+__device__ __forceinline__ WarpRow<T> rotate(T lo, T di, T up, T b, int src) {
+  return {__shfl_sync(0xffffffffu, lo, src), FIRST ? T(1) : __shfl_sync(0xffffffffu, di, src),
+          __shfl_sync(0xffffffffu, up, src), __shfl_sync(0xffffffffu, b, src)};
+}
+
+// one row's update from its neighbours m = i - st and p = i + st, the
+// operations of pcr_level in its order
+template <typename T, bool FIRST>
+__device__ __forceinline__ void warp_pcr_row(T& lo, T& di, T& up, T& b, const WarpRow<T>& m,
+                                             const WarpRow<T>& p) {
+  const T alpha = FIRST ? -lo : safe_div(-lo, m.di);
+  const T beta = FIRST ? -up : safe_div(-up, p.di);
+  b = b + alpha * m.b + beta * p.b;
+  di = di + alpha * m.up + beta * p.lo;
+  lo = alpha * m.lo;
+  up = beta * p.up;
+}
+
+template <typename T, int S, bool FIRST, int ST>
+__device__ __forceinline__ void warp_pcr_level(T (&lo)[S], T (&di)[S], T (&up)[S], T (&b)[S],
+                                               int n, int lane) {
+  if (ST < 32) {
+    const int src_m = (lane - ST) & 31, src_p = (lane + ST) & 31;
+    const bool wrap_m = lane < ST, wrap_p = lane + ST >= 32;
+    WarpRow<T> below = identity_row<T>();  // slot s - 1 rotated up
+    WarpRow<T> here_p = rotate<T, FIRST>(lo[0], di[0], up[0], b[0], src_p);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const WarpRow<T> here_m = rotate<T, FIRST>(lo[s], di[s], up[s], b[s], src_m);
+      const int a = s + 1 < S ? s + 1 : s;
+      const WarpRow<T> above_p =
+          s + 1 < S ? rotate<T, FIRST>(lo[a], di[a], up[a], b[a], src_p) : identity_row<T>();
+      if (lane + 32 * s < n)
+        warp_pcr_row<T, FIRST>(lo[s], di[s], up[s], b[s], wrap_m ? below : here_m,
+                               wrap_p ? above_p : here_p);
+      below = here_m;
+      here_p = above_p;
+    }
+  } else {
+    constexpr int D = ST / 32;
+    WarpRow<T> old[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) old[s] = {lo[s], di[s], up[s], b[s]};
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (lane + 32 * s < n)
+        warp_pcr_row<T, FIRST>(lo[s], di[s], up[s], b[s],
+                               s - D >= 0 ? old[s - D >= 0 ? s - D : 0] : identity_row<T>(),
+                               s + D < S ? old[s + D < S ? s + D : 0] : identity_row<T>());
+  }
+}
+
+// Solve the warp's system of n rows (ceil(log2 n) = `steps` levels, as
+// pcr_solve); on return b[s] holds the solution of row lane + 32 s. Every
+// lane of the warp calls it.
+template <typename T, int S>
+__device__ __forceinline__ void warp_pcr_solve(T (&lo)[S], T (&di)[S], T (&up)[S], T (&b)[S],
+                                               int n, int steps, int lane) {
+  static_assert(S >= 1 && S <= 8, "a warp holds at most 256 rows");
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (lane + 32 * s < n) {
+      const T inv = T(1) / di[s];
+      lo[s] = lo[s] * inv;
+      up[s] = up[s] * inv;
+      b[s] = b[s] * inv;
+    } else {
+      lo[s] = T(0);
+      up[s] = T(0);
+      b[s] = T(0);
+    }
+    di[s] = T(1);
+  }
+  if (steps > 0) warp_pcr_level<T, S, true, 1>(lo, di, up, b, n, lane);
+  if (steps > 1) warp_pcr_level<T, S, false, 2>(lo, di, up, b, n, lane);
+  if (steps > 2) warp_pcr_level<T, S, false, 4>(lo, di, up, b, n, lane);
+  if (steps > 3) warp_pcr_level<T, S, false, 8>(lo, di, up, b, n, lane);
+  if (steps > 4) warp_pcr_level<T, S, false, 16>(lo, di, up, b, n, lane);
+  if (steps > 5) warp_pcr_level<T, S, false, 32>(lo, di, up, b, n, lane);
+  if (steps > 6) warp_pcr_level<T, S, false, 64>(lo, di, up, b, n, lane);
+  if (steps > 7) warp_pcr_level<T, S, false, 128>(lo, di, up, b, n, lane);
+#pragma unroll
+  for (int s = 0; s < S; ++s) b[s] = b[s] / di[s];
+}
+
 // rows per thread of a block that strides n rows over at most 1024 threads
 inline int rows_per_thread(int n) { return n <= 1024 ? 1 : (n <= 2048 ? 2 : 4); }
 
+// slots per lane of a warp that holds n <= 256 rows: the builds have 1, 2,
+// 4, 6 or 8
+inline int warp_slots(int n) {
+  const int s = (n + 31) / 32;
+  return s <= 2 ? s : (s <= 4 ? 4 : (s <= 6 ? 6 : 8));
+}
+
 inline int round_up_32(int v) { return ((v + 31) / 32) * 32; }
+
+// the shared memory a block can use on Hopper (232,448 bytes)
+constexpr size_t MAX_SHARED_BYTES = 232448;
 
 // the dynamic shared memory a kernel asks for above the default 48 KB
 template <typename Kernel>
 inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// the blocks of `threads` threads and `shmem` bytes of dynamic shared memory
+// that one SM keeps resident (0: the kernel cannot launch so)
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads, size_t shmem) {
+  int blocks = 0;
+  if (shmem > MAX_SHARED_BYTES || allow_shared(kernel, shmem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, shmem) !=
+          cudaSuccess)
+    return 0;
+  return blocks;
 }
 
 }  // namespace

@@ -19,9 +19,6 @@
 
 namespace {
 
-// the shared memory a block can use on Hopper (232,448 bytes)
-constexpr size_t MAX_SHARED_BYTES = 232448;
-
 template <typename T> __device__ __forceinline__ T fma_rn(T a, T b, T c);
 template <> __device__ __forceinline__ float fma_rn<float>(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
@@ -156,6 +153,64 @@ template <typename T>
 __device__ __forceinline__ void noise_end(const NoiseArgs<T>& nz, const NoiseState<T>& ns,
                                           int m, int nt) {
   if (threadIdx.x != 0) return;
+  if (nz.eta_out != nullptr) nz.eta_out[m] = nz.ou_mode == 1 ? ns.eta : ns.row[nt - 1];
+  if (nz.cross_out != nullptr) nz.cross_out[m] = ns.first;
+}
+
+// -- the same modes for ONE MEMBER PER WARP (the warp builds of
+// classic_year.cu): the member's row in the warp's own shared memory, its 32
+// lanes in place of the block's threads, shuffles in place of a barrier.
+// Each value is computed by the operations of the block versions above, in
+// their order.
+
+// noise_begin for member m in a warp, whose row is nt values of the warp's
+// shared memory (classic_year.cu runs the associative OU scan on its block
+// build); every lane of the warp calls it
+template <typename T>
+__device__ NoiseState<T> warp_noise_begin(const NoiseArgs<T>& nz, T* row, int m, int K, int nt,
+                                          int lane) {
+  NoiseState<T> ns;
+  ns.row = row;
+  if (nz.keys != nullptr) {
+    const uint32_t k1 = nz.keys[2 * m], k2 = nz.keys[2 * m + 1];
+    for (int t = lane; t < nt; t += 32) row[t] = T(normal_draw(k1, k2, t));
+  } else {
+    for (int t = lane; t < nt; t += 32) row[t] = nz.noise[(size_t)t * K + m];
+  }
+  ns.rho = nz.ou != nullptr ? nz.ou[3 * m] : T(0);
+  ns.scale = nz.ou != nullptr ? nz.ou[3 * m + 1] : T(0);
+  ns.eta = nz.ou != nullptr ? nz.ou[3 * m + 2] : T(0);
+  ns.thr = nz.cross != nullptr ? nz.cross[2 * m] : T(0);
+  ns.sign = nz.cross != nullptr ? nz.cross[2 * m + 1] : T(0);
+  ns.first = T(-1);
+  __syncwarp();
+  return ns;
+}
+
+// The crossing area of step t from each slot's part (w_i * field_i of cell
+// lane + 32 s, 0 beyond the grid): slot s holds cells 32 s ... 32 s + 31,
+// the cells of warp s of the block layout, so a butterfly per slot gives
+// every lane the halving tree's sum of that warp (each pair of lanes adds
+// the same two values), and the slots' sums in slot order are the block's
+// warps in warp order (ops/_year.py::block_sum). Every lane records the
+// first crossing.
+template <typename T, int S>
+__device__ __forceinline__ void warp_noise_crossing(NoiseState<T>& ns, const T (&part)[S], int n,
+                                                    int t) {
+  T area = T(0);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    T v = part[s];
+    for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
+    if (32 * s < n) area = s == 0 ? v : area + v;
+  }
+  if (ns.first < T(0) && ns.sign * (area - ns.thr) > T(0)) ns.first = T(t);
+}
+
+template <typename T>
+__device__ __forceinline__ void warp_noise_end(const NoiseArgs<T>& nz, const NoiseState<T>& ns,
+                                               int m, int nt, int lane) {
+  if (lane != 0) return;
   if (nz.eta_out != nullptr) nz.eta_out[m] = nz.ou_mode == 1 ? ns.eta : ns.row[nt - 1];
   if (nz.cross_out != nullptr) nz.cross_out[m] = ns.first;
 }

@@ -49,9 +49,9 @@ _SIGNATURES = {
     "ebm_miz_year_f64": ([_P] * 19 + [_I] * 9 + [_D] * 4 + [_P], _I),
     # (cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
     #  noise, keys, ou, eta_out, cross, cross_out, wts,
-    #  K, nx, nt, w0, s0, pcr_steps, ou_mode, ou_unroll, dt, stream)
-    "ebm_classic_year_f32": ([_P] * 17 + [_I] * 8 + [_D] + [_P], _I),
-    "ebm_classic_year_f64": ([_P] * 17 + [_I] * 8 + [_D] + [_P], _I),
+    #  K, nx, nt, w0, s0, pcr_steps, ou_mode, ou_unroll, warp_min_k, dt, stream)
+    "ebm_classic_year_f32": ([_P] * 17 + [_I] * 9 + [_D] + [_P], _I),
+    "ebm_classic_year_f64": ([_P] * 17 + [_I] * 9 + [_D] + [_P], _I),
     # (keys, out, K, nt, stream) and (bits, out, n, stream)
     "ebm_normal_table": ([_P] * 2 + [_I] * 2 + [_P], _I),
     "ebm_normal_bits": ([_P] * 2 + [_I] + [_P], _I),

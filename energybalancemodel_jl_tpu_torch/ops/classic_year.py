@@ -18,6 +18,11 @@ parameter may be ``(K,)``-swept, the insolation and coalbedo parameters
 per-member scalars from :func:`..models.classic.member_scalars`, the code
 the plain version's statics run, so the two see the same operands.
 
+The kernel has two layouts of one step (``csrc/classic_year.cu``): one
+member per warp for grids of ``nx <= 256`` and ``K >= WARP_MIN_K``, one
+thread block per member otherwise; both compute every value by the same
+operations as the plain version, so the choice changes no bit.
+
 The noisy years take the keyword modes of :func:`.miz_year.miz_year`
 (``noise=``, ``noise_ou=``, ``noise_keys=``, ``ou_assoc=``, ``crossing=``;
 JAX ``pallas_classic_year``); the Classic crossing area is ``sum_i w_i
@@ -43,7 +48,7 @@ from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args, check_noi
 from .tridiag import pcr_steps
 
 __all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
-           "MAX_NX", "CARRY_KEYS", "OUT_VARS", "PAR_NAMES", "ROW_NAMES"]
+           "MAX_NX", "WARP_MIN_K", "CARRY_KEYS", "OUT_VARS", "PAR_NAMES", "ROW_NAMES"]
 
 # carry fields and recorded variables (models/classic.py)
 CARRY_KEYS = ("E", "Tg")
@@ -58,6 +63,13 @@ ROW_NAMES = ("cg_tau", "dt_tau", "dc", "M", "kLf", "dtD", "cg", "ai", "A", "Fb",
              "Lf", "F", "S0", "S1", "S2", "a0", "a2")
 # grid cells strided over at most 1024 threads, at most 4 per thread
 MAX_NX = 4096
+# the least K that runs a grid of nx <= 256 on the kernel's warp builds (one
+# member per warp, csrc/classic_year.cu); a smaller K runs the block build,
+# whose one member per block is faster while it needs few rounds of resident
+# blocks. On an H100 (canonical grid, float32; chip_smoke.py phase 10) a year
+# took 8.9 ms on the block build and 24.4 on the warp build at K = 1, and
+# the two met at K = 1535-1536 (27.4-28.0 ms both)
+WARP_MIN_K = 1536
 
 
 def member_params(par, K: int, dt: float, dtype, device) -> torch.Tensor:
@@ -170,7 +182,8 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg)]
     ptrs.append(raw.data_ptr() if raw is not None else None)
     _build.launch("ebm_classic_year", dtype, device, *ptrs, *nz.ptrs, K, nx, st.nt,
-                  st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), nz.ou_mode, nz.unroll, st.dt)
+                  st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), nz.ou_mode, nz.unroll,
+                  WARP_MIN_K, st.dt)
     classic_year.launches += 1
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(

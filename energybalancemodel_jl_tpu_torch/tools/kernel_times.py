@@ -23,7 +23,9 @@ kernel alone, from ``torch.profiler``), on the canonical grid
   builds from that state (sigma=0, keys/serial, keys/crossing, and the
   float64 table/OU), each with the member's Newton updates counted;
 - the Classic year at K=8192 (deterministic in float32 and float64,
-  keys/serial, keys/crossing);
+  keys/serial, keys/crossing, keys/assoc, the float64 table/OU) and at K=1,
+  and, where the checkout has both, its warp and block builds at K=1 and
+  K=8192;
 - K10 (``newton_t0``, 6 iterations; its scalars as Python numbers, and as
   tensors on the device) and K11 (``pcr_fused``) per call at (8192, 180);
 - the wall time of ``transitions`` (MIZ, K=8192, 3 years, keys/serial) and of
@@ -65,8 +67,8 @@ def ptxas_rows(log):
     an ``-Xptxas -v`` log."""
     rows, name, spill = {}, None, "0"
     for line in log.splitlines():
-        m = re.search(r"(miz_year_kernel|classic_year_kernel|pcr_kernel|newton_t0_kernel|"
-                      r"normal_table_kernel|normal_bits_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
+        m = re.search(r"(miz_year_kernel|classic_year_kernel|classic_warp_kernel|pcr_kernel|"
+                      r"pcr_warp_kernel|newton_t0_kernel|normal_table_kernel|normal_bits_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
                       line)
         if m and "entry function" in line:
             args = [{"f": "f32", "d": "f64"}[m.group(2)]] if m.group(2) else []
@@ -88,6 +90,7 @@ def measure(root, flags, rows_wanted):
     import energybalancemodel_jl_tpu_torch as ebt
     from energybalancemodel_jl_tpu_torch.models.base import default_step_config, get_model
     from energybalancemodel_jl_tpu_torch.ops import _build, prng
+    from energybalancemodel_jl_tpu_torch.ops import classic_year as cy
     from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
     from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
     from energybalancemodel_jl_tpu_torch.ops.miz_year import CARRY_KEYS, miz_year
@@ -236,8 +239,7 @@ def measure(root, flags, rows_wanted):
              torch.zeros(nt, dtype=torch.float32, device=dev), st1)
     cou = (rho, 8.0 * float(np.sqrt(1.0 - rho * rho)),
            torch.zeros(K_MAIN, dtype=torch.float32, device=dev))
-    row("classic det f32 K=8192", lambda: classic_year(*cargs, cfg32),
-        kernel="classic_year_kernel")
+    row("classic det f32 K=8192", lambda: classic_year(*cargs, cfg32), kernel="classic_")
     E64 = E.double()
     cargs64 = (ebt.Collection(E=E64, Tg=E64 / par["cw"]), par,
                torch.zeros(nt, dtype=torch.float64, device=dev), st1)
@@ -246,6 +248,24 @@ def measure(root, flags, rows_wanted):
                                                         noise_ou=cou))
     row("classic keys/crossing f32", lambda: classic_year(*cargs, cfg32, noise_keys=keys,
                                                           noise_ou=cou, crossing=thr_sgn))
+    row("classic keys/assoc f32", lambda: classic_year(*cargs, cfg32, noise_keys=keys,
+                                                       noise_ou=cou, ou_assoc=True))
+    # a seeded table, as the MIZ row's: the same input for both checkouts
+    cou64 = (cou[0], cou[1], cou[2].double())
+    table64 = torch.as_tensor(np.random.default_rng(3).normal(size=(nt, K_MAIN)), device=dev)
+    row("classic table/OU f64", lambda: classic_year(*cargs64, cfg64, noise=table64,
+                                                     noise_ou=cou64))
+    # the single run (K = 1, as integrate runs it), on the build the kernel
+    # picks, and on each build where the checkout has both
+    cargs1 = (ebt.Collection(E=E[:1], Tg=E[:1] / par["cw"]), cpar, cargs[2], st1)
+    row("classic det f32 K=1", lambda: classic_year(*cargs1, cfg32))
+    if hasattr(cy, "WARP_MIN_K"):
+        saved = cy.WARP_MIN_K
+        for label, min_k in (("warp", 1), ("block", 2 ** 30)):
+            cy.WARP_MIN_K = min_k
+            row(f"classic det f32 K=1 {label} build", lambda: classic_year(*cargs1, cfg32))
+            row(f"classic det f32 K=8192 {label} build", lambda: classic_year(*cargs, cfg32))
+        cy.WARP_MIN_K = saved
 
     # K11 and K10 at (8192, 180)
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
@@ -253,8 +273,7 @@ def measure(root, flags, rows_wanted):
     lo, up = g.normal(size=(K_MAIN, nx)), g.normal(size=(K_MAIN, nx))
     bands = (t(lo), t(np.abs(lo) + np.abs(up) + 1.0), t(up))
     b = t(g.normal(size=(K_MAIN, nx)))
-    row("K11 pcr_fused f32 (8192, 180)", lambda: pcr_fused(*bands, b), n=20,
-        kernel="pcr_kernel")
+    row("K11 pcr_fused f32 (8192, 180)", lambda: pcr_fused(*bands, b), n=20, kernel="pcr_")
     geom = diffusion_bands(st1)
     insol = (mpar["S0"] - mpar["S1"] * st1.x * np.cos(2 * np.pi * 0.3)) - mpar["S2"] * st1.x ** 2
     g = np.random.default_rng(12)

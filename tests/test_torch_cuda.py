@@ -25,10 +25,15 @@ Bars:
   2 years (the second raw-collected), from the warm init and from zeros, and
   single runs at nx=1500 and nx=4096 (2 and 4 cells per thread): bitwise
   equal. Classic has no Newton loop, so the adaptive configuration is held
-  bitwise too;
+  bitwise too. The warp builds (nx <= 256, one member per warp) and the
+  block build at every slot class, members of a block of warps against
+  their solo runs, and both sides of the K dispatch: bitwise;
 - the batched PCR and the fixed-iteration Newton for T0: bitwise equal, with
-  shared and per-system bands, 1 to 4 rows per thread.
+  shared and per-system bands, 1 to 4 rows per thread, and K11's warp
+  layout (a system per warp up to n = 256).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -239,13 +244,84 @@ def test_classic_members_equal_solo_runs_bitwise(cuda):
             assert bitwise(x, y)
 
 
+# the grids around the Classic warp builds' slots (1, 2, 4, 6, 8 of 32
+# cells; nx = 257 runs the block build)
+WARP_WIDTHS = [1, 31, 32, 33, 180, 255, 256, 257]
+
+
+@contextlib.contextmanager
+def classic_build(kind):
+    """Run the Classic kernel's warp builds (``"warp"``: from K = 1) or its
+    block build (``"block"``) for grids of nx <= 256."""
+    from energybalancemodel_jl_tpu_torch.ops import classic_year as cy
+
+    saved = cy.WARP_MIN_K
+    cy.WARP_MIN_K = 1 if kind == "warp" else 2 ** 30
+    try:
+        yield
+    finally:
+        cy.WARP_MIN_K = saved
+
+
+@pytest.mark.parametrize("build", ["warp", "block"])
+@pytest.mark.parametrize("nx", WARP_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classic_warp_and_block_builds_match_plain_bitwise(cuda, dtype, nx, build):
+    st, par, carry, f = classic_setup(cuda, dtype, nx=nx, nt=400, K=9)
+    cfg = default_step_config(dtype_name(dtype))
+    with classic_build(build):
+        k = two_years(classic_year, carry, par, f, st, cfg)
+    p = two_years(classic_year_reference, carry, par, f, st, cfg)
+    for x, y in ([(k[0][n], p[0][n]) for n in k[0]]
+                 + [(a[n], b[n]) for a, b in zip(k[1], p[1]) for n in a]
+                 + [(k[3][n], p[3][n]) for n in k[3]]):
+        assert bitwise(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classic_warp_members_equal_solo_runs_bitwise(cuda, dtype):
+    """Members of one block of warps, and of the last, partly filled block,
+    on the warp build against the same members alone on the block build."""
+    st, par, carry, f = classic_setup(cuda, dtype, nx=180, nt=2000, K=11)
+    cfg = default_step_config(dtype_name(dtype))
+    with classic_build("warp"):
+        ens = classic_year(carry, par, f, st, cfg)
+    for m in (0, 3, 4, 10):
+        solo_par = {n: (v[m] if np.ndim(v) else v) for n, v in par.items()}
+        solo = ebt.Collection({n: v[m:m + 1] for n, v in carry.items()})
+        one = classic_year(solo, solo_par, f, st, cfg)  # K = 1: the block build
+        for x, y in [(one[0][n][0], ens[0][n][m]) for n in one[0]] + [
+                (a[n][0], b[n][m]) for a, b in zip(one[1], ens[1]) for n in a]:
+            assert bitwise(x, y)
+
+
+def test_classic_k_dispatch_crossover_both_sides(cuda):
+    """K = WARP_MIN_K - 1 runs the block build and K = WARP_MIN_K the warp
+    builds: both bitwise the plain version, and a member equal across them."""
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import WARP_MIN_K
+
+    outs = []
+    for K in (max(1, WARP_MIN_K - 1), WARP_MIN_K):
+        st, par, carry, f = classic_setup(cuda, torch.float32, nx=180, nt=2000, K=K,
+                                          sweep=False)
+        cfg = default_step_config("float32")
+        k = classic_year(carry, par, f, st, cfg)
+        p = classic_year_reference(carry, par, f, st, cfg)
+        torch.cuda.synchronize()
+        assert all(bitwise(k[0][n], p[0][n]) for n in k[0])
+        assert all(bitwise(a[n], b[n]) for a, b in zip(k[1], p[1]) for n in a)
+        outs.append(k)
+    assert all(bitwise(outs[0][0][n][0], outs[1][0][n][0]) for n in outs[0][0])
+
+
 # one case per shape class of the padded, packed PCR rows: no level, one
 # level, around a warp, the canonical grid, the widest one-row-per-thread
 # system, and the 2- and 4-row builds with their one clamped buffer
 SHAPE_CLASSES = [1, 2, 7, 31, 32, 33, 180, 1024, 1025, 1500, 4096]
 
 
-@pytest.mark.parametrize("n", SHAPE_CLASSES)
+# K11 runs one system per warp up to n = 256 and a block per system above
+@pytest.mark.parametrize("n", SHAPE_CLASSES + [255, 256, 257])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pcr_kernel_matches_plain_bitwise(cuda, dtype, n):
     g = torch.Generator().manual_seed(n)

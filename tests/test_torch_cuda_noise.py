@@ -16,7 +16,8 @@ Bars:
   (the kernel rounds where the plain version does; the scan and the
   crossing sum run in the plain version's order); float64 table/OU with the
   adaptive Newton: 1e-8 (rtol and atol), eta bitwise;
-- Classic (no Newton loop), every mode, float32 and float64: bitwise;
+- Classic (no Newton loop), every mode, float32 and float64: bitwise, on
+  the warp builds (nx <= 256) and the block build at every slot class;
 - sigma = 0 (scale 0, eta0 0): bitwise the deterministic kernel's year;
 - the kernel's per-member Newton update counts: the year unchanged by
   counting, each member's count its solo run's, and within max_iter * nt.
@@ -85,12 +86,12 @@ def classic_setup(dev, dtype, K=8, nx=40, nt=1000):
 
 def modes(K, nt, dtype, dev, st):
     """Every keyword mode, with seeded inputs; crossing thresholds from the
-    middle of the area range so that members cross."""
+    middle of the area range so that members cross (none at nx = 1)."""
     keys = prng.member_year_keys(5, K, 2)
     table = torch.as_tensor(np.random.default_rng(3).normal(size=(nt, K)), dtype=dtype,
                             device=dev)
     out = {"table": dict(noise=table), "table_ou": dict(noise=table, noise_ou=OU)}
-    if dtype == torch.float32:
+    if dtype == torch.float32 and st.nx > 1:
         thr = float(np.sum(np.diff(st.x))) * 0.3
         out.update({
             "keys_serial": dict(noise_keys=keys, noise_ou=OU),
@@ -141,6 +142,26 @@ def test_classic_noise_modes_bitwise(cuda, dtype, mode):
     cfg = default_step_config(str(dtype).rsplit(".", 1)[-1])
     assert_same(cy.classic_year(carry, par, f, st, cfg, **kw),
                 cy.classic_year_reference(carry, par, f, st, cfg, **kw))
+
+
+@pytest.mark.parametrize("build", ["warp", "block"])
+@pytest.mark.parametrize("nx", [1, 31, 32, 33, 180, 255, 256, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classic_warp_builds_noise_modes_bitwise(cuda, dtype, nx, build):
+    """Every mode the dtype takes, on the warp builds and on the block build
+    (nx = 257: the block build both times); nx = 1 has no crossing area."""
+    st, par, carry, f = classic_setup(cuda, dtype, K=6, nx=nx, nt=300)
+    cfg = default_step_config(str(dtype).rsplit(".", 1)[-1])
+    saved = cy.WARP_MIN_K
+    cy.WARP_MIN_K = 1 if build == "warp" else 2 ** 30
+    try:
+        for mode, kw in modes(6, st.nt, dtype, cuda, st).items():
+            if nx == 1 and "crossing" in mode:
+                continue
+            assert_same(cy.classic_year(carry, par, f, st, cfg, **kw),
+                        cy.classic_year_reference(carry, par, f, st, cfg, **kw))
+    finally:
+        cy.WARP_MIN_K = saved
 
 
 @pytest.mark.parametrize("model", ["MIZ", "Classic"])

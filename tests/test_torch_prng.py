@@ -5,12 +5,12 @@ Bars:
 - host keys, the threefry known-answer vector, the float32 ``log1p`` on the
   draw domain, ``normal_from_bits`` over every one of the 2^23 mantissas the
   pipeline can see, and the keyed ``(nt, K)`` tables: bitwise;
-- the float64 table: the 64-bit words, the uniforms, XLA's float64 erfinv
-  polynomial, its rational ``log1p`` and the square root are JAX's bit for
-  bit; what remains is ``torch.log`` against the C library's ``log`` that
-  XLA:CPU calls (ROADMAP Queue 3): measured on 10^6 draws, 33 differ, by at
-  most 4.41e-16 relative (one unit in the last place); with the C library's
-  ``log`` in its place the table is bitwise JAX's;
+- the float64 table: bitwise JAX's on 10^6 draws. The 64-bit words, the
+  uniforms, XLA's float64 erfinv polynomial, its rational ``log1p``, the
+  square root and the C library's ``log`` that XLA:CPU calls
+  (``prng.log_f64``, glibc's table path) are each JAX's bit for bit;
+  ``log_f64`` is held to ``math.log`` bitwise on 10^6 inputs of its domain,
+  the edges and every table interval's end points;
 - the serial OU path: bitwise with JAX's ``lax.scan`` in float32 and
   float64; the associative path at engine parity (1e-5 relative).
 """
@@ -25,11 +25,9 @@ from energybalancemodel_jl_tpu.ops import prng as jprng
 from energybalancemodel_jl_tpu_torch.ops import _year
 from energybalancemodel_jl_tpu_torch.ops import prng
 
-# the float64 draws' gap to JAX, all of it torch.log against the C library's
-# log (measured on 10^6 draws: 33 differ, max 4.41e-16 relative; ROADMAP
-# Queue 3)
-BAR_F64_REL = 4.5e-16
-BAR_F64_SHARE = 1e-4
+# the domain of prng.log_f64: 1 + x of the draw pipeline's log1p branch,
+# x = -u^2 <= -(sqrt(2) - 1)
+LOG_DOMAIN = (2.0 ** -52, 0.586)
 
 
 def jax_keys(seed, members, year):
@@ -95,24 +93,51 @@ def test_normal_table_f64_against_jax():
                               out_axes=1)(keys))
     mine = prng.normal_table_f64(keys, 2000).numpy()
     assert mine.dtype == np.float64 and mine.shape == ref.shape == (2000, 500)
-    rel = np.abs(mine - ref) / np.abs(ref)
-    share = float((mine != ref).mean())
-    print(f"[f64 draws] {share:.2e} of 10^6 differ, max rel {float(rel.max()):.3e}")
-    assert float(rel.max()) <= BAR_F64_REL and share <= BAR_F64_SHARE
+    print(f"[f64 draws] {int((mine != ref).sum())} of 10^6 differ")
+    assert bits_equal(mine, ref)
 
 
 def test_normal_table_f64_bitwise_with_the_c_library_log(monkeypatch):
-    """What is left of the float64 gap is the logarithm alone: with the C
-    library's ``log`` (``math.log``) in ``torch.log``'s place, every draw is
-    JAX's bit for bit."""
+    """The C library's ``log`` is the target: with ``math.log`` itself in
+    ``prng.log_f64``'s place, every draw is JAX's bit for bit too."""
     import math
 
     libm_log = lambda y: torch.as_tensor(np.vectorize(math.log, otypes=[np.float64])(y.numpy()))
-    monkeypatch.setattr(torch, "log", libm_log)
+    monkeypatch.setattr(prng, "log_f64", libm_log)
     keys = jax_keys(3, 500, 2)
     ref = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (400,), jnp.float64),
                               out_axes=1)(keys))
     assert bits_equal(prng.normal_table_f64(keys, 400).numpy(), ref)
+
+
+def libm_log(y):
+    import math
+
+    return np.array([math.log(v) for v in y], np.float64)
+
+
+def test_log_f64_is_the_c_library_log_bitwise():
+    """10^6 seeded inputs over the domain, log-uniform and uniform."""
+    rng = np.random.default_rng(5)
+    lo, hi = LOG_DOMAIN
+    y = np.concatenate([np.exp(rng.uniform(np.log(lo), np.log(hi), 500_000)),
+                        rng.uniform(lo, hi, 500_000)])
+    assert bits_equal(prng.log_f64(torch.as_tensor(y)).numpy(), libm_log(y))
+
+
+def test_log_f64_at_the_edges_and_the_table_intervals():
+    """The domain's ends, powers of two, and both sides of every boundary
+    between glibc's 128 table intervals at every exponent of the domain."""
+    lo, hi = LOG_DOMAIN
+    k = np.arange(-53, 0, dtype=np.int64)[:, None]
+    starts = ((k << 52) + prng.GLIBC_LOG_OFF + (np.arange(128, dtype=np.int64) << 45)[None, :])
+    starts = starts.reshape(-1).view(np.float64)
+    edges = np.array([lo, np.nextafter(lo, 1.0), hi, np.nextafter(hi, 0.0), 0.5, 0.25,
+                      np.nextafter(0.5, 0.0), np.nextafter(0.5, 1.0), 0.5 ** 40])
+    y = np.concatenate([starts, np.nextafter(starts, 0.0), np.nextafter(starts, 1.0), edges])
+    y = y[(y >= lo) & (y <= hi)]
+    assert y.size > 3 * 128 * 50
+    assert bits_equal(prng.log_f64(torch.as_tensor(y)).numpy(), libm_log(y))
 
 
 def test_sqrt_f64_is_correctly_rounded():
