@@ -4,7 +4,7 @@ run through its hand-written kernels.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc::
 
-    python3 chip_smoke.py           # about ten minutes on an H100
+    python3 chip_smoke.py           # about fifteen minutes on an H100
 
 Phases (any failure exits non-zero, and no phase carries on past its own
 failure):
@@ -64,7 +64,26 @@ failure):
     model year at K=8192 in the dtype its path runs (table/OU in float32
     too), beside the deterministic kernel in the same call, with each
     member's Newton updates counted, and its plain version one year; the
-    draw kernel per call; the script's total seconds.
+    draw kernel per call;
+15. the equilibrium layer's main path: ``equilibrate`` of 8192 canonical MIZ
+    members (f32, the forcing offset F swept over [-10, 10], tol 5e-2, at
+    most 150 years), one ``miz_year`` launch per simulated year, the first
+    256 members bitwise equal to ``ensemble_integrate(engine='fused')`` of
+    them, every member finite, every member that reads converged within tol;
+    the loop's host overhead per year beside the kernel's device time
+    (torch.profiler);
+16. Classic ``equilibrate`` at the same width (tol 0.5), a single-run MIZ
+    ``continuation`` over F in {-10, -5, 0, 5, 10} and back, and MIZ float64
+    at K=64 to tol 1e-6 with Anderson acceleration and with Picard, every
+    member finite;
+17. gradients on the card, six jobs in processes of their own, beside
+    phase 16's float64 pair: the eager year's d/dD (float64, canonical, from
+    the continuation's F=0 state) against central differences at two steps
+    (four members of one launch of the year kernel), ``stability`` on both
+    sides there, ``sensitivity`` at ``SpaceTime.sin(8, 50)``, and the
+    differentiable fixed point at ``SpaceTime.sin(8, 100)`` on the card and
+    on the CPU, held leaf by leaf; then the kernel wrappers refuse inputs
+    that require grad; the script's total seconds.
 
 The line before the last is the kernel table as JSON (each kernel's time,
 plain time, launches on its path, the least time the card could take for its
@@ -109,8 +128,11 @@ BAR_HEMI_T = 2.0
 BAR_BITWISE = 0.0
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] ({time.perf_counter() - _T0:.0f} s) {msg}", flush=True)
 
 
 def fail(msg):
@@ -202,6 +224,396 @@ def check_classic_occupancy(ptxas):
     if kinds != {"classic_year_kernel", "classic_warp_kernel", "pcr_warp_kernel"}:
         fail(f"Classic and K11 builds missing from the ptxas log: found {sorted(found)}")
     return found
+
+
+# tolerances of the equilibrium phases: f32 at the canonical grid converges
+# to the solver-noise floor (JAX equilibrium.py:664-669: Picard, tol 5e-2);
+# Classic's albedo-hole wobble keeps its residual near 0.1 (tol 0.5)
+EQ_TOL_MIZ, EQ_TOL_CLASSIC, EQ_MAX_YEARS = 5e-2, 0.5, 150
+# the gradient holds: a finite difference at the bar of
+# tests/test_gradients.py:49 (called with 1e-3); the fixed point's gradient
+# on the card against the CPU's
+BAR_FD = 1e-3
+FD_STEPS = (1e-6, 1e-7)  # both held
+BAR_CARD_CPU = 1e-9
+
+
+def equilibrium_phases(dev, smi):
+    """Phases 15-17: the equilibrium layer on the card. Returns the launch
+    counts and times the kernel table reports for the year kernels. Phase
+    17's jobs start once the continuation has given their state, and run
+    beside phase 16's float64 pair (a K=64 year keeps the card and the host
+    mostly idle)."""
+    out = phase15(dev, smi)
+    out.update(phase16(dev, smi))
+    phase17(dev, smi, out.pop("f0_state"), meanwhile=lambda: phase16_f64(dev, smi))
+    return out
+
+
+def _lost_members(res):
+    """Per member (one for a single run): True where the carry or a seasonal
+    store holds a value that is not finite (presentation NaNs aside)."""
+    lost = np.zeros(1 if res.member_years is None else len(res.member_years), bool)
+    for name, coll in (("state", res.state), *zip(("winter", "summer", "avg"), res.seasonal)):
+        for k, v in coll.items():
+            ok = np.isfinite(v) | (np.isnan(v) & (k in ("Ti", "Tw")) & (name != "state"))
+            lost |= ~ok.all(-1)
+    return lost
+
+
+def _timed_run(fn, counter, kernel):
+    """``(result, wall seconds, launches, device seconds of the kernels whose
+    name holds kernel)``: torch.profiler, None when it records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    counter.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+                 for e in prof.key_averages() if kernel in e.key)
+    return res, wall, counter.launches, (dev_us / 1e6 if dev_us else None)
+
+
+def phase15(dev, smi):
+    """MIZ equilibrate at the main path's full width."""
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import miz_year
+
+    out = {}
+    st = ebt.SpaceTime.sin(*CANONICAL, 1)
+    sweep = np.linspace(-10.0, 10.0, K_MAIN)
+    # -- 15. MIZ equilibrate at full width ------------------------------------
+    par = ebt.default_parameters("MIZ")
+    par["F"] = sweep
+    eq, wall, launches, kern_s = _timed_run(
+        lambda: ebt.equilibrate("MIZ", st, 0.0, par, ebt.zeros_init(st), tol=EQ_TOL_MIZ,
+                                max_years=EQ_MAX_YEARS, dtype="float32", device=dev),
+        miz_year, "miz_year")
+    if launches != eq.years:
+        fail(f"MIZ equilibrate: {launches} miz_year launches for {eq.years} years")
+    # every member finite (the residual counts NaN as 0, JAX
+    # equilibrium.py:124-130, so a lost member could read converged), and
+    # every member that reads converged within tol
+    lost = _lost_members(eq)
+    if lost.any():
+        fail(f"MIZ equilibrate: {int(lost.sum())} of {K_MAIN} members non-finite, F = "
+             + ", ".join(f"{F:.6f}" for F in sweep[lost][:8]))
+    if not np.all(eq.resid[eq.converged] <= EQ_TOL_MIZ):
+        fail("MIZ equilibrate: a member reads converged above tol")
+    n = 256  # the first members against ensemble_integrate of them, bitwise
+    ens = ebt.ensemble_integrate("MIZ", ebt.SpaceTime.sin(*CANONICAL, eq.years), ebt.Forcing(0.0),
+                                 dict(par, F=sweep[:n]), ebt.zeros_init(st), engine="fused",
+                                 dtype="float32", device=dev, progress=False)
+    for name, a, b in zip(("winter", "summer", "avg"), eq.seasonal, ens.seasonal):
+        for k in a:
+            if not np.array_equal(a[k][:n], b[k][:, -1], equal_nan=True):
+                fail(f"MIZ equilibrate: members 0..{n - 1} {name}.{k} differ from "
+                     "ensemble_integrate's")
+    per_year = wall / eq.years
+    host_ms = (per_year - kern_s / eq.years) * 1e3 if kern_s is not None else None
+    out["miz"] = dict(launches=launches, wall_ms_per_year=per_year * 1e3,
+                      kernel_ms_per_year=kern_s / eq.years * 1e3 if kern_s is not None else None)
+    say(15, json.dumps(dict(
+        path="equilibrate('MIZ', SpaceTime.sin(180, 2000, 1), F swept over [-10, 10])",
+        K=K_MAIN, dtype="float32", engine="auto (fused)", tol=EQ_TOL_MIZ,
+        max_years=EQ_MAX_YEARS, years=eq.years, converged=int(np.count_nonzero(eq.converged)),
+        member_years_max=int(eq.member_years.max()), miz_year_launches=launches,
+        wall_s=wall, member_years_per_day=K_MAIN * eq.years / wall * 86400.0,
+        kernel_ms_per_year=kern_s / eq.years * 1e3 if kern_s is not None else None,
+        host_overhead_ms_per_year=host_ms, newton_ok=eq.newton_ok, gpu=smi)))
+    say(15, f"members 0..{n - 1} equal ensemble_integrate(engine='fused') of them over "
+            f"{eq.years} years, bitwise; all {K_MAIN} members finite; every member that "
+            f"reads converged within {EQ_TOL_MIZ}")
+    del eq, ens
+
+    return out
+
+
+def phase16(dev, smi):
+    """Classic equilibrate and a MIZ continuation; returns the
+    continuation's F=0 state for phase 17 (the float64 pair of phase 16 is
+    :func:`phase16_f64`)."""
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import miz_year
+
+    out = {}
+    st = ebt.SpaceTime.sin(*CANONICAL, 1)
+    sweep = np.linspace(-10.0, 10.0, K_MAIN)
+    # -- 16. Classic equilibrate, a continuation, f64 Anderson vs Picard ------
+    cpar = ebt.default_parameters("Classic")
+    cpar["F"] = sweep
+    E0 = np.full(CANONICAL[0], 30.0)
+    warm = {"E": E0, "Tg": E0 / cpar["cw"]}
+    ceq, wall, launches, kern_s = _timed_run(
+        lambda: ebt.equilibrate("Classic", st, 0.0, cpar, warm, tol=EQ_TOL_CLASSIC,
+                                max_years=EQ_MAX_YEARS, dtype="float32", device=dev),
+        classic_year, "classic_")
+    if launches != ceq.years or _lost_members(ceq).any():
+        fail(f"Classic equilibrate: {launches} launches for {ceq.years} years, "
+             f"{int(_lost_members(ceq).sum())} members non-finite")
+    out["classic"] = dict(launches=launches, wall_ms_per_year=wall / ceq.years * 1e3,
+                          kernel_ms_per_year=(kern_s / ceq.years * 1e3 if kern_s is not None
+                                              else None))
+    say(16, json.dumps(dict(
+        path="equilibrate('Classic', SpaceTime.sin(180, 2000, 1), F swept over [-10, 10], "
+             "warm init)", K=K_MAIN, dtype="float32", tol=EQ_TOL_CLASSIC, years=ceq.years,
+        converged=int(np.count_nonzero(ceq.converged)), classic_year_launches=launches,
+        wall_s=wall, member_years_per_day=K_MAIN * ceq.years / wall * 86400.0,
+        kernel_ms_per_year=kern_s / ceq.years * 1e3 if kern_s is not None else None, gpu=smi)))
+    del ceq
+
+    levels = [-10.0, -5.0, 0.0, 5.0, 10.0]
+    miz_year.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cont = ebt.continuation("MIZ", st, levels, ebt.default_parameters("MIZ"),
+                            ebt.zeros_init(st), round_trip=True, tol=EQ_TOL_MIZ,
+                            max_years=EQ_MAX_YEARS, dtype="float32", device=dev)
+    wall = time.perf_counter() - t0
+    if miz_year.launches != int(cont.years.sum()) or any(_lost_members(r).any() for r in cont.results):
+        fail(f"continuation: {miz_year.launches} launches for {int(cont.years.sum())} years")
+    out["continuation_launches"] = miz_year.launches
+    gap_vals, gap = cont.hysteresis_gap()
+    say(16, json.dumps(dict(
+        path="continuation('MIZ', K=1, F in [-10, -5, 0, 5, 10], round_trip=True)",
+        tol=EQ_TOL_MIZ, years=cont.years.tolist(), converged=cont.converged.tolist(),
+        miz_year_launches=miz_year.launches, wall_s=wall,
+        ice_area=[float(a) for a in cont.ice_area()],
+        hysteresis_gap=dict(zip(map(float, gap_vals), map(float, gap))), gpu=smi)))
+    out["f0_state"] = cont.results[levels.index(0.0)].state
+    return out
+
+
+def phase16_f64(dev, smi):
+    """MIZ float64 at K=64 to tol 1e-6, Anderson against Picard."""
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+
+    st = ebt.SpaceTime.sin(*CANONICAL, 1)
+    par64 = ebt.default_parameters("MIZ")
+    par64["F"] = np.linspace(-10.0, 10.0, 64)
+    runs = {}
+    for name, m in (("anderson=3", 3), ("picard", 0)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = ebt.equilibrate("MIZ", st, 0.0, par64, ebt.zeros_init(st), tol=1e-6, max_years=600,
+                            anderson=m, dtype="float64", device=dev)
+        lost = _lost_members(r)
+        runs[name] = dict(years=r.years, converged=int(np.count_nonzero(r.converged)),
+                          member_years_max=int(r.member_years.max()),
+                          wall_s=time.perf_counter() - t0)
+        if lost.any():
+            fail(f"MIZ f64 equilibrate ({name}): {int(lost.sum())} of 64 members non-finite")
+        if not np.all(r.resid[r.converged] <= 1e-6):
+            fail(f"MIZ f64 equilibrate ({name}): a member reads converged above tol")
+    say(16, json.dumps(dict(path="equilibrate('MIZ', K=64, float64, tol=1e-6, max_years=600)",
+                            runs=runs, note="beside phase 17's jobs", gpu=smi)))
+
+
+def _gradient_task(task, f0_state):
+    """One gradient job of phase 17, run in a process of its own: the eager
+    float64 year is bound by the host's launches (one core each), so the jobs
+    overlap. Returns a dict, with ``"error"`` when a hold failed. A gradient
+    leaf of the fixed point that never had a finite increment (returned as
+    0, with a warning) is an error here."""
+    import warnings
+
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.equilibrium import make_equilibrium_seasonal_fn
+    from energybalancemodel_jl_tpu_torch.integrate import make_year_fn
+    from energybalancemodel_jl_tpu_torch.models.base import default_step_config, get_model
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import miz_year
+
+    torch.set_num_threads(1)
+    warnings.filterwarnings("error", message="the fixed point's gradient")
+    f64, cfg64 = torch.float64, default_step_config("float64")
+    dev = torch.device("cpu") if task == "fixed point cpu" else torch.device("cuda", 0)
+    st = ebt.SpaceTime.sin(*CANONICAL, 1)
+    state64 = {k: np.asarray(v, dtype=np.float64) for k, v in (f0_state or {}).items()}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    if task == "year gradient":
+        year = make_year_fn("MIZ", st, cfg64, False)
+        base = {k: torch.tensor(float(v), dtype=f64, device=dev)
+                for k, v in ebt.default_parameters("MIZ").items()}
+        # from the continuation's F=0 state: a year from zero init starts on
+        # the E = 0 switches, where the derivative is ill-conditioned at this
+        # grid (tests/test_torch_gradients.py holds reverse mode from zero
+        # init against jax.grad on a small grid)
+        carry0 = get_model("MIZ").init_carry(state64, st, f64, dev)
+        frow = torch.zeros(st.nt, dtype=f64, device=dev)
+
+        def loss(D):
+            return torch.nan_to_num(year(carry0, dict(base, D=D), frow)[1].avg["E"]).sum()
+
+        D = torch.tensor(0.6, dtype=f64, device=dev, requires_grad=True)
+        g = float(torch.autograd.grad(loss(D), D)[0])
+        sync()
+        grad_s = time.perf_counter() - t0
+        # central differences at two steps, the year piecewise smooth (its
+        # min/max and masks switch cells' regimes): the values D +- step of
+        # both steps are four members of one launch of the year kernel (the
+        # same year map, held to its plain version elsewhere in this script;
+        # an eager year here costs a minute)
+        Ds = [0.6 + eps for eps in FD_STEPS] + [0.6 - eps for eps in FD_STEPS]
+        kcarry = ebt.Collection({k: v[None].expand(len(Ds), -1).contiguous()
+                                 for k, v in carry0.items()})
+        seas = miz_year(kcarry, dict(ebt.default_parameters("MIZ"), D=np.array(Ds)), frow,
+                        st, cfg64)[1]
+        L = torch.nan_to_num(seas.avg["E"]).sum(-1).cpu().numpy()
+        n = len(FD_STEPS)
+        fd = {eps: float((L[i] - L[n + i]) / (2 * eps)) for i, eps in enumerate(FD_STEPS)}
+        out = dict(grad=g, fd=fd, rel={eps: abs(g - d) / abs(d) for eps, d in fd.items()},
+                   grad_s=grad_s)
+        if not (np.isfinite(g) and all(abs(g - d) <= BAR_FD * abs(d) for d in fd.values())):
+            out["error"] = f"year gradient d/dD {g} against the central differences {fd}"
+    elif task.startswith("stability"):
+        side = task.split()[1]
+        r = ebt.stability("MIZ", st, 0.0, ebt.default_parameters("MIZ"), state64, n_iter=3,
+                          side=side, dtype="float64", device=dev)
+        out = dict(growth=r.growth, eigenvalue=r.eigenvalues, history=r.history.tolist())
+        if not np.isfinite(r.growth):
+            out["error"] = f"stability side={side}: growth {r.growth}"
+    elif task.startswith("fixed point"):
+        st8 = ebt.SpaceTime.sin(8, 100, 1)
+        fn = make_equilibrium_seasonal_fn("MIZ", st8, cfg64, "float64", bwd_max_iters=60)
+        p = {k: torch.tensor(float(v), dtype=f64, device=dev, requires_grad=True)
+             for k, v in ebt.default_parameters("MIZ").items()}
+        fr = torch.full((st8.nt,), 4.0, dtype=f64, device=dev, requires_grad=True)
+        c0 = get_model("MIZ").init_carry(ebt.zeros_init(st8), st8, f64, dev)
+        area = 2.0 * np.pi * ebt.hemispheric_mean(
+            torch.nan_to_num(fn(p, fr, c0).avg["phi"]), st8.x)
+        gr = torch.autograd.grad(area, list(p.values()) + [fr])
+        # by name: the two sides run in processes of their own
+        out = dict(values={"value": float(area.detach()),
+                           **{f"d/d{k}": float(g) for k, g in zip(p, gr[:-1])},
+                           "d/dforcing": gr[-1].detach().cpu().numpy()})
+    elif task == "sensitivity":
+        st50 = ebt.SpaceTime.sin(8, 50, 1)
+        sens = ebt.sensitivity("MIZ", st50, 4.0, ebt.default_parameters("MIZ"),
+                               ebt.zeros_init(st50), dtype="float64", device=dev)
+        out = dict(value=sens.value, top=[(k, float(g)) for k, g, _ in sens.top(3)])
+        if not all(np.isfinite(v) for v in sens.grads.values()):
+            out["error"] = "sensitivity on the card: a non-finite gradient"
+    sync()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# each in a process of its own: one after the other they would not fit the
+# script's 900 s target (each job's seconds are printed)
+GRADIENT_TASKS = ("year gradient", "stability adjoint", "stability right", "sensitivity",
+                  "fixed point cpu", "fixed point cuda")
+
+
+def phase17(dev, smi, f0_state, meanwhile):
+    """Gradients on the card, each job in a process of its own (all joined
+    before this returns; ``meanwhile()`` runs in this process while they
+    do): the eager year's gradient against central differences,
+    ``stability`` both sides, ``sensitivity``, and the fixed point's gradient
+    on the card against the CPU's; then the wrappers' refusals."""
+    import multiprocessing
+
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.models.base import default_step_config
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import CARRY_KEYS, miz_year
+    from energybalancemodel_jl_tpu_torch.ops.newton_t0 import newton_t0
+    from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(len(GRADIENT_TASKS)) as pool:
+        pending = pool.starmap_async(_gradient_task,
+                                     [(task, f0_state) for task in GRADIENT_TASKS])
+        meanwhile()
+        results = dict(zip(GRADIENT_TASKS, pending.get()))
+    wall = time.perf_counter() - t0
+    for task, r in results.items():
+        if "error" in r:
+            fail(f"phase 17 {task}: {r['error']}")
+    g = results["year gradient"]
+    say(17, f"make_year_fn('MIZ') canonical K=1 f64 from the continuation's F=0 state, "
+            f"d sum(avg E)/dD: {g['grad']:.10e}; central differences (the year kernel): "
+            + ", ".join(f"step {eps:g} {g['fd'][eps]:.10e} rel {g['rel'][eps]:.3e}"
+                        for eps in FD_STEPS)
+            + f" (bar {BAR_FD} at both); forward and backward "
+            f"{g['grad_s']:.3f} s")
+    stab = {side: dict(results[f"stability {side}"],
+                       s_per_iteration=results[f"stability {side}"]["wall_s"] / 4)
+            for side in ("adjoint", "right")}
+    say(17, json.dumps(dict(path="stability('MIZ', canonical K=1, the F=0 state of the "
+                                 "continuation as f64, n_iter=3)", sides=stab, gpu=smi)))
+    a = results["fixed point cpu"]["values"]
+    b = results["fixed point cuda"]["values"]
+    if a.keys() != b.keys():
+        fail("make_equilibrium_seasonal_fn: the card's and the CPU's gradients name different "
+             "leaves")
+    worst, worst_at = 0.0, None
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        r = float(np.max(np.abs(x - y) / np.maximum(np.abs(x), 1e-300)))
+        if r >= worst:
+            worst, worst_at = r, k
+        if not np.all(np.abs(x - y) <= BAR_CARD_CPU * np.abs(x) + 1e-15):
+            fail(f"make_equilibrium_seasonal_fn on the card differs from the CPU's at {k}: "
+                 f"{y} against {x}")
+    say(17, f"make_equilibrium_seasonal_fn('MIZ', SpaceTime.sin(8, 100), forcing 4, "
+            f"bwd_max_iters=60): value and every gradient on the card equal the CPU's to "
+            f"rel {worst:.3e} (at {worst_at}; bar {BAR_CARD_CPU} + 1e-15 absolute), each "
+            f"side in a process of its own; seconds card "
+            f"{results['fixed point cuda']['wall_s']:.3f}, cpu "
+            f"{results['fixed point cpu']['wall_s']:.3f}")
+    sens = results["sensitivity"]
+    say(17, f"sensitivity('MIZ', SpaceTime.sin(8, 50), forcing 4, JAX's defaults) on the card: "
+            f"{sens['wall_s']:.3f} s; ice area {sens['value']:.10f}; top "
+            + ", ".join(f"{k} {v:.6e}" for k, v in sens["top"]))
+    say(17, f"the gradient jobs ({len(GRADIENT_TASKS)} in processes of their own): "
+            f"{wall:.1f} s wall, "
+            + ", ".join(f"{task} {r['wall_s']:.1f} s" for task, r in results.items()))
+
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    refused = 0
+    for label, call in (
+            ("miz_year", lambda: miz_year(
+                ebt.Collection({k: z(1, 16) for k in CARRY_KEYS}),
+                dict(ebt.default_parameters("MIZ"),
+                     D=torch.tensor([0.6], device=dev, requires_grad=True)),
+                z(100), ebt.SpaceTime.sin(16, 100, 1), default_step_config("float32"))),
+            ("classic_year", lambda: classic_year(
+                ebt.Collection(E=z(1, 16).requires_grad_(True), Tg=z(1, 16)),
+                ebt.default_parameters("Classic"), z(100), ebt.SpaceTime.sin(16, 100, 1),
+                default_step_config("float32"))),
+            ("pcr_fused", lambda: pcr_fused(z(4, 16), z(4, 16) + 1.0, z(4, 16),
+                                            z(4, 16).requires_grad_(True))),
+            ("newton_t0", lambda: newton_t0(z(4, 16).requires_grad_(True), z(4, 16) + 1.0,
+                                            z(4, 16), z(4, 16), z(4, 16), z(16), z(16), z(16),
+                                            0.6, 2.0, 0.0, 193.0, 2.1, 0.4, 0.0))):
+        try:
+            call()
+        except ValueError as e:
+            refused += "engine='batched'" in str(e)
+        else:
+            fail(f"{label} launched on an input that requires grad")
+    if refused != 4:
+        fail("a kernel wrapper refused an input that requires grad with the wrong message")
+    say(17, "miz_year, classic_year, pcr_fused, newton_t0 refuse inputs that require grad")
 
 
 def main():
@@ -343,7 +755,10 @@ def main():
     x = st.x
     hemi = lambda v: np.sum((v[:, :-1] + v[:, 1:]) * (x[1:] - x[:-1]) / 2.0, axis=-1)
     ck, sk, conv_k, _ = years(miz_year, carry, par, f, st, cfg32, 1)
+    # the plain year held here is also the kernel table's plain time (phase 6)
+    t0 = time.perf_counter()
     cp, sp, conv_p, _ = years(miz_year_reference, carry, par, f, st, cfg32, 1)
+    miz_plain_ms = (time.perf_counter() - t0) * 1e3
     for coll in (ck, sk.avg, sk.winter, sk.summer):
         for k in ("E", "T", "h", "phi", "Ei", "Ew", "D", "n", "T0"):
             if k in coll and not bool(torch.isfinite(coll[k]).all()):
@@ -438,7 +853,7 @@ def main():
     # -- 6. kernel and plain version per model year, canonical grid -----------
     # kernel: CUDA events over 3 launches after a warm-up that counts each
     # member's Newton updates; plain (host clock): f32 K=8192 only, the
-    # kernel table's row
+    # kernel table's row, timed where phase 3 holds it
     timing, det_updates = {}, {}
     for dtype in (torch.float32, torch.float64):
         cfg = default_step_config(dtype_name(dtype))
@@ -459,11 +874,8 @@ def main():
             stop.record()
             torch.cuda.synchronize()
             kernel_ms = start.elapsed_time(stop) / 3
-            plain_ms = None
-            if dtype == torch.float32 and K == K_MAIN:
-                t0 = time.perf_counter()
-                years(miz_year_reference, carry, par, f, st, cfg, 1)
-                plain_ms = (time.perf_counter() - t0) * 1e3
+            # the plain version: phase 3's year on the same inputs
+            plain_ms = miz_plain_ms if dtype == torch.float32 and K == K_MAIN else None
             timing[dtype, K] = kernel_ms, plain_ms
             row = dict(dtype=str(dtype), K=K, kernel_ms_per_year=kernel_ms,
                        plain_ms_per_year=plain_ms, gpu=smi,
@@ -525,8 +937,12 @@ def main():
 
     st, par, carry_c, f = classic_setup(*CANONICAL, K_MAIN, torch.float32)
     ck_out = years(classic_year, carry_c, par, f, st, cfg_of(torch.float32), 1)
-    wcl = compare(ck_out, years(classic_year_reference, carry_c, par, f, st,
-                                cfg_of(torch.float32), 1), "classic f32 canonical", BAR_BITWISE)
+    # the plain year held here is also the kernel table's plain time (phase 10)
+    t0 = time.perf_counter()
+    cp_out = years(classic_year_reference, carry_c, par, f, st, cfg_of(torch.float32), 1)
+    classic_plain_ms = (time.perf_counter() - t0) * 1e3
+    wcl = compare(ck_out, cp_out, "classic f32 canonical", BAR_BITWISE)
+    del cp_out
     say(7, f"classic f32 canonical K={K_MAIN} D swept 1y: max|kernel-plain| "
            f"carry={wcl['carry']:.3e} seasonal={wcl['seasonal']:.3e} (bar {BAR_BITWISE}: bitwise)")
     for m in (0, K_MAIN // 2 + 1, K_MAIN - 1):
@@ -722,9 +1138,8 @@ def main():
             st, par, carry, f = classic_setup(*CANONICAL, K, dtype)
             cfg = cfg_of(dtype)
             k_ms = kernel_time(lambda: classic_year(carry, par, f, st, cfg), 3)
-            # the plain version: f32 K=8192 only, the kernel table's row
-            p_ms = (host_time(lambda: classic_year_reference(carry, par, f, st, cfg), 1)
-                    if dtype == torch.float32 and K == K_MAIN else None)
+            # the plain version: phase 7's year on the same inputs (f32 K=8192)
+            p_ms = classic_plain_ms if dtype == torch.float32 and K == K_MAIN else None
             ctiming[dtype, K] = k_ms, p_ms
             say(10, json.dumps(dict(kernel="classic_year", dtype=str(dtype), K=K,
                                     kernel_ms_per_year=k_ms, plain_ms_per_year=p_ms, gpu=smi,
@@ -933,8 +1348,11 @@ def main():
         before = classic_year.launches, normal_table.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = ebt.transitions("Classic", st1, ebt.Forcing(10.0), cpar, crefs["a"], crefs["b"],
-                              years=years_run, **dict(tkw, sigma=8.0, **extra))
+        # the eager scan engine's year on 1000 steps (Classic's shortest
+        # stable year): it is host-bound, and only its draw launches count here
+        st_mode = ebt.SpaceTime.sin(CANONICAL[0], 1000, 1) if mode == "scan" else st1
+        res = ebt.transitions("Classic", st_mode, ebt.Forcing(10.0), cpar, crefs["a"],
+                              crefs["b"], years=years_run, **dict(tkw, sigma=8.0, **extra))
         wall = time.perf_counter() - t0
         classic_mode_launches[mode] = classic_year.launches - before[0]
         classic_results[mode] = (res, wall)
@@ -949,8 +1367,8 @@ def main():
             classic_mode_launches[mode] -= 2  # the two reference-area years
         if not np.isfinite(res.areas).all():
             fail(f"Classic transitions {mode}: non-finite areas")
-    say(13, "transitions('Classic', SpaceTime.sin(180, 2000, 1), Forcing(10.0), sigma=8, "
-            f"K={K_MAIN}): " + ", ".join(
+    say(13, "transitions('Classic', SpaceTime.sin(180, 2000, 1) (the scan engine 1000 steps), "
+            f"Forcing(10.0), sigma=8, K={K_MAIN}): " + ", ".join(
                 f"{mode} {r.years}y {w:.3f} s (engine {r.engine}, escape_fraction "
                 f"{r.escape_fraction():.4f}, classic_year +{classic_mode_launches[mode]} "
                 f"noisy + {0 if mode == 'scan' else 2} reference)"
@@ -969,14 +1387,18 @@ def main():
     # phase 13 runs is held against its plain version, bitwise: MIZ (f32 and
     # f64) with 2 fixed Newton iterations, Classic as it runs. Then each mode
     # is timed as its path runs it (the adaptive Newton, each member's Newton
-    # updates counted), and so is its plain version, one year on the host
-    # clock; table/OU also in float32, beside its float64 path.
+    # updates counted); its plain version is timed, one year on the host
+    # clock, in the run that holds the kernel: for MIZ that run has 2 fixed
+    # Newton iterations per step, so the kernel is also timed so, beside it
+    # (the kernel table's plain_config and ms_plain_config); table/OU also in
+    # float32, beside its float64 path.
     nt = CANONICAL[1]
     rho = float(np.exp(-1.0 / nt / 0.05))
     keys_dev = prng.member_year_keys(0, K_MAIN, 0)
     thr_sgn = (torch.linspace(0.0, 1.0, K_MAIN, device=dev),
                torch.tensor([1.0, -1.0], device=dev).repeat(K_MAIN // 2))
     timed, plain_timed, updates, main_err, crossed = {}, {}, {}, {}, {}
+    timed_fixed = {}  # MIZ: the kernel with the plain run's 2 fixed Newton iterations
     for model, year, plain, state, par, sigma, F in (
             ("MIZ", miz_year, miz_year_reference, refs["a"], mpar, 4.0, 0.0),
             ("Classic", classic_year, classic_year_reference, crefs["a"], cpar, 8.0, 10.0)):
@@ -1029,12 +1451,18 @@ def main():
                 out_k = year(*args, cfg, **kw)
                 main_err[model, mode] = compare_noisy(out_k, out_p, label, BAR_BITWISE)
             else:
-                plain_timed[model, mode] = host_time(lambda: plain(*args, cfg, **kw), 1)
+                # the plain year held against the kernel (2 fixed Newton
+                # iterations) is the one timed; the table mode is only timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out_p = plain(*args, fixed_short, **kw)
+                torch.cuda.synchronize()
+                plain_timed[model, mode] = (time.perf_counter() - t0) * 1e3
+                timed_fixed[model, mode] = kernel_time(lambda: year(*args, fixed_short, **kw), 2)
                 if mode == "table":
                     continue
                 out_k = year(*args, fixed_short, **kw)
-                main_err[model, mode] = compare_noisy(
-                    out_k, plain(*args, fixed_short, **kw), label, BAR_BITWISE)
+                main_err[model, mode] = compare_noisy(out_k, out_p, label, BAR_BITWISE)
             if mode == "keys/crossing":
                 crossed[model] = int((out_k[4] >= 0).sum())
             del out_k
@@ -1043,6 +1471,7 @@ def main():
             dtype={m: dtype_name(d) for m, (d, _) in modes.items()},
             ms_per_year={m: timed[model, m] for m in modes},
             plain_ms_per_year={m: plain_timed.get((model, m)) for m in modes},
+            ms_per_year_2_fixed_newton={m: timed_fixed.get((model, m)) for m in modes},
             max_abs_err_kernel_vs_plain={m: main_err.get((model, m)) for m in modes},
             newton_updates_per_member_step={m: updates[model, m] / K_MAIN / nt
                                             for m in modes if (model, m) in updates},
@@ -1056,6 +1485,8 @@ def main():
     draw_plain_ms = host_time(lambda: prng.normal_table(keys_dev, nt, dev), 3)
     say(14, json.dumps(dict(kernel="normal_table", shape=f"({nt}, {K_MAIN}) float32",
                             kernel_ms_per_call=draw_ms, plain_ms_per_call=draw_plain_ms, gpu=smi)))
+
+    eq_run = equilibrium_phases(dev, smi)
 
     # -- the least time the card could take for each kernel's work ------------
     # NVIDIA's H100 SXM data sheet (dense rates, 700 W):
@@ -1145,13 +1576,21 @@ def main():
               # kernel alone (phase 6), and as integrate runs them (phase 13)
               launches_transitions_path=ref_launches_total,
               ms_K1=timing[torch.float32, 1][0],
-              ms_K1_reference_year=ref_s * 1e3 / ref_launches),
+              ms_K1_reference_year=ref_s * 1e3 / ref_launches,
+              # the equilibrium layer's path (phases 15, 16): one launch per year
+              launches_equilibrate=eq_run["miz"]["launches"],
+              equilibrate_kernel_ms_per_year=eq_run["miz"]["kernel_ms_per_year"],
+              equilibrate_wall_ms_per_year=eq_run["miz"]["wall_ms_per_year"],
+              launches_continuation=eq_run["continuation_launches"]),
         entry("classic_year", "classic_year.cu", f"{py}:1628", classic_launches, max(wcl.values()),
               ctiming[torch.float32, K_MAIN][0], ctiming[torch.float32, K_MAIN][1],
               year_bound("Classic", "det"), also_replaces=f"{py}:1378",
               max_abs_err_nx40=max(wsmall.values()), max_abs_err_nx4096_K1=max(whi.values()),
               ms_K1=ctiming[torch.float32, 1][0], warp_min_k=classic_mod.WARP_MIN_K,
-              shape=year_shape, path="ensemble_integrate (phase 8)"),
+              shape=year_shape, path="ensemble_integrate (phase 8)",
+              launches_equilibrate=eq_run["classic"]["launches"],
+              equilibrate_kernel_ms_per_year=eq_run["classic"]["kernel_ms_per_year"],
+              equilibrate_wall_ms_per_year=eq_run["classic"]["wall_ms_per_year"]),
         entry("pcr_fused", "pcr.cu", "energybalancemodel_jl_tpu/ops/pallas_tridiag.py:29",
               solver_launches["pcr_fused"], pcr_err, pcr_ms, pcr_plain_ms,
               bound(4 * 5 * K * nx, K * nx * pcr_flops), pcr_library_ms,
@@ -1190,10 +1629,13 @@ def main():
                 ms_float32_same_call=timed[model, "table/OU f32"] if f64 else None,
                 det_ms_same_call=timed[model, "det"], sigma0_ms_same_call=timed[model, "sigma0"],
                 newton_updates_per_member_step=n_upd / K / nt if model == "MIZ" else None,
+                plain_config=("2 fixed Newton iterations per step; ms: the adaptive Newton"
+                              if model == "MIZ" else "as the path runs"),
+                ms_plain_config=timed_fixed.get((model, mode), timed[model, mode]),
                 shape=year_shape.replace("float32", "float64") if f64 else year_shape,
                 path=("transitions (phase 13)" if launches_of.get(mode, 0)
                       else "none: an ops-level mode, no entry point uses it")))
-    say(14, f"total {time.perf_counter() - t_start:.0f} s")
+    say(17, f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """energybalancemodel_jl_tpu_torch — the PyTorch/CUDA port of
 ``energybalancemodel_jl_tpu``.
 
-The two energy balance models of the JAX package, forward only: the MIZ
+The two energy balance models of the JAX package: the MIZ
 (marginal-ice-zone) model and the WE15 Classic model. Each is integrated one
 model year per launch of a hand-written CUDA kernel (``csrc/miz_year.cu``,
 ``csrc/classic_year.cu``) on an NVIDIA GPU, or by an eager PyTorch loop over
@@ -32,6 +32,19 @@ reference the port is tested against::
                           ebt.default_parameters("MIZ"), a, b, sigma=4.0, tau=0.05,
                           K=8192, years=3)
 
+    # the seasonal fixed point of 8192 members with the forcing swept over
+    # [-10, 10] W/m^2, each simulated year one launch of the MIZ year kernel
+    par = ebt.default_parameters("MIZ")
+    par["F"] = np.linspace(-10.0, 10.0, 8192)
+    eq = ebt.equilibrate("MIZ", ebt.SpaceTime.sin(180, 2000, 1), ebt.Forcing(0.0), par,
+                         ebt.zeros_init(st), tol=5e-2, max_years=150, device="cuda")
+    eq.member_years, eq.converged, eq.state  # each member's year, flag, state
+
+The equilibrium layer around it (``equilibrate``, ``continuation``,
+``stability``, ``sensitivity``, ``calibrate``) differentiates the eager year
+where it needs gradients: the MIZ Newton root carries an implicit-function
+VJP (``models/miz.py::_NewtonRoot``).
+
 Every entry point runs on the CUDA device unless ``device="cpu"`` is passed
 (with no CUDA device, ``device=None`` raises). The package imports ``torch``
 and numpy only, never ``jax``.
@@ -40,16 +53,21 @@ from __future__ import annotations
 
 import numpy as _np
 
+from .calibrate import CalibrationResult, calibrate
 from .convert import from_numpy, to_numpy
+from .equilibrium import (ContinuationResult, EquilibriumResult, StabilityResult, continuation,
+                          equilibrate, stability)
 from .forcing import Forcing
 from .integrate import integrate
 from .parallel.ensemble import (EnsembleSolutions, batched_parameters,
                                 ensemble_integrate, sweep)
 from .params import classic_paramset, default_parameters, default_parval, miz_paramset
 from .solutions import Seasonal, Solutions, annual_mean
+from .sensitivity import SensitivityResult, sensitivity
 from .spacetime import SpaceTime
 from .stochastic import TransitionResult, transitions
 from .utils import Collection, Progress, update
+from .utils.numerics import crossmean, hemispheric_mean
 
 
 def zeros_init(st, model: str = "MIZ") -> Collection:
@@ -74,6 +92,18 @@ __all__ = [
     "EnsembleSolutions",
     "transitions",
     "TransitionResult",
+    "equilibrate",
+    "EquilibriumResult",
+    "stability",
+    "StabilityResult",
+    "continuation",
+    "ContinuationResult",
+    "sensitivity",
+    "SensitivityResult",
+    "calibrate",
+    "CalibrationResult",
+    "crossmean",
+    "hemispheric_mean",
     "default_parameters",
     "default_parval",
     "miz_paramset",

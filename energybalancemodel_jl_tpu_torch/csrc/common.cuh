@@ -45,6 +45,19 @@ template <typename T> __device__ __forceinline__ T safe_div(T num, T den) {
   return den == T(0) ? T(0) : num / den;
 }
 
+// v with a subnormal value flushed to a zero of its sign, every other value
+// kept (utils/numerics.py::flush_subnormal: the flush to zero of the JAX
+// package's backends, applied where the MIZ step needs it)
+template <typename T> __device__ __forceinline__ T smallest_normal();
+template <> __device__ __forceinline__ float smallest_normal<float>() { return 1.17549435e-38f; }
+template <> __device__ __forceinline__ double smallest_normal<double>() {
+  return 2.2250738585072014e-308;
+}
+
+template <typename T> __device__ __forceinline__ T flush_subnormal(T v) {
+  return abs_val(v) < smallest_normal<T>() ? v * T(0) : v;
+}
+
 template <typename T> __device__ __forceinline__ T quiet_nan();
 template <> __device__ __forceinline__ float quiet_nan<float>() { return __int_as_float(0x7fc00000); }
 template <> __device__ __forceinline__ double quiet_nan<double>() {

@@ -216,12 +216,13 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     }
     conv_m = nan_min(conv_m, rnorm <= tol ? T(1) : T(0));
 
-    // -- the rest of the step (models/miz.py::step) -----------------------
+    // -- the rest of the step (models/miz.py::step, its subnormal flushes
+    // included) ------------------------------------------------------------
     const T Lf = p[P_LF], alpha = p[P_ALPHA], Dmin = p[P_DMIN], hmin = p[P_HMIN];
     T Ti = nan_min(T0[0], Tm);
     if (h == T(0)) Ti = T(0);
     const bool zeroD = Df == T(0);
-    const T n = zeroD ? T(0) : phi / (alpha * (Df * Df));
+    const T n = flush_subnormal(zeroD ? T(0) : phi / (alpha * (Df * Df)));
 
     const T Tb = Ti * phi + cell[0].water;
     const T L = A + B * (Tb - Tm);
@@ -240,8 +241,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     const T cEw = nan_max(rEw, T(0));
     const T psiEidt = rEi - cEi;
     const T psiEwdt = rEw - cEw;
-    T Ei1 = cEi + psiEwdt;
-    const T Ew1 = cEw + psiEidt;
+    T Ei1 = flush_subnormal(cEi + psiEwdt);
+    const T Ew1 = flush_subnormal(cEw + psiEidt);
 
     const T Drl = Df + p[Q_TWO_RL];
     const T ring = alpha * n * (Drl * Drl - Df * Df);
@@ -252,21 +253,21 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     const T dn = dt * (-Qp / p[Q_DN_DEN]);
 
     const T lat_melt = p[Q_LAT_MELT] * wl;
-    const T lg_den = p[Q_TWO_LF] * h * phi;
+    const T lg_den = flush_subnormal(p[Q_TWO_LF] * h * phi);
     T lat_grow = lg_den == T(0) ? T(0) : -Df / lg_den * Ql;
     if (h == T(0)) lat_grow = T(0);
     const T weld = p[Q_WELD] * phi * (Df * (Df * Df));
     const T rD = Df + (lat_melt + lat_grow + weld) * dt;
-    const T total = n + dn;
+    const T total = flush_subnormal(n + dn);
     const bool zero_total = total == T(0);
     T D1 = zero_total ? T(0) : (n * rD + dn * Dmin) / total;
     D1 = nan_min(nan_max(D1, Dmin), p[P_DMAX]);
     if (Ei1 == T(0)) D1 = T(0);
 
     const T rh = nan_max(h + (p[Q_NEG_INV_LF] * Fvi) * dt, T(0));
-    const T h1 = zero_total ? T(0) : (n * rh + dn * hmin) / total;
+    const T h1 = flush_subnormal(zero_total ? T(0) : (n * rh + dn * hmin) / total);
 
-    T phi1 = h1 == T(0) ? T(0) : -Ei1 / (Lf * h1);
+    T phi1 = flush_subnormal(h1 == T(0) ? T(0) : -Ei1 / (Lf * h1));
     if (phi1 > T(1)) phi1 = T(1);
 
     if (h1 == T(0)) Ei1 = T(0);

@@ -36,7 +36,7 @@ from .spacetime import SpaceTime
 from .utils.collection import Collection
 from .utils.progress import Progress
 
-__all__ = ["integrate", "make_year_fn", "resolve_engine", "resolve_dtype",
+__all__ = ["integrate", "make_year_fn", "default_dtype", "resolve_engine", "resolve_dtype",
            "resolve_device", "auto_is_fused", "check_fused", "FUSED_YEARS"]
 
 # model -> (its whole-year kernel's wrapper, the check that the kernel runs
@@ -48,6 +48,14 @@ FUSED_YEARS = {
 # solvers the kernels stand for: both run the kernel's inline PCR, as the JAX
 # package maps every solver of its fused engine to PCR (pallas_year.py:979)
 FUSED_SOLVERS = ("pcr", "pcr_fused")
+
+
+def default_dtype() -> torch.dtype:
+    """The analysis drivers' default dtype (``equilibrate``, ``stability``,
+    ``sensitivity``, ``calibrate``): float64 when PyTorch's default dtype is
+    float64 (``torch.set_default_dtype``, the counterpart of JAX's
+    ``jax_enable_x64``), else float32, as JAX ``integrate.default_dtype``."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
 
 
 def resolve_dtype(dtype) -> torch.dtype:

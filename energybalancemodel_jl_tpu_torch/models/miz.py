@@ -1,4 +1,4 @@
-"""Extended EBM with a Marginal Ice Zone (MIZ), forward only.
+"""Extended EBM with a Marginal Ice Zone (MIZ).
 
 Port of the JAX package's ``models/miz.py`` (itself a rebuild of
 EnergyBalanceModel.jl ``src/miz.jl``): separate ice/water enthalpies
@@ -21,9 +21,13 @@ Reference quirks reproduced deliberately (JAX ``models/miz.py:14-24``):
 
 ``solver='pallas'`` solves a ``(K, nx)`` batch's ``T0`` with the
 fixed-iteration Newton kernel (:mod:`..ops.newton_t0`), as the JAX package
-does; a single run's ``(nx,)`` state keeps the adaptive Newton. The
-implicit-function VJP of the Newton root (JAX ``:128-190``) is not ported
-yet (ROADMAP M10).
+does; a single run's ``(nx,)`` state keeps the adaptive Newton.
+
+The Newton root is reverse-differentiable by the implicit function theorem
+(:class:`_NewtonRoot`, JAX ``:128-190``): gradients flow through the root,
+never through the iterations, so the eager year has a VJP (the equilibrium
+layer's ``stability``, ``sensitivity`` and ``calibrate``). The fixed-iteration
+``solver='pallas'`` kernel has none: it raises on inputs that require grad.
 """
 from __future__ import annotations
 
@@ -34,7 +38,9 @@ import torch
 from ..ops.diffusion import diffusion_bands, neighbor_cells
 from ..ops.newton import newton_tridiag
 from ..ops.newton_t0 import newton_t0
+from ..ops.tridiag import tridiag_solve
 from ..utils.collection import Collection
+from ..utils.numerics import flush_subnormal as flush
 from .base import ModelSpec, StepConfig, register_model
 
 __all__ = ["MIZ", "insolation"]
@@ -130,6 +136,100 @@ def _t0_bands(T0, args, axis=-1):
     return jlo, jdi, jup
 
 
+def _t0_residual_vjp(T0, args, u, need):
+    """``u^T dr/d args[i]`` of :func:`_t0_residual` for each ``i`` in
+    ``need`` (None for the others), each summed to its argument's shape;
+    written out, so a backward pass builds no graph of the residual, and
+    linear in ``u`` by differentiable operations. At ``T0 == Tm`` the
+    ``min(T0, Tm)`` derivative splits half and half, as torch.minimum's and
+    jnp.minimum's do."""
+    insol, hp, Tw, phi, f, glo, gdi, gup, k, Tm, A, B, ai, D = args
+    Ti = torch.minimum(T0, Tm)
+    Tb = Ti * phi + (1.0 - phi) * Tw
+    Tbm1, Tbp1 = neighbor_cells(Tb)
+    Du = D * u
+    # the stencil's transpose: Tbm1 = roll(Tb, 1), so its cotangent rolls back
+    gTb = torch.roll(Du * glo, -1, -1) + Du * gdi + torch.roll(Du * gup, 1, -1)
+    dT = Tm - T0
+    tie = (T0 > Tm).to(T0.dtype) + 0.5 * (T0 == Tm).to(T0.dtype)
+    terms = (
+        lambda: ai * u,                                          # insol
+        lambda: -(k * dT) / (hp * hp) * u,                       # hp
+        lambda: gTb * (1.0 - phi),                               # Tw
+        lambda: gTb * (Ti - Tw),                                 # phi
+        lambda: u,                                               # f
+        lambda: Du * Tbm1,                                       # glo
+        lambda: Du * Tb,                                         # gdi
+        lambda: Du * Tbp1,                                       # gup
+        lambda: dT / hp * u,                                     # k
+        lambda: (k / hp + B) * u + gTb * phi * tie,              # Tm
+        lambda: -u,                                              # A
+        lambda: dT * u,                                          # B
+        lambda: insol * u,                                       # ai
+        lambda: (glo * Tbm1 + gdi * Tb + gup * Tbp1) * u,        # D
+    )
+    out = [None] * len(args)
+    for i in need:
+        g = terms[i]()
+        out[i] = g if g.shape == args[i].shape else g.sum_to_size(args[i].shape)
+    return out
+
+
+def _solver_method(cfg: StepConfig) -> str:
+    # 'pallas' names the fixed-iteration kernel; its other solves are PCR
+    return "pcr" if cfg.solver == "pallas" else cfg.solver
+
+
+def _newton_root(T0_warm, args, cfg: StepConfig):
+    return newton_tridiag(
+        lambda T0: (_t0_residual(T0, args), _t0_bands(T0, args)),
+        T0_warm,
+        abstol=cfg.newton_abstol,
+        reltol=cfg.newton_reltol,
+        max_iter=cfg.newton_max_iter,
+        method=_solver_method(cfg),
+        max_step=cfg.newton_max_step,
+    )
+
+
+class _NewtonRoot(torch.autograd.Function):
+    """The Newton root ``T0*`` of ``r(T0, args) = 0`` with the
+    implicit-function VJP of JAX ``_newton_root`` (``models/miz.py:128-190``):
+    ``dL/dargs = -lam^T dr/dargs`` where ``J^T lam = dL/dT0*``, ``J`` the
+    tridiagonal ``dr/dT0`` at the root, and a zero cotangent for the warm
+    start. The forward runs the Newton loop without a graph; the backward is
+    built of differentiable operations, so a second backward through it (the
+    ``J v`` products of ``stability(side='right')``) is exact: it is linear in
+    the cotangent, whose derivative it keeps."""
+
+    @staticmethod
+    def forward(ctx, cfg, iters, T0_warm, *args):
+        with torch.no_grad():
+            T0, converged, it = _newton_root(T0_warm, args, cfg)
+        iters.append(it)
+        ctx.cfg = cfg
+        ctx.save_for_backward(T0, *args)
+        ctx.mark_non_differentiable(converged)
+        return T0, converged
+
+    @staticmethod
+    def backward(ctx, gT0, _gconv):
+        T0, *args = ctx.saved_tensors
+        # the residual is linearised at the root: T0 and the primal args are
+        # constants here, the cotangent stays differentiable
+        T0 = T0.detach()
+        consts = [a.detach() for a in args]
+        jlo, jdi, jup = _t0_bands(T0, consts)
+        # transposed bands: (J^T)lo[i] = jup[i-1], (J^T)up[i] = jlo[i+1]; the
+        # rolled-in boundary entries multiply the zero boundary bands
+        jup_m1, _ = neighbor_cells(jup)
+        _, jlo_p1 = neighbor_cells(jlo)
+        lam = tridiag_solve(jup_m1, jdi, jlo_p1, gT0, method=_solver_method(ctx.cfg))
+        need = [i for i in range(len(args)) if ctx.needs_input_grad[3 + i]]
+        grads = _t0_residual_vjp(T0, consts, -lam, need)
+        return (None, None, None, *grads)
+
+
 def solve_T0(T0_warm, insol, h, Tw, phi, f, stat, par, cfg: StepConfig):
     """Ice surface temperature from the single-column energy balance
     (reference ``solveTi``'s inner solve, ``src/miz.jl:47-64``)::
@@ -138,7 +238,8 @@ def solve_T0(T0_warm, insol, h, Tw, phi, f, stat, par, cfg: StepConfig):
           + D∇²( phi min(T0,Tm) + (1-phi) Tw ) + f
 
     with ``h -> hmin`` where ``h == 0`` (:51), solved by warm-started Newton.
-    Returns ``(T0, converged, iterations)``.
+    Returns ``(T0, converged, iterations)``; the root carries the
+    implicit-function VJP (:class:`_NewtonRoot`).
 
     With ``solver='pallas'`` a ``(K, nx)`` batch goes to the fixed-iteration
     Newton kernel (:func:`_solve_T0_pallas`); a single run's ``(nx,)`` state
@@ -148,20 +249,15 @@ def solve_T0(T0_warm, insol, h, Tw, phi, f, stat, par, cfg: StepConfig):
     hp = torch.where(h == 0.0, par["hmin"], h)
     if cfg.solver == "pallas" and T0_warm.ndim >= 2:
         return _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg)
-    args = (
-        insol, hp, Tw, phi, f, stat.glo, stat.gdi, stat.gup,
-        par["k"], par["Tm"], par["A"], par["B"], par["ai"], par["D"],
+    ref = T0_warm
+    args = tuple(
+        v if torch.is_tensor(v) else torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
+        for v in (insol, hp, Tw, phi, f, stat.glo, stat.gdi, stat.gup,
+                  par["k"], par["Tm"], par["A"], par["B"], par["ai"], par["D"])
     )
-    return newton_tridiag(
-        lambda T0: (_t0_residual(T0, args), _t0_bands(T0, args)),
-        T0_warm,
-        abstol=cfg.newton_abstol,
-        reltol=cfg.newton_reltol,
-        max_iter=cfg.newton_max_iter,
-        # 'pallas' names the fixed-iteration kernel; its other solves are PCR
-        method="pcr" if cfg.solver == "pallas" else cfg.solver,
-        max_step=cfg.newton_max_step,
-    )
+    iters = []
+    T0, converged = _NewtonRoot.apply(cfg, iters, T0_warm, *args)
+    return T0, converged, iters[0]
 
 
 def _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg: StepConfig):
@@ -202,7 +298,17 @@ def _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg: StepConfig)
 def step(carry, xs, stat, par, cfg: StepConfig):
     """One MIZ step (rebuild of ``step!(::Val{:MIZ})``,
     ``src/miz.jl:150-196``, preserving the reference's exact update order
-    and masking semantics; line-for-line the JAX package's ``miz.step``)."""
+    and masking semantics; line-for-line the JAX package's ``miz.step``).
+
+    The JAX package computes on backends that flush subnormal results to
+    zero (XLA's CPU backend, the TPU); PyTorch and the CUDA kernels keep
+    them. Where ice melts away, ``Ei`` and ``phi`` decay by a factor of a few
+    hundred per step, through the subnormal range: kept there, ``lg_den``
+    and ``total`` become subnormal divisors and ``lat_grow`` reads
+    ``-inf * 0``, a NaN. So the step flushes, as those backends do, the
+    values that reach a zero test or a division, and the fields it stores
+    (``flush``, :func:`..utils.numerics.flush_subnormal`); on normal numbers
+    it changes nothing."""
     Ei, Ew, h, Df, phi = carry["Ei"], carry["Ew"], carry["h"], carry["D"], carry["phi"]
     insol, f = xs["insol"], xs["f"]
     dt = stat.dt
@@ -226,7 +332,7 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     # discards the lane, so the kept lanes are bitwise compute-then-mask
     zeroD = Df == 0.0
     n = phi / where(zeroD, 1.0, par["alpha"] * (Df * Df))
-    n = where(zeroD, 0.0, n)
+    n = flush(where(zeroD, 0.0, n))
 
     # -- fluxes (:162-164) ---------------------------------------------
     Tb = Ti * phi + (1.0 - phi) * Tw  # Tbar (:21-28)
@@ -241,12 +347,16 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     # -- enthalpy forward Euler + redistribution (:166-170, :109-117) --
     rEi = Ei + (phi * Fvi + Flat) * dt  # Ei_t (:137)
     rEw = Ew + ((1.0 - phi) * Fvw - Flat) * dt  # Ew_t (:138)
-    cEi = torch.clamp(rEi, max=0.0)  # clamp(rEi, -Inf, 0)
-    cEw = torch.clamp(rEw, min=0.0)  # clamp(rEw, 0, Inf)
+    # minimum/maximum, not clamp: the same values, and at a tie (rEi == 0 in
+    # every ice-free cell) the gradient splits half and half, as JAX's
+    # jnp.minimum/maximum split it; clamp would pass all of it
+    zero = torch.zeros_like(rEi)
+    cEi = torch.minimum(rEi, zero)  # clamp(rEi, -Inf, 0)
+    cEw = torch.maximum(rEw, zero)  # clamp(rEw, 0, Inf)
     psiEidt = rEi - cEi  # >= 0
     psiEwdt = rEw - cEw  # <= 0
-    Ei1 = cEi + psiEwdt
-    Ew1 = cEw + psiEidt
+    Ei1 = flush(cEi + psiEwdt)
+    Ew1 = flush(cEw + psiEidt)
 
     # -- floe size/thickness updates (:172-181) ------------------------
     Drl = Df + 2.0 * par["rl"]
@@ -264,14 +374,14 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     lat_melt = -math.pi / 2.0 * par["alpha"] * wl
     # guard on the full denominator (h or phi zero): such lanes are always
     # rescued by the zeroref(D, Ei) below — final outputs unchanged
-    lg_den = 2.0 * par["Lf"] * h * phi
+    lg_den = flush(2.0 * par["Lf"] * h * phi)
     zlg = lg_den == 0.0
     lat_grow = -Df / where(zlg, 1.0, lg_den) * Ql
     lat_grow = where(zlg, 0.0, lat_grow)
     lat_grow = where(h == 0.0, 0.0, lat_grow)  # zeroref!(lat_grow, h) (:144)
     weld = par["kappa"] * par["alpha"] / 4.0 * phi * (Df * (Df * Df))
     rD = Df + (lat_melt + lat_grow + weld) * dt
-    total = n + dn
+    total = flush(n + dn)
     zero_total = total == 0.0
     D1 = (n * rD + dn * par["Dmin"]) / where(zero_total, 1.0, total)  # average new pancakes (:129-134,176)
     D1 = where(zero_total, 0.0, D1)
@@ -279,14 +389,14 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     D1 = where(Ei1 == 0.0, 0.0, D1)  # zeroref!(D, Ei) (:178)
 
     rh = h + (-1.0 / par["Lf"] * Fvi) * dt  # h_t (:139,179)
-    rh = torch.clamp(rh, min=0.0)  # clamp!(rh, 0, Inf) (:180)
+    rh = torch.maximum(rh, zero)  # clamp!(rh, 0, Inf) (:180)
     h1 = (n * rh + dn * par["hmin"]) / where(zero_total, 1.0, total)  # (:181)
-    h1 = where(zero_total, 0.0, h1)
+    h1 = flush(where(zero_total, 0.0, h1))
 
     # -- concentration (:183, concentration :74-80) --------------------
     zero_h1 = h1 == 0.0
     phi1 = -Ei1 / where(zero_h1, 1.0, par["Lf"] * h1)
-    phi1 = where(zero_h1, 0.0, phi1)
+    phi1 = flush(where(zero_h1, 0.0, phi1))
     phi1 = where(phi1 > 1.0, 1.0, phi1)
 
     # -- totals (:185-187) ---------------------------------------------

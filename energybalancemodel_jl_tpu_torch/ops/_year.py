@@ -21,7 +21,34 @@ __all__ = ["member_columns", "check_year_args", "check_width", "check_noise_args
            "check_crossing_args", "trapezoid_weights", "ou_path", "assoc_ou_path",
            "classic_ou_unroll", "noise_offsets", "member_rows", "keys_tensor",
            "block_sum", "block_layout", "pcr_shared_bytes", "CrossingTracker", "NoiseLaunch",
-           "year_result", "MAX_SHARED_BYTES"]
+           "year_result", "MAX_SHARED_BYTES", "refuse_grad"]
+
+
+def refuse_grad(kernel: str, *values) -> None:
+    """Raise ``ValueError`` when any tensor among ``values`` (tensors,
+    Collections or dicts of them, tuples, scalars) requires grad while grad
+    mode is on: the CUDA kernels have no VJP, and their wrappers return
+    tensors with no ``grad_fn``, so a loss built on them would silently lose
+    its gradient (the JAX package fails the same way: ``pallas_call`` has no
+    VJP). Every kernel wrapper calls it before a launch."""
+    if not torch.is_grad_enabled():
+        return
+
+    def tensors(v):
+        if torch.is_tensor(v):
+            yield v
+        elif isinstance(v, dict):
+            for x in v.values():
+                yield from tensors(x)
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                yield from tensors(x)
+
+    if any(t.requires_grad for v in values for t in tensors(v)):
+        raise ValueError(
+            f"the {kernel} kernel has no gradient, and an input requires grad: "
+            "differentiate the eager year instead (engine='batched' with "
+            "solver='pcr', or the scan engine of integrate)")
 
 
 def member_columns(par, names, K: int, dtype, device):

@@ -44,7 +44,7 @@ from ..utils.collection import Collection
 from . import _build
 from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args, check_noise_args,
                     check_width, check_year_args, classic_ou_unroll, member_columns,
-                    noise_offsets, pcr_shared_bytes, year_result)
+                    noise_offsets, pcr_shared_bytes, refuse_grad, year_result)
 from .tridiag import pcr_steps
 
 __all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
@@ -108,6 +108,7 @@ def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = Fal
     noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,
                     ou_assoc=ou_assoc, crossing=crossing)
     if device.type == "cuda":
+        refuse_grad("classic_year", carry, par, fyear, noise, noise_ou)
         check_noise_args(dtype, noise, noise_ou, noise_keys, ou_assoc, collect_raw)
         check_crossing_args(crossing, noise_keys, noise_ou)
         return _year_cuda(carry, par, fyear, st, collect_raw, **noise_kw)

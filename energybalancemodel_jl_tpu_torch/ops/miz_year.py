@@ -39,7 +39,7 @@ from ..utils.collection import Collection
 from . import _build
 from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args,
                     check_noise_args, check_width, check_year_args, member_columns,
-                    noise_offsets, pcr_shared_bytes, year_result)
+                    noise_offsets, pcr_shared_bytes, refuse_grad, year_result)
 from .diffusion import diffusion_bands
 from .tridiag import pcr_steps
 
@@ -121,6 +121,7 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
     noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,
                     ou_assoc=ou_assoc, crossing=crossing)
     if device.type == "cuda":
+        refuse_grad("miz_year", carry, par, fyear, noise, noise_ou)
         check_noise_args(dtype, noise, noise_ou, noise_keys, ou_assoc, collect_raw)
         check_crossing_args(crossing, noise_keys, noise_ou)
         if newton_iters is not None and not (

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._year import refuse_grad
 from .tridiag import _shift, pcr_solve, pcr_steps
 
 __all__ = ["newton_t0", "newton_t0_reference", "MAX_N"]
@@ -72,6 +73,7 @@ def newton_t0(T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, ai, f,
                                    ai, f, max_step, iters)
     if device.type != "cuda":
         raise ValueError(f"newton_t0 has no kernel for device {device}")
+    refuse_grad("newton_t0", T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, ai, f)
     K, n = T0.shape
     if n > MAX_N:
         raise ValueError(f"the newton_t0 kernel takes at most {MAX_N} cells, got nx={n}")

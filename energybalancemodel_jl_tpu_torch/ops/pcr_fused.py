@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._year import refuse_grad
 from .tridiag import pcr_solve, pcr_steps
 
 __all__ = ["pcr_fused", "MAX_N"]
@@ -37,6 +38,7 @@ def pcr_fused(lo, di, up, b):
         return pcr_solve(lo, di, up, b)
     if b.device.type != "cuda":
         raise ValueError(f"pcr_fused has no kernel for device {b.device}")
+    refuse_grad("pcr_fused", lo, di, up, b)
     K, n = b.shape
     if n > MAX_N:
         raise ValueError(

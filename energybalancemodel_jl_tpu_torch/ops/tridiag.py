@@ -58,9 +58,13 @@ def _shift(v, s: int, axis: int = -1, fill: float = 0.0):
     n = v.shape[axis]
     if s == 0:
         return v
-    out = torch.full_like(v, fill)
     if abs(s) >= n:
-        return out
+        return torch.full_like(v, fill)
+    if axis == v.ndim - 1:
+        # one pad of the kept part: fewer operations on the eager paths
+        kept = v.narrow(axis, 0, n - s) if s > 0 else v.narrow(axis, -s, n + s)
+        return torch.nn.functional.pad(kept, (s, 0) if s > 0 else (0, -s), value=fill)
+    out = torch.full_like(v, fill)
     if s > 0:
         out.narrow(axis, s, n - s).copy_(v.narrow(axis, 0, n - s))
     else:
@@ -112,8 +116,7 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
         # exact arithmetic; the guard stops a float32-cancelled zero pivot
         # from injecting inf/NaN (a no-op in healthy lanes)
         zero = den == 0
-        return torch.where(zero, torch.zeros_like(num),
-                           num / torch.where(zero, torch.ones_like(den), den))
+        return torch.where(zero, 0.0, num / torch.where(zero, 1.0, den))
 
     s = 1
     for _ in range(steps):

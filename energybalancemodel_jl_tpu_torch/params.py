@@ -60,6 +60,10 @@ def default_parameters(model) -> Collection:
     (EnergyBalanceModel.jl src/infrastructure.jl:473-474), which treats every
     non-``:MIZ`` symbol as classic. A frozenset/set of names selects a custom
     subset (reference :447-450).
+
+    The keys come in the order of :data:`default_parval` in every process
+    (a set's order follows the process's string hashes), so flat lists of
+    parameters line up across processes.
     """
     if isinstance(model, (set, frozenset)):
         subset = model
@@ -67,4 +71,7 @@ def default_parameters(model) -> Collection:
         subset = miz_paramset
     else:
         subset = classic_paramset
-    return Collection({k: default_parval[k] for k in subset})
+    # an unknown name is last, and raises KeyError as the JAX package's does
+    keys = [k for k in default_parval if k in subset] + [
+        k for k in subset if k not in default_parval]
+    return Collection({k: default_parval[k] for k in keys})
