@@ -4,7 +4,7 @@ run through its hand-written kernels.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc::
 
-    python3 chip_smoke.py           # about fifteen minutes on an H100
+    python3 chip_smoke.py           # about sixteen minutes on an H100
 
 Phases (any failure exits non-zero, and no phase carries on past its own
 failure):
@@ -83,7 +83,32 @@ failure):
     sides there, ``sensitivity`` at ``SpaceTime.sin(8, 50)``, and the
     differentiable fixed point at ``SpaceTime.sin(8, 100)`` on the card and
     on the CPU, held leaf by leaf; then the kernel wrappers refuse inputs
-    that require grad; the script's total seconds.
+    that require grad;
+18. the search drivers' main path: ``fold`` of 8192 Classic members at the
+    canonical grid (f32, D swept over [0.3, 0.9], the warm init, F bisected
+    in [-10, 20] over 6 steps at tol 0.5), one ``classic_year`` launch per
+    simulated year of its solves, every final bracket 30/64 wide, the last
+    probe's first 64 members bitwise equal to their run alone (the block
+    build), and how many of their decisions a K=64 fold reproduces;
+19. the Classic bistable window above phase 18's fold at the default D
+    (a warm and a cold state equilibrated over 64 forcing levels), then
+    ``basins`` of 8192 blends of the settled states at its middle (two
+    attractors, every converged member labelled, members 0, K-1 and the
+    first of the other attractor bitwise equal to their runs alone) and
+    ``edge`` of 8192 members with the forcing swept across the window (6
+    steps, the warp build), launches counted as in phase 18;
+20. the solo and eager drivers at the JAX package's own diagnostic grids
+    (the dense polish refuses grids past ``basins._POLISH_UNIT_CAP``, and
+    the eager year is launch-bound on the card), f64, each job in a process
+    of its own: ``edge_state`` near the Classic saddle at
+    ``SpaceTime.sin(8, 1000)``, F=10 (converged, its ice area between the
+    attractors', exactly one eigenvalue of the dense year-map Jacobian
+    outside the unit circle), a 3-level ``unstable_branch`` there,
+    ``lyapunov`` at the ice-free Classic equilibrium against ``stability``'s
+    log growth (1e-6), and a MIZ ``lyapunov`` (``SpaceTime.sin(24, 400)``,
+    K=64, ``member_chunk=16``, ``project=("Ew", "phi")``) on the card
+    against the same run on the CPU (1e-10, that job beside phases 18-19);
+    the script's total seconds.
 
 The line before the last is the kernel table as JSON (each kernel's time,
 plain time, launches on its path, the least time the card could take for its
@@ -484,7 +509,7 @@ def _gradient_task(task, f0_state):
             out["error"] = f"year gradient d/dD {g} against the central differences {fd}"
     elif task.startswith("stability"):
         side = task.split()[1]
-        r = ebt.stability("MIZ", st, 0.0, ebt.default_parameters("MIZ"), state64, n_iter=3,
+        r = ebt.stability("MIZ", st, 0.0, ebt.default_parameters("MIZ"), state64, n_iter=2,
                           side=side, dtype="float64", device=dev)
         out = dict(growth=r.growth, eigenvalue=r.eigenvalues, history=r.history.tolist())
         if not np.isfinite(r.growth):
@@ -556,10 +581,10 @@ def phase17(dev, smi, f0_state, meanwhile):
             + f" (bar {BAR_FD} at both); forward and backward "
             f"{g['grad_s']:.3f} s")
     stab = {side: dict(results[f"stability {side}"],
-                       s_per_iteration=results[f"stability {side}"]["wall_s"] / 4)
+                       s_per_iteration=results[f"stability {side}"]["wall_s"] / 3)
             for side in ("adjoint", "right")}
     say(17, json.dumps(dict(path="stability('MIZ', canonical K=1, the F=0 state of the "
-                                 "continuation as f64, n_iter=3)", sides=stab, gpu=smi)))
+                                 "continuation as f64, n_iter=2)", sides=stab, gpu=smi)))
     a = results["fixed point cpu"]["values"]
     b = results["fixed point cuda"]["values"]
     if a.keys() != b.keys():
@@ -614,6 +639,369 @@ def phase17(dev, smi, f0_state, meanwhile):
     if refused != 4:
         fail("a kernel wrapper refused an input that requires grad with the wrong message")
     say(17, "miz_year, classic_year, pcr_fused, newton_t0 refuse inputs that require grad")
+
+
+# -- phases 18-20: the search and spectra drivers ----------------------------
+# fold at the main path's width (phase 18): Classic, D swept over FOLD_D, the
+# warm init, the bracket [FOLD_LO, FOLD_HI] in F, FOLD_STEPS bisections at
+# tol 0.5; FOLD_MAX_YEARS is the anchor's year count at hi (35 on an NVIDIA
+# H100 80GB HBM3 with a cap of 150: the smallest cap with which every
+# member's anchor converges)
+FOLD_D, FOLD_LO, FOLD_HI, FOLD_STEPS, FOLD_MAX_YEARS = (0.3, 0.9), -10.0, 20.0, 6, 35
+# phase 19: the bistable window is scanned from the warm and the cold state
+# over BISTABLE_SCAN levels above phase 18's fold at the default D; edge's
+# probes stop at EDGE_MAX_YEARS (an unsettled probe is classified anyway and
+# flagged in probe_converged)
+BISTABLE_SCAN, BISTABLE_SPAN, EDGE_MAX_YEARS = 64, 30.0, 40
+SOLO_MEMBERS = 64  # phase 18's rerun of the last probe, and its K=64 fold
+
+
+class _SolveLog:
+    """Wraps a driver module's ``equilibrate`` while in use: each call's
+    simulated years, and the last call's arguments and result."""
+
+    def __init__(self, module):
+        self.module, self.years, self.last = module, [], None
+
+    def __enter__(self):
+        inner = self.orig = self.module.equilibrate
+
+        def logged(*args, **kwargs):
+            res = inner(*args, **kwargs)
+            self.years.append(res.years)
+            self.last = (args, kwargs, res)
+            return res
+
+        self.module.equilibrate = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.module.equilibrate = self.orig
+
+
+def _same_state(a, b, n):
+    """True when ``a`` (n members) equals the first n members of ``b``
+    bitwise: the carry and the seasonal stores, NaNs in place."""
+    pairs = [(a.state, b.state)] + list(zip(a.seasonal, b.seasonal))
+    return all(np.array_equal(x[k], np.asarray(y[k])[:n], equal_nan=True)
+               for x, y in pairs for k in x)
+
+
+def phase18(dev, smi):
+    """``fold`` of 8192 Classic members at the canonical grid."""
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
+
+    fold_mod = sys.modules["energybalancemodel_jl_tpu_torch.fold"]
+    st = ebt.SpaceTime.sin(*CANONICAL, 1)
+    par = ebt.default_parameters("Classic")
+    par["D"] = np.linspace(*FOLD_D, K_MAIN)
+    E0 = np.full(CANONICAL[0], 30.0)
+    warm = {"E": E0, "Tg": E0 / par["cw"]}
+    kw = dict(lo=FOLD_LO, hi=FOLD_HI, steps=FOLD_STEPS, tol=EQ_TOL_CLASSIC,
+              max_years=FOLD_MAX_YEARS, dtype="float32", device=dev)
+    with _SolveLog(fold_mod) as log:
+        res, wall, launches, kern_s = _timed_run(
+            lambda: ebt.fold("Classic", st, par, warm, **kw), classic_year, "classic_")
+    years = sum(log.years)
+    if launches != years:
+        fail(f"fold: {launches} classic_year launches for {years} simulated years")
+    width = (FOLD_HI - FOLD_LO) / 2 ** FOLD_STEPS
+    if not np.array_equal(res.width, np.full(K_MAIN, width)):
+        fail(f"fold: final brackets {np.unique(res.width)} wide, not {width}")
+    # the last probe again, its first members alone (the block build), from
+    # the same anchor state with the same values, for the same year count
+    n = SOLO_MEMBERS
+    (model, st_, forcing, p, state), _, last = log.last
+    rerun = ebt.equilibrate(model, st_, forcing, {k: (v[:n] if np.ndim(v) else v)
+                                                  for k, v in p.items()},
+                            {k: v[:n] for k, v in state.items()}, tol=0.0,
+                            max_years=last.years, dtype="float32", device=dev)
+    if not _same_state(rerun, last, n):
+        fail(f"fold: members 0..{n - 1} of the last probe differ from their run alone")
+    small = ebt.fold("Classic", st, ebt.Collection(par, D=par["D"][:n]), warm, **kw)
+    same = int(np.count_nonzero((small.survived == res.survived[:, :n]).all(0)))
+    out = dict(launches=launches, years=years, kernel_ms_per_year=(
+        kern_s / years * 1e3 if kern_s is not None else None), wall_s=wall)
+    say(18, json.dumps(dict(
+        path="fold('Classic', SpaceTime.sin(180, 2000, 1), D swept over [0.3, 0.9], warm init)",
+        K=K_MAIN, dtype="float32", lo=FOLD_LO, hi=FOLD_HI, steps=FOLD_STEPS, tol=EQ_TOL_CLASSIC,
+        max_years=FOLD_MAX_YEARS, anchor_years=res.anchor.years,
+        anchor_member_years_max=int(res.anchor.member_years.max()),
+        solve_years=log.years, classic_year_launches=launches, wall_s=wall,
+        member_years_per_day=K_MAIN * years / wall * 86400.0,
+        kernel_share=kern_s / wall if kern_s is not None else None,
+        members_fully_converged=int(np.count_nonzero(res.ok)),
+        fold_F_min_max=[float(res.values.min()), float(res.values.max())],
+        fold_F_at_D=dict(zip(("0.3", "0.6", "0.9"), map(float, res.values[[0, K_MAIN // 2, -1]]))),
+        gpu=smi)))
+    say(18, f"every final bracket {width} wide; the last probe ({last.years} years) of members "
+            f"0..{n - 1} equals their run alone bitwise (block build); a K={n} fold reproduces "
+            f"{same} of those {n} members' decisions (reported, not held: a smaller ensemble "
+            "stops its probes at other year counts)")
+    out["fold"] = res
+    return out
+
+
+def phase19(dev, smi, fold):
+    """``basins`` and ``edge`` at the same width, in the Classic bistable
+    window found from phase 18's fold at the default D."""
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.fold import seasonal_ice_area
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
+
+    basins_mod = sys.modules["energybalancemodel_jl_tpu_torch.basins"]
+    st = ebt.SpaceTime.sin(*CANONICAL, 1)
+    nx = CANONICAL[0]
+    par = ebt.default_parameters("Classic")
+    i_def = int(np.argmin(np.abs(fold.par["D"] - par["D"])))
+    F_warm = float(fold.values[i_def])  # where the warm branch ends at the default D
+    # the window: levels above F_warm where a warm (E=40) and a cold
+    # (E=-300) state settle more than jump_tol apart, both converged
+    Fs = F_warm + np.linspace(0.0, BISTABLE_SPAN, BISTABLE_SCAN)
+    E_w, E_c = np.full(nx, 40.0), np.full(nx, -300.0)
+    pair = ebt.stack_states([{"E": E, "Tg": E / par["cw"]} for E in (E_w, E_c)])
+    inits = {k: np.repeat(v, BISTABLE_SCAN, axis=0) for k, v in pair.items()}
+    scan = ebt.equilibrate("Classic", st, 0.0, ebt.Collection(par, F=np.tile(Fs, 2)), inits,
+                           tol=EQ_TOL_CLASSIC, max_years=2 * EQ_MAX_YEARS, dtype="float32",
+                           device=dev)
+    area = seasonal_ice_area(scan.seasonal.avg, st).reshape(2, BISTABLE_SCAN)
+    conv = np.asarray(scan.converged).reshape(2, BISTABLE_SCAN).all(0)
+    bistable = conv & (np.abs(area[0] - area[1]) > np.pi / 2)
+    if bistable.sum() < 4:
+        fail(f"phase 19: no bistable window above F={F_warm:.3f}: ice areas warm "
+             f"{area[0].round(2).tolist()} cold {area[1].round(2).tolist()}")
+    idx = np.flatnonzero(bistable)
+    i_mid = int(idx[len(idx) // 2])
+    F_mid = float(Fs[i_mid])
+    settled = [ebt.Collection({k: np.asarray(v)[j] for k, v in scan.state.items()})
+               for j in (i_mid, BISTABLE_SCAN + i_mid)]
+    say(19, f"the Classic bistable window at D={par['D']}: F in [{Fs[idx[0]]:.4f}, "
+            f"{Fs[idx[-1]]:.4f}] ({len(idx)} of {BISTABLE_SCAN} levels above phase 18's fold "
+            f"F={F_warm:.4f}; {scan.years} years); at F={F_mid:.4f} the warm and the cold state "
+            f"settle at ice areas {area[0, i_mid]:.4f} and {area[1, i_mid]:.4f} (jump_tol pi/2)")
+
+    # -- basins of 8192 blends between the two settled states ----------------
+    w = np.linspace(0.0, 1.0, K_MAIN)
+    mapped, wall, launches, kern_s = _timed_run(
+        lambda: ebt.basins("Classic", st, par, ebt.blend_states(*settled, w), forcing=F_mid,
+                           tol=EQ_TOL_CLASSIC, max_years=EQ_MAX_YEARS, dtype="float32",
+                           device=dev),
+        classic_year, "classic_")
+    r = mapped.result
+    if launches != r.years:
+        fail(f"basins: {launches} classic_year launches for {r.years} years")
+    ok = np.asarray(r.converged) & basins_mod._finite_members(r, K_MAIN)
+    if np.any(mapped.labels[ok] < 0) or mapped.n_basins != 2:
+        fail(f"basins: {mapped!r}, the converged members not all labelled into two attractors")
+    switch = int(np.flatnonzero((mapped.labels >= 0) & (mapped.labels != mapped.labels[0]))[0])
+    for i in (0, switch, K_MAIN - 1):
+        solo = ebt.equilibrate("Classic", st, F_mid, par, ebt.blend_states(*settled, w[i]),
+                               tol=0.0, max_years=r.years, dtype="float32", device=dev)
+        one = ebt.Collection({k: np.asarray(v)[i] for k, v in r.state.items()})
+        if not all(np.array_equal(solo.state[k], one[k]) for k in one):
+            fail(f"basins: member {i} differs from its run alone over {r.years} years")
+    out = dict(basins_launches=launches, basins_kernel_ms_per_year=(
+        kern_s / r.years * 1e3 if kern_s is not None else None))
+    say(19, json.dumps(dict(
+        path=f"basins('Classic', SpaceTime.sin(180, 2000, 1), F={F_mid:.4f}, 8192 blends of "
+             "the settled warm and cold states)", K=K_MAIN, dtype="float32",
+        tol=EQ_TOL_CLASSIC, max_years=EQ_MAX_YEARS, years=r.years,
+        converged=int(np.count_nonzero(ok)), centroids=mapped.centroids.tolist(),
+        counts=mapped.counts.tolist(), switch_member=switch, switch_w=float(w[switch]),
+        classic_year_launches=launches, wall_s=wall,
+        member_years_per_day=K_MAIN * r.years / wall * 86400.0,
+        kernel_share=kern_s / wall if kern_s is not None else None, gpu=smi)))
+    say(19, f"basins: members 0, {switch} (the first of the other attractor) and {K_MAIN - 1} "
+            f"equal their runs alone bitwise over {r.years} years")
+
+    # -- edge with the forcing swept across the window ------------------------
+    inner = idx[len(idx) // 10: len(idx) - len(idx) // 10]
+    F_edge = np.linspace(Fs[inner[0]], Fs[inner[-1]], K_MAIN)
+    near = np.abs(F_edge[:, None] - Fs[None, inner]).argmin(1)  # nearest scanned level
+    ends = [{k: np.asarray(v)[off + inner[near]] for k, v in scan.state.items()}
+            for off in (0, BISTABLE_SCAN)]
+    with _SolveLog(basins_mod) as log:
+        tracked, wall, launches, kern_s = _timed_run(
+            lambda: ebt.edge("Classic", st, ebt.Collection(par, F=F_edge), *ends, forcing=0.0,
+                             steps=FOLD_STEPS, tol=EQ_TOL_CLASSIC, max_years=EDGE_MAX_YEARS,
+                             dtype="float32", device=dev),
+            classic_year, "classic_")
+    if launches != sum(log.years):
+        fail(f"edge: {launches} classic_year launches for {sum(log.years)} years")
+    if not np.array_equal(tracked.width, np.full(K_MAIN, 2.0 ** -FOLD_STEPS)):
+        fail(f"edge: final brackets {np.unique(tracked.width)} wide")
+    out.update(edge_launches=launches, edge_kernel_ms_per_year=(
+        kern_s / sum(log.years) * 1e3 if kern_s is not None else None))
+    say(19, json.dumps(dict(
+        path=f"edge('Classic', SpaceTime.sin(180, 2000, 1), F swept over [{F_edge[0]:.4f}, "
+             f"{F_edge[-1]:.4f}], the settled states of the nearest scanned level)",
+        K=K_MAIN, dtype="float32", steps=FOLD_STEPS, tol=EQ_TOL_CLASSIC,
+        max_years=EDGE_MAX_YEARS, solve_years=log.years, classic_year_launches=launches,
+        wall_s=wall, member_years_per_day=K_MAIN * sum(log.years) / wall * 86400.0,
+        kernel_share=kern_s / wall if kern_s is not None else None,
+        probe_finite=int(tracked.probe_finite.sum()),
+        probe_converged=int(tracked.probe_converged.sum()), probes=tracked.in_a.size,
+        w_star_min_max=[float(tracked.values.min()), float(tracked.values.max())], gpu=smi)))
+    return out
+
+
+# phase 20: the solo and eager drivers at diagnostic grids. The dense
+# polish refuses grids past basins._POLISH_UNIT_CAP, and the eager year is
+# launch-bound on the card (PERF.md §5), so these run at the JAX package's
+# own measured configurations, each job in a process of its own
+SEARCH_ST = (8, 1000)          # Classic, F=10: the JAX package's saddle
+SADDLE_GUESS = dict(E=[93.6, 72.2, 18.8, -5.9, -15.2, -38.6, -58.5, -75.0],
+                    Tg=[8.86, 6.67, 1.29, -12.1, -25.7, -38.8, -50.7, -61.3])
+LYA_MIZ = (24, 400, 64, 16)    # nx, nt, K, member_chunk
+BAR_LYA_STAB, BAR_LYA_CPU = 1e-6, 1e-10
+SEARCH_TASKS = ("edge_state", "unstable_branch", "lyapunov icefree", "lyapunov miz cuda",
+                "lyapunov miz cpu")
+
+
+def _attractors(ebt, st, par, dev):
+    """The warm and the snowball attractor of the Classic saddle's
+    configuration (F=10, f64): states and ice areas."""
+    from energybalancemodel_jl_tpu_torch.fold import seasonal_ice_area
+
+    pair = ebt.stack_states([{"E": np.full(st.nx, E), "Tg": np.full(st.nx, E) / par["cw"]}
+                             for E in (40.0, -300.0)])
+    res = ebt.equilibrate("Classic", st, 10.0, par, pair, tol=0.5, max_years=300,
+                          dtype="float64", device=dev)
+    areas = seasonal_ice_area(res.seasonal.avg, st)
+    return [ebt.Collection({k: v[i] for k, v in res.state.items()}) for i in (0, 1)], areas
+
+
+def _search_task(task, miz_init):
+    """One job of phase 20, in a process of its own. Returns a dict, with
+    ``"error"`` when a hold failed."""
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.basins import _residual_fns
+
+    torch.set_num_threads(1)
+    dev = torch.device("cpu") if task.endswith("cpu") else torch.device("cuda", 0)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    st = ebt.SpaceTime.sin(*SEARCH_ST, 1)
+    par = ebt.default_parameters("Classic")
+    out = {}
+    if task == "edge_state":
+        (a, b), areas = _attractors(ebt, st, par, dev)
+        guess = ebt.Collection({k: np.asarray(v) for k, v in SADDLE_GUESS.items()})
+        r = ebt.edge_state("Classic", st, par, ebt.blend_states(guess, a, 0.05),
+                           ebt.blend_states(guess, b, 0.05), forcing=10.0,
+                           refs=tuple(areas), stages=2, commit_years=200, commit_tol=0.5,
+                           polish_max_nfev=10, dtype="float64", device=dev,
+                           stability_kwargs=dict(n_iter=2, dtype="float64"))
+        x0, _, jac, _, _ = _residual_fns("Classic", st, ebt.Forcing(10.0), par, r.state,
+                                         torch.float64, dev)
+        lam = np.sort(np.abs(np.linalg.eigvals(jac(x0) + np.eye(x0.size))))[::-1]
+        out = dict(area=r.area, resid=r.resid, converged=r.converged, nfev=r.polish_nfev,
+                   attractor_areas=areas.tolist(), stability_growth=r.stability.growth,
+                   dense_spectrum=lam[:3].tolist(), stages=r.stages_run,
+                   tracked_years=r.tracked_years.tolist())
+        lo, hi = sorted(areas)
+        if not (r.converged and lo + 0.3 < r.area < hi - 0.3 and lam[0] > 1.0 > lam[1]):
+            out["error"] = (f"edge_state: {r!r}, areas {areas}, the dense spectrum's moduli "
+                            f"{lam[:3]}: not one saddle with exactly one |lambda| > 1")
+    elif task == "unstable_branch":
+        (_, _), areas = _attractors(ebt, st, par, dev)
+        br = ebt.unstable_branch("Classic", st, [10.0, 10.5, 11.0], par,
+                                 {k: np.asarray(v) for k, v in SADDLE_GUESS.items()},
+                                 vary="F", forcing=0.0, polish_max_nfev=4, dtype="float64",
+                                 device=dev)
+        ice = np.asarray(br.ice_area()).reshape(-1)
+        lo, hi = sorted(areas)
+        out = dict(resid=[x.resid for x in br.results], nfev=br.years.tolist(),
+                   converged=br.converged.tolist(), ice_area=ice.tolist(),
+                   attractor_areas=areas.tolist())
+        if not (br.converged.all() and np.all((lo + 0.3 < ice) & (ice < hi - 0.3))):
+            out["error"] = f"unstable_branch: {br!r}, ice areas {ice}, attractors {areas}"
+    elif task == "lyapunov icefree":
+        E0 = np.full(st.nx, 100.0)
+        eq = ebt.equilibrate("Classic", st, 45.0, par, {"E": E0, "Tg": E0 / par["cw"]},
+                             tol=1e-9, max_years=400, dtype="float64", device=dev)
+        # the year map is linear there: the dense Jacobian's leading
+        # eigenvector is the right mode exactly
+        x0, _, jac, from_mat, _ = _residual_fns("Classic", st, ebt.Forcing(45.0), par, eq.state,
+                                                torch.float64, dev)
+        lam, vec = np.linalg.eig(jac(x0) + np.eye(x0.size))
+        i = int(np.argmax(np.abs(lam)))
+        mode = from_mat(np.real(vec[:, i]))
+        kw = dict(side="right", v0=mode, dtype="float64", device=dev)
+        stab = ebt.stability("Classic", st, 45.0, par, eq.state, n_iter=2, **kw)
+        kw.pop("side")
+        ly = ebt.lyapunov("Classic", st, 45.0, par, eq.state, years=2, transient=1, **kw)
+        out = dict(exponent=float(ly.exponents[0]), log_growth=float(np.log(stab.growth)),
+                   log_dense=float(np.log(np.abs(lam[i]))), eq_years=eq.years,
+                   history=ly.history[:, 0].tolist())
+        if not (eq.converged and abs(out["exponent"] - out["log_growth"]) <= BAR_LYA_STAB):
+            out["error"] = f"lyapunov at the ice-free equilibrium: {out}"
+    else:  # lyapunov miz, on the card or on the CPU: the same run
+        nx, nt, K, chunk = LYA_MIZ
+        mpar = ebt.Collection(ebt.default_parameters("MIZ"), F=np.linspace(-5.0, 5.0, K))
+        ly = ebt.lyapunov("MIZ", ebt.SpaceTime.sin(nx, nt, 1), 0.0, mpar, miz_init, years=1,
+                          project=("Ew", "phi"), member_chunk=chunk, dtype="float64",
+                          device=dev)
+        out = dict(history=ly.history, state=ly.state)
+    sync()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def search_phases(dev, smi):
+    """Phases 18-20. Phase 20's CPU job runs beside phases 18-19 (it does
+    not touch the card); its card jobs run beside each other after them, so
+    that phases 18-19 time their kernels alone. Returns the year kernel's
+    launches and times for the kernel table."""
+    import multiprocessing
+
+    import energybalancemodel_jl_tpu_torch as ebt
+
+    nx, nt, K, chunk = LYA_MIZ
+    st = ebt.SpaceTime.sin(nx, nt, 20)
+    sol = ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
+                        ebt.zeros_init(st), dtype="float64", device=dev, progress=False)
+    miz_init = {k: np.array(sol.raw[k][-1]) for k in ("Ei", "Ew", "h", "D", "phi")}
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(len(SEARCH_TASKS)) as pool:
+        cpu_job = pool.apply_async(_search_task, ("lyapunov miz cpu", miz_init))
+        out = phase18(dev, smi)
+        out.update(phase19(dev, smi, out.pop("fold")))
+        t20 = time.perf_counter()
+        card = pool.starmap_async(_search_task, [(t, miz_init) for t in SEARCH_TASKS[:-1]])
+        results = dict(zip(SEARCH_TASKS[:-1], card.get()))
+        results["lyapunov miz cpu"] = cpu_job.get()
+    for task, r in results.items():
+        if "error" in r:
+            fail(f"phase 20 {task}: {r['error']}")
+    e, u, i = results["edge_state"], results["unstable_branch"], results["lyapunov icefree"]
+    say(20, json.dumps(dict(
+        path="edge_state('Classic', SpaceTime.sin(8, 1000), F=10, f64) near the known saddle",
+        **{k: v for k, v in e.items()}, gpu=smi)))
+    say(20, json.dumps(dict(
+        path="unstable_branch('Classic', SpaceTime.sin(8, 1000), F in [10, 10.5, 11], f64)",
+        **u, gpu=smi)))
+    say(20, f"lyapunov('Classic', SpaceTime.sin(8, 1000), F=45, f64) at the ice-free "
+            f"equilibrium ({i['eq_years']} years), from the dense Jacobian's leading mode: "
+            f"exponent {i['exponent']:.12f}, stability's log growth {i['log_growth']:.12f} "
+            f"(bar {BAR_LYA_STAB}), the dense eigenvalue's {i['log_dense']:.12f}; "
+            f"{i['wall_s']:.1f} s")
+    a, b = results["lyapunov miz cuda"], results["lyapunov miz cpu"]
+    worst = float(np.max(np.abs(a["history"] - b["history"])))
+    if not (np.isfinite(a["history"]).all() and worst <= BAR_LYA_CPU):
+        fail(f"phase 20 lyapunov MIZ: the card's history differs from the CPU's by {worst:.3e}")
+    say(20, f"lyapunov('MIZ', SpaceTime.sin({nx}, {nt}), K={K}, member_chunk={chunk}, "
+            f"project=('Ew', 'phi'), f64, 1 year) on the card equals the CPU's to {worst:.3e} "
+            f"(bar {BAR_LYA_CPU}); card {a['wall_s']:.1f} s, CPU {b['wall_s']:.1f} s")
+    say(20, f"phases 18-20: {time.perf_counter() - t0:.1f} s wall (phase 20's card jobs "
+            f"{time.perf_counter() - t20:.1f} s: "
+            + ", ".join(f"{t} {r['wall_s']:.1f} s" for t, r in results.items()) + ")")
+    return out
 
 
 def main():
@@ -1487,6 +1875,7 @@ def main():
                             kernel_ms_per_call=draw_ms, plain_ms_per_call=draw_plain_ms, gpu=smi)))
 
     eq_run = equilibrium_phases(dev, smi)
+    search_run = search_phases(dev, smi)
 
     # -- the least time the card could take for each kernel's work ------------
     # NVIDIA's H100 SXM data sheet (dense rates, 700 W):
@@ -1590,7 +1979,14 @@ def main():
               shape=year_shape, path="ensemble_integrate (phase 8)",
               launches_equilibrate=eq_run["classic"]["launches"],
               equilibrate_kernel_ms_per_year=eq_run["classic"]["kernel_ms_per_year"],
-              equilibrate_wall_ms_per_year=eq_run["classic"]["wall_ms_per_year"]),
+              equilibrate_wall_ms_per_year=eq_run["classic"]["wall_ms_per_year"],
+              # the search drivers' path (phases 18, 19): one launch per year
+              launches_fold=search_run["launches"],
+              fold_kernel_ms_per_year=search_run["kernel_ms_per_year"],
+              launches_basins=search_run["basins_launches"],
+              basins_kernel_ms_per_year=search_run["basins_kernel_ms_per_year"],
+              launches_edge=search_run["edge_launches"],
+              edge_kernel_ms_per_year=search_run["edge_kernel_ms_per_year"]),
         entry("pcr_fused", "pcr.cu", "energybalancemodel_jl_tpu/ops/pallas_tridiag.py:29",
               solver_launches["pcr_fused"], pcr_err, pcr_ms, pcr_plain_ms,
               bound(4 * 5 * K * nx, K * nx * pcr_flops), pcr_library_ms,
@@ -1635,7 +2031,7 @@ def main():
                 shape=year_shape.replace("float32", "float64") if f64 else year_shape,
                 path=("transitions (phase 13)" if launches_of.get(mode, 0)
                       else "none: an ops-level mode, no entry point uses it")))
-    say(17, f"total {time.perf_counter() - t_start:.0f} s")
+    say(20, f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,10 @@ reference the port is tested against::
 The equilibrium layer around it (``equilibrate``, ``continuation``,
 ``stability``, ``sensitivity``, ``calibrate``) differentiates the eager year
 where it needs gradients: the MIZ Newton root carries an implicit-function
-VJP (``models/miz.py::_NewtonRoot``).
+VJP (``models/miz.py::_NewtonRoot``). The search and spectra drivers
+(``fold``, ``basins``, ``edge``, ``edge_state``, ``unstable_branch``,
+``lyapunov``) bisect over lockstep ``equilibrate`` ensembles, polish saddles
+and propagate tangents on the same two paths.
 
 Every entry point runs on the CUDA device unless ``device="cpu"`` is passed
 (with no CUDA device, ``device=None`` raises). The package imports ``torch``
@@ -53,12 +56,16 @@ from __future__ import annotations
 
 import numpy as _np
 
+from .basins import (BasinResult, EdgeResult, EdgeStateResult, basins, blend_states, edge,
+                     edge_state, stack_states, unstable_branch)
 from .calibrate import CalibrationResult, calibrate
 from .convert import from_numpy, to_numpy
 from .equilibrium import (ContinuationResult, EquilibriumResult, StabilityResult, continuation,
                           equilibrate, stability)
+from .fold import FoldResult, fold
 from .forcing import Forcing
 from .integrate import integrate
+from .lyapunov import LyapunovResult, lyapunov
 from .parallel.ensemble import (EnsembleSolutions, batched_parameters,
                                 ensemble_integrate, sweep)
 from .params import classic_paramset, default_parameters, default_parval, miz_paramset
@@ -68,6 +75,9 @@ from .spacetime import SpaceTime
 from .stochastic import TransitionResult, transitions
 from .utils import Collection, Progress, update
 from .utils.numerics import crossmean, hemispheric_mean
+
+# The reference's `Vec` alias (EnergyBalanceModel.jl src/infrastructure.jl:13)
+Vec = _np.ndarray
 
 
 def zeros_init(st, model: str = "MIZ") -> Collection:
@@ -80,6 +90,7 @@ def zeros_init(st, model: str = "MIZ") -> Collection:
 
 
 __all__ = [
+    "Vec",
     "Collection",
     "SpaceTime",
     "Forcing",
@@ -102,6 +113,19 @@ __all__ = [
     "SensitivityResult",
     "calibrate",
     "CalibrationResult",
+    "fold",
+    "FoldResult",
+    "basins",
+    "BasinResult",
+    "edge",
+    "EdgeResult",
+    "edge_state",
+    "EdgeStateResult",
+    "unstable_branch",
+    "stack_states",
+    "blend_states",
+    "lyapunov",
+    "LyapunovResult",
     "crossmean",
     "hemispheric_mean",
     "default_parameters",

@@ -845,7 +845,9 @@ def stability(
             raise ValueError(
                 f"v0 leaves {sorted(bad)} missing or mis-shaped; expected "
                 f"{ {k: want[k] for k in sorted(want)} }")
-        v0 = Collection({k: _as_tensor(v0[k], dtype, device) for k in want})
+        # numpy leaves are copied: another package's results may be read-only
+        v0 = Collection({k: _as_tensor(v0[k] if torch.is_tensor(v0[k]) else np.array(v0[k]),
+                                       dtype, device) for k in want})
         v, _ = prep(v0, fallback=rand)
     else:
         v, _ = prep(rand)
