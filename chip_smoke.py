@@ -4,7 +4,7 @@ run through its hand-written kernels.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc::
 
-    python3 chip_smoke.py           # about sixteen minutes on an H100
+    python3 chip_smoke.py           # about seventeen minutes on an H100
 
 Phases (any failure exits non-zero, and no phase carries on past its own
 failure):
@@ -108,7 +108,20 @@ failure):
     log growth (1e-6), and a MIZ ``lyapunov`` (``SpaceTime.sin(24, 400)``,
     K=64, ``member_chunk=16``, ``project=("Ew", "phi")``) on the card
     against the same run on the CPU (1e-10, that job beside phases 18-19);
-    the script's total seconds.
+21. checkpoints on the main paths, each run interrupted by a writer that
+    raises once the chosen year is on disk, then resumed: the phase 4
+    ensemble over 4 years (a checkpoint every year, interrupted after year
+    2), a Classic ``integrate`` single run over 3 years under a
+    warming-cooling ramp (the block build, interrupted after year 1), and a
+    Picard ``equilibrate`` of 8192 MIZ members over 8 years (tol 0,
+    interrupted after year 4); each resume makes exactly the remaining
+    years' launches, and its final carry (the Newton warm start ``T0``
+    included) and every seasonal store equal the uninterrupted run's
+    bitwise; then ``save`` and ``load`` of the ensemble's and
+    ``equilibrate``'s results (every array bitwise), and ``plot_avg`` and
+    ``plot_seasonal`` of the Classic run to PNG under Agg where matplotlib
+    is installed; each checkpoint write's seconds and file size; the
+    script's total seconds.
 
 The line before the last is the kernel table as JSON (each kernel's time,
 plain time, launches on its path, the least time the card could take for its
@@ -1004,6 +1017,224 @@ def search_phases(dev, smi):
     return out
 
 
+# phase 21: checkpoints on the main paths. The MIZ ensemble and the Picard
+# equilibrate at the main path's width, the Classic single run on the block
+# build; each interrupted by a writer that raises once the chosen year is on
+# disk, then resumed
+CKPT_YEARS = 4  # the ensemble's years; interrupted after 2
+CKPT_CLASSIC_YEARS = 3  # the Classic run's; interrupted after 1
+CKPT_EQ_YEARS = 8  # equilibrate's max_years (tol 0: all of them); interrupted after 4
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def _checkpointed(mod, name, years_of, run, stop):
+    """Run ``run()`` with the checkpoint writer ``mod.name`` wrapped: each
+    write's seconds and file size are logged, and once the write whose
+    ``years_of(args)`` equals ``stop`` is on disk the run is interrupted
+    (``stop=None``: never). Returns (the result, or None when interrupted;
+    the log)."""
+    import os
+
+    orig, log = getattr(mod, name), []
+
+    def write(*args):
+        t0 = time.perf_counter()
+        out = orig(*args)
+        years = years_of(args)
+        log.append((years, time.perf_counter() - t0, os.path.getsize(args[0])))
+        if years == stop:
+            raise _Interrupted
+        return out
+
+    setattr(mod, name, write)
+    try:
+        res = run()
+    except _Interrupted:
+        res = None
+    finally:
+        setattr(mod, name, orig)
+    if stop is not None and res is not None:
+        fail(f"phase 21: the run was not interrupted after year {stop}")
+    return res, log
+
+
+def _writes(log):
+    return ", ".join(f"year {y}: {s:.3f} s {b / 2**20:.1f} MiB" for y, s, b in log)
+
+
+def _same_tree(a, b, what):
+    """Bitwise equality of two (nested) results of numpy arrays, NaNs at the
+    same places."""
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            fail(f"phase 21 {what}: keys differ")
+        for k in a:
+            _same_tree(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{what}[{i}]")
+    elif not np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True):
+        fail(f"phase 21 {what}: the resumed run differs from the uninterrupted one")
+
+
+def checkpoint_phase(dev, smi):
+    """Phase 21. Returns the resumes' launches for the kernel table."""
+    import os
+    import tempfile
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch import checkpoint as ckpt
+    from energybalancemodel_jl_tpu_torch.utils.hdf5 import lite
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import miz_year
+
+    t_phase = time.perf_counter()
+    say(21, "HDF5 files written and read by " + (
+        "the port's numpy-only module (energybalancemodel_jl_tpu_torch/utils/hdf5.py): "
+        "h5py is not installed here" if ckpt.h5py is lite else f"h5py {ckpt.h5py.__version__}"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the MIZ ensemble, f32, fused, D swept, a checkpoint every year
+        st = ebt.SpaceTime.sin(*CANONICAL, CKPT_YEARS)
+        par = ebt.default_parameters("MIZ")
+        par["D"] = np.linspace(0.55, 0.65, K_MAIN)
+
+        def ens(path, **kw):
+            return ebt.ensemble_integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
+                                          engine="fused", dtype="float32", device=dev,
+                                          checkpoint=path, progress=False, **kw)
+
+        years_of = lambda args: args[2]
+        ref_path, path = os.path.join(tmp, "ens_ref.h5"), os.path.join(tmp, "ens.h5")
+        full, ref_log = _checkpointed(ckpt, "write_checkpoint", years_of,
+                                      lambda: ens(ref_path, checkpoint_every=CKPT_YEARS), None)
+        _, cut_log = _checkpointed(ckpt, "write_checkpoint", years_of,
+                                   lambda: ens(path, checkpoint_every=1), 2)
+        miz_year.launches = 0
+        resumed, res_log = _checkpointed(ckpt, "write_checkpoint", years_of,
+                                         lambda: ens(path, checkpoint_every=1, resume=True),
+                                         None)
+        ens_launches = miz_year.launches
+        if ens_launches != CKPT_YEARS - 2:
+            fail(f"phase 21 (a): the resume made {ens_launches} miz_year launches, "
+                 f"expected {CKPT_YEARS - 2}")
+        carry_ref, carry = ckpt.read_checkpoint(ref_path)[0], ckpt.read_checkpoint(path)[0]
+        _same_tree(carry, carry_ref, "(a) final carry")
+        if "T0" not in carry:
+            fail("phase 21 (a): the checkpointed carry lacks the Newton warm start T0")
+        _same_tree(tuple(resumed.seasonal), tuple(full.seasonal), "(a) seasonal")
+        say(21, f"(a) ensemble_integrate MIZ K={K_MAIN} {st!r} f32 fused, D swept: "
+                f"interrupted after year 2, resumed with {ens_launches} miz_year launches; "
+                f"final carry ({', '.join(sorted(carry))}) and every seasonal store bitwise "
+                f"the uninterrupted run's. Checkpoint writes (seconds, file size): "
+                f"interrupted run {_writes(cut_log)}; resume {_writes(res_log)}; "
+                f"uninterrupted run, one write {_writes(ref_log)}; {smi}")
+        out["ens"] = dict(launches=ens_launches)
+
+        # (b) the Classic single run, block build, a warming-cooling ramp
+        cst = ebt.SpaceTime.sin(*CANONICAL, CKPT_CLASSIC_YEARS)
+        cpar = ebt.default_parameters("Classic")
+        E0 = np.full(cst.nx, 30.0)
+        ramp = ebt.Forcing(0.0, 2.0, -2.0, (0, 0), (2.0, -2.0))
+
+        def classic(path, **kw):
+            return ebt.integrate("Classic", cst, ramp, cpar, {"E": E0, "Tg": E0 / cpar["cw"]},
+                                 dtype="float32", device=dev, checkpoint=path, progress=False,
+                                 **kw)
+
+        cref, cpath = os.path.join(tmp, "classic_ref.h5"), os.path.join(tmp, "classic.h5")
+        cfull, _ = _checkpointed(ckpt, "write_checkpoint", years_of,
+                                 lambda: classic(cref, checkpoint_every=CKPT_CLASSIC_YEARS), None)
+        _, ccut = _checkpointed(ckpt, "write_checkpoint", years_of, lambda: classic(cpath), 1)
+        classic_year.launches = 0
+        cres, cres_log = _checkpointed(ckpt, "write_checkpoint", years_of,
+                                       lambda: classic(cpath, resume=True), None)
+        classic_launches = classic_year.launches
+        if classic_launches != CKPT_CLASSIC_YEARS - 1:
+            fail(f"phase 21 (b): the resume made {classic_launches} classic_year launches, "
+                 f"expected {CKPT_CLASSIC_YEARS - 1}")
+        _same_tree(ckpt.read_checkpoint(cpath)[0], ckpt.read_checkpoint(cref)[0],
+                   "(b) final carry")
+        _same_tree(tuple(cres.seasonal), tuple(cfull.seasonal), "(b) seasonal")
+        _same_tree(cres.raw, cfull.raw, "(b) raw")
+        say(21, f"(b) integrate Classic K=1 {cst!r} f32 (block build), a warming-cooling "
+                f"ramp: interrupted after year 1, resumed with {classic_launches} classic_year "
+                f"launches; final carry, raw year and seasonal stores bitwise. Writes: "
+                f"{_writes(ccut + cres_log)}")
+        out["classic"] = dict(launches=classic_launches)
+
+        # (c) equilibrate, Picard, F swept as phase 15, all CKPT_EQ_YEARS years
+        est = ebt.SpaceTime.sin(*CANONICAL, 1)
+        epar = ebt.default_parameters("MIZ")
+        epar["F"] = np.linspace(-10.0, 10.0, K_MAIN)
+
+        def equil(**kw):
+            return ebt.equilibrate("MIZ", est, 0.0, epar, ebt.zeros_init(est), tol=0.0,
+                                   max_years=CKPT_EQ_YEARS, dtype="float32", device=dev, **kw)
+
+        efull = equil()
+        epath = os.path.join(tmp, "eq.h5")
+        eq_years = lambda args: args[3]
+        _, ecut = _checkpointed(ckpt, "write_eq_checkpoint", eq_years,
+                                lambda: equil(checkpoint=epath), CKPT_EQ_YEARS // 2)
+        miz_year.launches = 0
+        eres, eres_log = _checkpointed(ckpt, "write_eq_checkpoint", eq_years,
+                                       lambda: equil(checkpoint=epath, resume=True), None)
+        eq_launches = miz_year.launches
+        if eq_launches != CKPT_EQ_YEARS // 2 or eres.years != CKPT_EQ_YEARS:
+            fail(f"phase 21 (c): the resume made {eq_launches} miz_year launches to year "
+                 f"{eres.years}, expected {CKPT_EQ_YEARS // 2} to {CKPT_EQ_YEARS}")
+        for name in ("state", "seasonal", "resid", "member_years"):
+            _same_tree(getattr(eres, name), getattr(efull, name), f"(c) {name}")
+        say(21, f"(c) equilibrate MIZ K={K_MAIN} canonical f32 Picard, F swept over [-10, 10], "
+                f"tol 0, max_years {CKPT_EQ_YEARS}: interrupted after year {CKPT_EQ_YEARS // 2}, "
+                f"resumed with {eq_launches} miz_year launches; state, seasonal stores, "
+                f"residuals and member years bitwise. Writes: {_writes(ecut + eres_log)}")
+        out["eq"] = dict(launches=eq_launches)
+
+        # (d) files and plots
+        for name, obj in (("EnsembleSolutions", resumed), ("EquilibriumResult", eres)):
+            fpath = os.path.join(tmp, f"{name}.h5")
+            t0 = time.perf_counter()
+            ebt.save(obj, fpath)
+            back = ebt.load(fpath)
+            dt = time.perf_counter() - t0
+            if type(back).__name__ != name:
+                fail(f"phase 21 (d): {name} loaded as {type(back).__name__}")
+            fields = (("seasonal", "parameters") if name == "EnsembleSolutions"
+                      else ("state", "seasonal", "resid", "member_years"))
+            for field in fields:
+                _same_tree(getattr(back, field), getattr(obj, field), f"(d) {name}.{field}")
+            say(21, f"(d) save + load of {name}: every array bitwise; "
+                    f"{os.path.getsize(fpath) / 2**20:.1f} MiB in {dt:.2f} s")
+        try:
+            import matplotlib
+        except ImportError:
+            say(21, "(d) plot_avg and plot_seasonal not drawn: matplotlib is not installed "
+                    "here (tests/test_torch_plot.py holds every plot against the JAX "
+                    "package's on the CPU)")
+            say(21, f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+            return out
+        matplotlib.use("Agg", force=True)
+        sizes = []
+        for fn in (ebt.plot_avg, ebt.plot_seasonal):
+            png = os.path.join(tmp, f"{fn.__name__}.png")
+            ebt.save(fn(cres), png)
+            with open(png, "rb") as f:
+                if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                    fail(f"phase 21 (d): {fn.__name__} wrote no PNG")
+            sizes.append(f"{fn.__name__} {os.path.getsize(png)} bytes")
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+        say(21, f"(d) {', '.join(sizes)} of (b)'s Solutions under Agg")
+    say(21, f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1876,6 +2107,7 @@ def main():
 
     eq_run = equilibrium_phases(dev, smi)
     search_run = search_phases(dev, smi)
+    ckpt_run = checkpoint_phase(dev, smi)
 
     # -- the least time the card could take for each kernel's work ------------
     # NVIDIA's H100 SXM data sheet (dense rates, 700 W):
@@ -1970,7 +2202,9 @@ def main():
               launches_equilibrate=eq_run["miz"]["launches"],
               equilibrate_kernel_ms_per_year=eq_run["miz"]["kernel_ms_per_year"],
               equilibrate_wall_ms_per_year=eq_run["miz"]["wall_ms_per_year"],
-              launches_continuation=eq_run["continuation_launches"]),
+              launches_continuation=eq_run["continuation_launches"],
+              # phase 21: the resumes of the checkpointed ensemble and equilibrate
+              launches_checkpoint=ckpt_run["ens"]["launches"] + ckpt_run["eq"]["launches"]),
         entry("classic_year", "classic_year.cu", f"{py}:1628", classic_launches, max(wcl.values()),
               ctiming[torch.float32, K_MAIN][0], ctiming[torch.float32, K_MAIN][1],
               year_bound("Classic", "det"), also_replaces=f"{py}:1378",
@@ -1986,7 +2220,9 @@ def main():
               launches_basins=search_run["basins_launches"],
               basins_kernel_ms_per_year=search_run["basins_kernel_ms_per_year"],
               launches_edge=search_run["edge_launches"],
-              edge_kernel_ms_per_year=search_run["edge_kernel_ms_per_year"]),
+              edge_kernel_ms_per_year=search_run["edge_kernel_ms_per_year"],
+              # phase 21: the resume of the checkpointed single run
+              launches_checkpoint=ckpt_run["classic"]["launches"]),
         entry("pcr_fused", "pcr.cu", "energybalancemodel_jl_tpu/ops/pallas_tridiag.py:29",
               solver_launches["pcr_fused"], pcr_err, pcr_ms, pcr_plain_ms,
               bound(4 * 5 * K * nx, K * nx * pcr_flops), pcr_library_ms,
@@ -2031,7 +2267,7 @@ def main():
                 shape=year_shape.replace("float32", "float64") if f64 else year_shape,
                 path=("transitions (phase 13)" if launches_of.get(mode, 0)
                       else "none: an ops-level mode, no entry point uses it")))
-    say(20, f"total {time.perf_counter() - t_start:.0f} s")
+    say(21, f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,9 +48,21 @@ VJP (``models/miz.py::_NewtonRoot``). The search and spectra drivers
 ``lyapunov``) bisect over lockstep ``equilibrate`` ensembles, polish saddles
 and propagate tangents on the same two paths.
 
+Results persist as the JAX package's HDF5 files (``save``, ``load``,
+``load_into``; JLD2 in :mod:`.io_jld2`), long runs checkpoint and resume
+bit-exactly (``checkpoint=``/``resume=`` of ``integrate``,
+``ensemble_integrate``, ``equilibrate``, ``continuation``, ``fold`` and
+``edge``; :mod:`.checkpoint`), and the reference's plots draw with
+matplotlib (:mod:`.plot`)::
+
+    sols = ebt.integrate("MIZ", st, ebt.Forcing(0.0), par, ebt.zeros_init(st),
+                         checkpoint="run.ckpt.h5", checkpoint_every=5)
+    ebt.save(sols, "miz.h5")  # loads in either package
+    fig = ebt.plot_avg(ebt.load("miz.h5"))
+
 Every entry point runs on the CUDA device unless ``device="cpu"`` is passed
-(with no CUDA device, ``device=None`` raises). The package imports ``torch``
-and numpy only, never ``jax``.
+(with no CUDA device, ``device=None`` raises). The package imports ``torch``,
+numpy, h5py and (for plots, when drawn) matplotlib, never ``jax``.
 """
 from __future__ import annotations
 
@@ -73,8 +85,12 @@ from .solutions import Seasonal, Solutions, annual_mean
 from .sensitivity import SensitivityResult, sensitivity
 from .spacetime import SpaceTime
 from .stochastic import TransitionResult, transitions
-from .utils import Collection, Progress, update
+from .utils import Collection, Progress, house, retrieve, safehouse, update
 from .utils.numerics import crossmean, hemispheric_mean
+from .io import load, load_into, save, unsafeload, unsafesave
+from .plot import (Layout, backend, plot_avg, plot_basins, plot_bifurcation, plot_continuation,
+                   plot_edge, plot_fold, plot_lyapunov, plot_raw, plot_seasonal,
+                   plot_sensitivity, plot_transitions)
 
 # The reference's `Vec` alias (EnergyBalanceModel.jl src/infrastructure.jl:13)
 Vec = _np.ndarray
@@ -128,6 +144,27 @@ __all__ = [
     "LyapunovResult",
     "crossmean",
     "hemispheric_mean",
+    "safehouse",
+    "house",
+    "retrieve",
+    "save",
+    "load",
+    "load_into",
+    "unsafesave",
+    "unsafeload",
+    "Layout",
+    "backend",
+    "plot_raw",
+    "plot_avg",
+    "plot_seasonal",
+    "plot_bifurcation",
+    "plot_continuation",
+    "plot_fold",
+    "plot_edge",
+    "plot_basins",
+    "plot_sensitivity",
+    "plot_lyapunov",
+    "plot_transitions",
     "default_parameters",
     "default_parval",
     "miz_paramset",

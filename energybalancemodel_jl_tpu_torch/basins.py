@@ -26,8 +26,8 @@ classified by its final state anyway and flagged in ``probe_converged``; a
 probe whose state goes non-finite keeps its bracket that step, is flagged in
 ``probe_finite``, and later probes of that member step off-centre.
 
-Not ported yet: ``edge``'s ``checkpoint=``/``resume=`` (ROADMAP Queue 1 M9)
-raise ``NotImplementedError``.
+``edge``'s ``checkpoint=``/``resume=`` record the search after every step and
+resume it bit-exactly (:mod:`.checkpoint`, the JAX package's files and keys).
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ import torch
 
 from .convert import to_numpy
 from .equilibrium import (ContinuationResult, EquilibriumResult, StabilityResult, _level_config,
-                          _not_ported, equilibrate, stability)
+                          _needs_path, equilibrate, stability)
 from .fold import seasonal_ice_area
 from .forcing import Forcing
 from .integrate import (_as_tensor, _fused_single_year, auto_is_fused, default_dtype,
@@ -375,8 +375,15 @@ def edge(
     ``"F"``) sweep a second parameter across members; ``a``/``b`` may be
     shared (1-D leaves) or per member (``(K, nx)``). Other keywords pass to
     :func:`equilibrate`.
+
+    ``checkpoint=`` names a file that records the search after the two
+    endpoint solves and after every step (the endpoint attractors, their
+    reference areas, the brackets and the histories); ``resume=True``
+    replays the remaining steps bit-exactly and never repeats the endpoint
+    solves. The key (the JAX package's, :func:`.checkpoint.search_key`)
+    leaves out ``steps``, so a resume may extend a refinement; a file of
+    another search warns and starts fresh.
     """
-    _not_ported(checkpoint=checkpoint, resume=resume)
     if not isinstance(forcing, Forcing):
         forcing = Forcing(float(forcing))
     if not forcing.constant:
@@ -408,10 +415,45 @@ def edge(
         v = seasonal_ice_area(getattr(res.seasonal, season), st)
         return np.broadcast_to(np.atleast_1d(v), (K,)).astype(np.float64)
 
+    key = None
+    if _needs_path(checkpoint, resume):
+        from . import checkpoint as ckpt_mod
+
+        # steps deliberately left out: a resume may extend the refinement
+        key = ckpt_mod.search_key(
+            "edge", model, st, forcing, par, equilibrate_kwargs,
+            extras=(f"a#{ckpt_mod.digest_collection(a)}",
+                    f"b#{ckpt_mod.digest_collection(b)}",
+                    f"jt={float(jump_tol)}", f"season={season}",
+                    f"tol={float(tol)}", f"maxy={int(max_years)}"))
+    resumed = None
+    if resume:
+        resumed = ckpt_mod.try_resume_search(checkpoint, key, "EdgeCheckpoint",
+                                             ckpt_mod.read_edge_checkpoint)
+    s_done = 0
+    if resumed is not None:
+        result_a, result_b = resumed["result_a"], resumed["result_b"]
+        ref_a, ref_b = resumed["area_a"], resumed["area_b"]
+        wa = np.asarray(resumed["wa"], dtype=np.float64)
+        wb = np.asarray(resumed["wb"], dtype=np.float64)
+        s_done = int(resumed["history"].shape[0])
+        if s_done >= steps:  # already refined this far: report the slice
+            h = resumed["history"][:steps]
+            return EdgeResult(
+                wa=h[-1, 0], wb=h[-1, 1], history=h, in_a=resumed["in_a"][:steps],
+                probe_converged=resumed["conv"][:steps],
+                probe_finite=resumed["finite"][:steps], area_a=ref_a, area_b=ref_b,
+                a=a, b=b, result_a=result_a, result_b=result_b, spacetime=st,
+                season=season, par=par)
+
     prog = None
     if progress:
-        prog = Progress(2 + steps, title="Edge", infofeed=lambda msg: msg)
-        prog.update(0, feedargs=("equilibrating the a endpoint",))
+        if resumed is not None:
+            total, first = steps - s_done, f"resumed after step {s_done}"
+        else:
+            total, first = 2 + steps, "equilibrating the a endpoint"
+        prog = Progress(total, title="Edge", infofeed=lambda msg: msg)
+        prog.update(0, feedargs=(first,))
     done = [0]
 
     def tick(msg):
@@ -430,30 +472,51 @@ def edge(
                 f"must be trusted; raise max_years")
         return res
 
-    result_a = endpoint(a, "a")
-    tick("a endpoint converged")
-    result_b = endpoint(b, "b")
-    tick("b endpoint converged")
-    ref_a, ref_b = area_of(result_a), area_of(result_b)
-    close = np.flatnonzero(np.abs(ref_a - ref_b) < jump_tol)
-    if close.size:
-        raise ValueError(
-            f"states a and b fall to attractors less than "
-            f"jump_tol={jump_tol:g} apart in ice area for members "
-            f"{close.tolist()} — same basin, or indistinguishable in "
-            f"this diagnostic (try another season= or a smaller "
-            f"jump_tol)")
-    wa = np.zeros(K)
-    wb = np.ones(K)
+    if resumed is None:
+        result_a = endpoint(a, "a")
+        tick("a endpoint converged")
+        result_b = endpoint(b, "b")
+        tick("b endpoint converged")
+        ref_a, ref_b = area_of(result_a), area_of(result_b)
+        close = np.flatnonzero(np.abs(ref_a - ref_b) < jump_tol)
+        if close.size:
+            raise ValueError(
+                f"states a and b fall to attractors less than "
+                f"jump_tol={jump_tol:g} apart in ice area for members "
+                f"{close.tolist()} — same basin, or indistinguishable in "
+                f"this diagnostic (try another season= or a smaller "
+                f"jump_tol)")
+        wa = np.zeros(K)
+        wb = np.ones(K)
 
     history = np.empty((steps, 2, K))
     in_a_hist = np.empty((steps, K), dtype=bool)
     conv_hist = np.empty((steps, K), dtype=bool)
     finite_hist = np.empty((steps, K), dtype=bool)
+    if s_done:
+        history[:s_done] = resumed["history"]
+        in_a_hist[:s_done] = resumed["in_a"]
+        conv_hist[:s_done] = resumed["conv"]
+        finite_hist[:s_done] = resumed["finite"]
     # trailing count of consecutive non-finite probes per member: drives the
-    # off-centre nudge
+    # off-centre nudge; recomputed from the finite history, so a resume
+    # replays the remaining steps bit-exactly
     nonfin_streak = np.zeros(K, dtype=np.int64)
-    for s in range(steps):
+    for s in range(s_done):
+        nonfin_streak = np.where(finite_hist[s], 0, nonfin_streak + 1)
+
+    def write(n):
+        if key is not None:
+            ckpt_mod.write_edge_checkpoint(
+                checkpoint, key, result_a, result_b, ref_a, ref_b, wa, wb, history[:n],
+                in_a_hist[:n], conv_hist[:n], finite_hist[:n])
+
+    if resumed is None:
+        # record the endpoint stage, so an interruption in step 1 does not
+        # repeat its solves on resume
+        write(0)
+
+    for s in range(s_done, steps):
         frac = _NUDGE[np.minimum(nonfin_streak, len(_NUDGE) - 1)]
         mid = wa + frac * (wb - wa)
         probe = solve(blend_states(a, b, mid))
@@ -469,6 +532,7 @@ def edge(
         in_a_hist[s] = in_a
         finite_hist[s] = finite
         conv_hist[s] = (np.broadcast_to(np.atleast_1d(probe.converged), (K,)) & finite)
+        write(s + 1)
         tick(f"step {s + 1}/{steps}: max width {float(np.abs(wb - wa).max()):.4g}")
 
     return EdgeResult(wa=wa, wb=wb, history=history, in_a=in_a_hist,

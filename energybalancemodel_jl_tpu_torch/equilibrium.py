@@ -24,12 +24,15 @@ implicit-function VJP (``models/miz.py::_NewtonRoot``); the CUDA kernels have
 no VJP and refuse inputs that require grad, as the JAX package's Pallas
 kernels have none.
 
-Not ported yet: ``mesh=`` (ROADMAP Queue 1 M14) and checkpoints (M9); those
-arguments raise ``NotImplementedError``.
+``equilibrate`` and ``continuation`` checkpoint and resume through
+:mod:`.checkpoint` (the JAX package's files and keys). Not ported yet:
+``mesh=`` (ROADMAP Queue 1 M14), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import warnings
 from typing import Optional, Sequence, Tuple, Union
 
@@ -55,13 +58,18 @@ __all__ = ["equilibrate", "EquilibriumResult", "make_equilibrium_seasonal_fn",
 _BWD_STALL_ITERS = 30
 
 
-def _not_ported(mesh=None, checkpoint=None, resume=False):
+def _not_ported(mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (members sharded across devices) is not ported yet: ROADMAP "
             "Queue 1 M14")
-    if checkpoint is not None or resume:
-        raise NotImplementedError("checkpoints are not ported yet: ROADMAP Queue 1 M9")
+
+
+def _needs_path(checkpoint, resume):
+    """Whether the driver checkpoints; ``resume=True`` needs a file."""
+    if resume and checkpoint is None:
+        raise ValueError("resume=True needs checkpoint=<path>")
+    return checkpoint is not None
 
 
 def _constant(forcing, what):
@@ -309,11 +317,25 @@ def equilibrate(
 
     ``years_per_dispatch`` is accepted for the JAX package's interface and
     changes nothing: convergence is tested every year, as there.
+
+    ``checkpoint=`` names a file the convergence loop is written to at most
+    every ``checkpoint_every`` simulated years and once at the end;
+    ``resume=True`` re-enters the loop from it (the JAX package's files and
+    keys: model, grid, forcing, parameters, dtype, engine, metric,
+    ``anderson``, ``check_every`` and the Newton cap; ``tol`` and
+    ``max_years`` are left out, so a resume may continue a run to a tighter
+    tolerance or a longer horizon). A file of another run warns and starts
+    from ``init``. Picard resumes bit-exactly: the file holds the loop's
+    carry, the last year's seasonal store and the convergence bookkeeping.
+    An ``anderson > 0`` resume reseeds the acceleration history with one
+    extra simulated year, so it converges to the same tolerance along
+    another iterate sequence.
+
     ``dtype`` defaults to :func:`..integrate.default_dtype`; ``device`` to
     the CUDA device (``"cpu"`` for the CPU). ``st.dur`` is ignored: the
     horizon is ``max_years``.
     """
-    _not_ported(mesh, checkpoint, resume)
+    _not_ported(mesh)
     spec = get_model(model)
     forcing = _constant(forcing, "equilibrate needs constant forcing (equilibria do not "
                                  "exist under a ramp); sweep levels across members via par['F']")
@@ -340,11 +362,13 @@ def equilibrate(
 
     par = Collection(par)
     K_hint = par.pop("__K__", None)
+    par_for_key = Collection(par)  # before the virtual "F" is popped
     K = _ensemble_size(par, init, n_members, K_hint,
                        lambda sizes: "Cannot infer ensemble size; pass n_members")
     ensemble = K is not None
     F_off, forcing = _virtual_F(par, forcing, K)
     cfg = default_step_config(dtype_name(dtype), newton_max_iter=newton_max_iter)
+    checkpointed = _needs_path(checkpoint, resume)
 
     if engine == "auto":
         engine = "fused" if auto_is_fused(spec.name, device, "pcr") else "batched"
@@ -381,19 +405,68 @@ def equilibrate(
             return newton
         return torch.minimum(newton, torch.amin(conv).to(newton.dtype))
 
+    key = None
+    if checkpointed:
+        from . import checkpoint as ckpt_mod
+
+        key = ckpt_mod.config_key(
+            "equilibrate", spec.name, st, forcing, par_for_key, dtype_name(dtype),
+            cfg.solver, newton_max_iter,
+            extras=(f"engine={engine}", f"metric={','.join(metric)}",
+                    f"aa={anderson}", f"ce={check_every}"))
+    loaded = None
+    if resume:
+        if ckpt_mod.checkpoint_matches(checkpoint, key, kind="EqCheckpoint"):
+            loaded = ckpt_mod.read_eq_checkpoint(checkpoint)
+        elif os.path.exists(checkpoint):
+            warnings.warn(f"Checkpoint {checkpoint} does not match this equilibration's "
+                          "configuration; starting from init.")
+
+    def on_device(v, dt=dtype):
+        return torch.as_tensor(np.asarray(v), dtype=dt, device=device).contiguous()
+
     prog = None
     with torch.no_grad():
-        carry_n, seasonal, conv = year(carry)
-        prev = _metric_vec(seasonal, metric)
-        resid = torch.full(prev.shape[:-1], float("inf"), dtype=dtype, device=device)
-        newton = newton_min(torch.ones((), dtype=dtype, device=device), conv)
-        myears = torch.zeros(prev.shape[:-1], dtype=torch.int64, device=device)
-        aa = _Anderson(anderson, carry, carry_n) if anderson else None
-        carry, y = carry_n, 1
+        aa = None
+        if loaded is not None and not anderson:
+            # bit-exact splice: the loop state is the carry, the last
+            # seasonal store and the bookkeeping; no year is re-run
+            c_np, seas_np, y, resid_np, my_np, newton_f, _ = loaded
+            carry = Collection({k: on_device(v) for k, v in c_np.items()})
+            seasonal = Seasonal(*(Collection({k: on_device(v) for k, v in c.items()})
+                                  for c in seas_np))
+            prev = _metric_vec(seasonal, metric)
+            resid = on_device(resid_np)
+            myears = on_device(my_np, torch.int64)
+            newton = on_device(newton_f)
+        else:
+            if loaded is not None:
+                # the acceleration history is not checkpointed: reseed it
+                # with one simulated year from the file's carry, counted
+                carry = Collection({k: on_device(v) for k, v in loaded[0].items()})
+            carry_n, seasonal, conv = year(carry)
+            prev = _metric_vec(seasonal, metric)
+            resid = torch.full(prev.shape[:-1], float("inf"), dtype=dtype, device=device)
+            newton = newton_min(torch.ones((), dtype=dtype, device=device), conv)
+            myears = torch.zeros(prev.shape[:-1], dtype=torch.int64, device=device)
+            aa = _Anderson(anderson, carry, carry_n) if anderson else None
+            carry, y = carry_n, 1
+            if loaded is not None:
+                y = int(loaded[2]) + 1
+                myears = on_device(loaded[4], torch.int64)
+                newton = torch.minimum(newton, on_device(loaded[5]))
+        last_write = y
+
+        def write(years_done):
+            c, s, rs, my, nw = ckpt_mod.fetch_host((carry, seasonal, resid, myears, newton))
+            ckpt_mod.write_eq_checkpoint(checkpoint, c, s, years_done, rs, my,
+                                         float(np.min(np.atleast_1d(nw))), key)
+
         if progress and int(max_years) > 0:
             prog = Progress(int(max_years), title="Equilibrating",
                             infofeed=lambda r: f"max resid {r:.3e} (tol {tol:g})")
-            prog.update(y, feedargs=(float("inf"),))
+            prog.update(min(y, int(max_years)),
+                        feedargs=(float(torch.nan_to_num(resid).max()),))
         while y < int(max_years) and bool(torch.any(resid > tol)):
             if aa is not None:
                 carry, seasonal, conv, runorm = aa.step(carry, year)
@@ -410,9 +483,14 @@ def equilibrate(
             myears = torch.where((resid <= tol) & (myears == 0), y, myears)
             newton = newton_min(newton, conv)
             prev = cur
+            if checkpointed and y - last_write >= int(checkpoint_every):
+                write(y)
+                last_write = y
             if prog is not None:
                 prog.update(min(y, int(max_years)),
                             feedargs=(float(torch.nan_to_num(resid).max()),))
+        if checkpointed and y > last_write:
+            write(y)  # the final state: a resume of a finished run returns it
         if prog is not None:
             prog.total = max(int(y), 1)
             prog.update(prog.total, feedargs=(float(torch.nan_to_num(resid).max()),))
@@ -1027,8 +1105,16 @@ def continuation(
     the constant forcing level (offsets of ``forcing``'s base); any other
     ``vary`` names a ``par`` key. Other keywords (``engine``, ``dtype``,
     ``device``, ``metric``, ...) pass through to :func:`equilibrate`.
+
+    ``checkpoint=`` names a file that records every completed level;
+    ``resume=True`` reloads them and continues from the first unfinished
+    level, warm-started from the last completed state, so the remaining
+    levels are the uninterrupted run's. The key (the JAX package's) covers
+    the model, grid, forcing, parameters, path, ``tol``, ``max_years`` and
+    the pass-through options (``device`` left out, a torch dtype by its
+    numpy name: :func:`.checkpoint.key_kwargs`); a file of another run warns
+    and restarts.
     """
-    _not_ported(checkpoint=checkpoint, resume=resume)
     forcing = _constant(forcing, "continuation needs a constant base forcing")
     values = list(values)
     if not values:
@@ -1045,13 +1131,56 @@ def continuation(
                         infofeed=lambda v, res: f"{vary}={v:g}: {res!r}" if res is not None
                         else "")
         prog.update(0, feedargs=(path[0][0], None))
-    state, results, warned = init, [], False
-    for i, (v, _) in enumerate(path):
+
+    key = None
+    if _needs_path(checkpoint, resume):
+        from . import checkpoint as ckpt_mod
+
+        pv = np.asarray([v for v, _ in path], dtype=np.float64)
+        pd = np.asarray([d for _, d in path], dtype=np.int8)
+        vdig = hashlib.sha1(pv.tobytes() + pd.tobytes()).hexdigest()[:16]
+        kwk = ckpt_mod.key_kwargs(equilibrate_kwargs)
+        kw = ",".join(f"{k}={kwk[k]!r}" for k in sorted(kwk))
+        kdig = hashlib.sha1(kw.encode()).hexdigest()[:16]
+        key = ckpt_mod.config_key(
+            "continuation", model, st, forcing, par,
+            str(kwk.get("dtype", "auto")), "",
+            int(kwk.get("newton_max_iter", 30)),
+            extras=(f"vary={vary}", f"path#{len(path)}:{vdig}",
+                    f"tol={float(tol)}", f"maxy={int(max_years)}",
+                    f"kw={kdig}"))
+
+    state, results, start = init, [], 0
+    n_in_file = None  # levels this run trusts in the file (None: recreate)
+    if resume:
+        try:
+            matches = ckpt_mod.checkpoint_matches(checkpoint, key, kind="ContCheckpoint")
+            loaded = ckpt_mod.read_cont_checkpoint(checkpoint)[0] if matches else None
+        except (OSError, ValueError):  # a torn or corrupt file: start fresh
+            matches, loaded = False, None
+        if matches:
+            results = loaded[:len(path)]
+            start = n_in_file = len(results)
+            if start:
+                state = results[-1].state
+            if prog is not None and start:
+                prog.update(start, feedargs=(path[start - 1][0], results[-1]))
+        elif os.path.exists(checkpoint):
+            warnings.warn(f"Checkpoint {checkpoint} does not match this continuation's "
+                          "configuration; starting from the first level.")
+
+    # a resumed non-finite tail must not re-warn at (and blame) the first
+    # resumed level: the divergence happened at an earlier one
+    warned = start > 0 and not all(np.isfinite(np.asarray(x)).all() for x in state.values())
+    for i, (v, _) in enumerate(path[start:], start=start):
         fc, p = _level_config(vary, forcing, par, v)
         res = equilibrate(model, st, fc, p, state, tol=tol, max_years=max_years,
                           **equilibrate_kwargs)
         results.append(res)
         state = res.state
+        if key is not None:
+            ckpt_mod.write_cont_checkpoint(checkpoint, results, key, n_prev=n_in_file)
+            n_in_file = len(results)
         if not warned and not all(np.isfinite(np.asarray(x)).all() for x in state.values()):
             # once, at the first divergent level: later levels inherit it
             warned = True

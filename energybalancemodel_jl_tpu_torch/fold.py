@@ -19,8 +19,8 @@ every member stepping until all have converged, so the same member in a
 smaller ensemble can stop at another year count and, near its fold, be
 classified differently.
 
-Not ported yet: ``checkpoint=``/``resume=`` (ROADMAP Queue 1 M9) raise
-``NotImplementedError``.
+``checkpoint=``/``resume=`` record the search after every step and resume
+it bit-exactly (:mod:`.checkpoint`, the JAX package's files and keys).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 
-from .equilibrium import EquilibriumResult, _not_ported, equilibrate
+from .equilibrium import EquilibriumResult, _needs_path, equilibrate
 from .forcing import Forcing
 from .spacetime import SpaceTime
 from .utils.collection import Collection
@@ -151,10 +151,19 @@ def fold(
     re-probes ``hi`` once to seed its on-branch reference at the current
     bracket.
 
+    ``checkpoint=`` names a file that records the search after the anchor
+    stage and after every bisection step (the anchor, the brackets, the
+    histories and the classifier's two references: atomic whole-file
+    writes of a few KB); ``resume=True`` reloads it and replays the
+    remaining steps bit-exactly, without the anchor and ``lo`` solves. The
+    key (the JAX package's, :func:`.checkpoint.search_key`) leaves out
+    ``steps``, so a resume may extend a refinement; a file of another
+    search warns and starts fresh. A custom ``predicate`` cannot be
+    fingerprinted: pass the same one when resuming.
+
     Other keywords (``engine``, ``dtype``, ``device``, ``anderson``, ...) pass
     through to :func:`equilibrate`. Returns a :class:`FoldResult`.
     """
-    _not_ported(checkpoint=checkpoint, resume=resume)
     if not isinstance(forcing, Forcing):
         forcing = Forcing(float(forcing))
     if not forcing.constant:
@@ -196,13 +205,50 @@ def fold(
         return equilibrate(model, st, forcing, p, state, tol=tol,
                            max_years=max_years, **equilibrate_kwargs)
 
+    key = None
+    if _needs_path(checkpoint, resume):
+        from . import checkpoint as ckpt_mod
+
+        # steps deliberately left out: a resume may extend the refinement
+        key = ckpt_mod.search_key(
+            "fold", model, st, forcing, par, equilibrate_kwargs,
+            extras=(f"vary={vary}", f"lo#{ckpt_mod.digest_array(lo)}",
+                    f"hi#{ckpt_mod.digest_array(hi)}",
+                    f"jt={float(jump_tol)}", f"season={season}",
+                    f"cl={'default' if default_classifier else 'custom'}",
+                    f"chk={bool(check_lo)}", f"tol={float(tol)}",
+                    f"maxy={int(max_years)}"))
+    resumed = None
+    if resume:
+        resumed = ckpt_mod.try_resume_search(checkpoint, key, "FoldCheckpoint",
+                                             ckpt_mod.read_fold_checkpoint)
+        if resumed is not None and default_classifier and resumed["ref_on"] is None:
+            resumed = None  # references missing: unusable for this classifier
+    s_done = 0
+    if resumed is not None:
+        # the file holds everything a probe depends on: skip the anchor
+        # solve, the hi re-probe and the lo check
+        anchor = resumed["anchor"]
+        lo = np.asarray(resumed["lo"], dtype=np.float64)
+        hi = np.asarray(resumed["hi"], dtype=np.float64)
+        s_done = int(resumed["history"].shape[0])
+        if s_done >= steps:  # already refined this far: report the slice
+            h = resumed["history"][:steps]
+            return FoldResult(lo=h[-1, 0], hi=h[-1, 1], history=h,
+                              survived=resumed["survived"][:steps],
+                              probe_converged=resumed["conv"][:steps],
+                              vary=vary, anchor=anchor, spacetime=st, par=par)
+
     prog = None
     if progress:
-        total = (int(anchor is None) + int(anchor is not None and default_classifier)
-                 + int(bool(check_lo)) + steps)
+        if resumed is not None:
+            total, first = steps - s_done, f"resumed after step {s_done}"
+        else:
+            total = (int(anchor is None) + int(anchor is not None and default_classifier)
+                     + int(bool(check_lo)) + steps)
+            first = "anchoring the branch at hi" if anchor is None else "anchor reused"
         prog = Progress(total, title=f"Fold ({vary})", infofeed=lambda msg: msg)
-        prog.update(0, feedargs=("anchoring the branch at hi" if anchor is None
-                                 else "anchor reused",))
+        prog.update(0, feedargs=(first,))
     done = [0]
 
     def tick(msg):
@@ -211,51 +257,54 @@ def fold(
             prog.update(done[0], feedargs=(msg,))
 
     ref_on = ref_off = None
-    fresh_anchor = anchor is None
-    if fresh_anchor:
-        anchor = solve(hi, init)
+    if resumed is not None:
+        ref_on, ref_off = resumed["ref_on"], resumed["ref_off"]
     else:
-        a_shape = np.shape(next(iter(anchor.state.values())))
-        if len(a_shape) > 1 and a_shape[0] != K:
-            raise ValueError(
-                f"reused anchor carries {a_shape[0]} members, the "
-                f"search has {K}")
-    if not np.all(anchor.converged):
-        bad = np.flatnonzero(~np.atleast_1d(anchor.converged))
-        raise ValueError(
-            f"anchor equilibration at hi did not converge for members "
-            f"{bad.tolist()} ({anchor!r}) — the branch reference state "
-            f"must be trusted; raise max_years or move hi")
-    if fresh_anchor:
-        tick("anchor converged")
-
-    if default_classifier:
+        fresh_anchor = anchor is None
         if fresh_anchor:
-            ref_on = area_of(anchor)
+            anchor = solve(hi, init)
         else:
-            # a reused anchor may sit far up the branch: seed the on-branch
-            # reference from a probe at the current hi, or a stale reference
-            # near the fold misclassifies every refinement probe
-            ref_on = area_of(solve(hi, anchor.state))
-            tick("hi re-probed for the on-branch reference")
-    if check_lo:
-        probe = solve(lo, anchor.state)
+            a_shape = np.shape(next(iter(anchor.state.values())))
+            if len(a_shape) > 1 and a_shape[0] != K:
+                raise ValueError(
+                    f"reused anchor carries {a_shape[0]} members, the "
+                    f"search has {K}")
+        if not np.all(anchor.converged):
+            bad = np.flatnonzero(~np.atleast_1d(anchor.converged))
+            raise ValueError(
+                f"anchor equilibration at hi did not converge for members "
+                f"{bad.tolist()} ({anchor!r}) — the branch reference state "
+                f"must be trusted; raise max_years or move hi")
+        if fresh_anchor:
+            tick("anchor converged")
+
         if default_classifier:
-            ref_off = area_of(probe)
-            still = np.flatnonzero(np.abs(ref_off - ref_on) < jump_tol)
-            msg = (f"ice-area separation between the hi and lo states "
-                   f"is below jump_tol={jump_tol:g} for members "
-                   "{m} — either the branch still survives at lo, or "
-                   "the two attractors are indistinguishable in ice "
-                   "area (pass predicate= for a different diagnostic)")
-        else:
-            still = np.flatnonzero(np.atleast_1d(predicate(probe, anchor)))
-            msg = ("the branch still survives at lo for members {m} — "
-                   "the fold is not inside [lo, hi]; widen the "
-                   "bracket (or the branch has no fold there)")
-        if still.size:
-            raise ValueError(msg.format(m=still.tolist()))
-        tick("lo verified off-branch")
+            if fresh_anchor:
+                ref_on = area_of(anchor)
+            else:
+                # a reused anchor may sit far up the branch: seed the on-branch
+                # reference from a probe at the current hi, or a stale reference
+                # near the fold misclassifies every refinement probe
+                ref_on = area_of(solve(hi, anchor.state))
+                tick("hi re-probed for the on-branch reference")
+        if check_lo:
+            probe = solve(lo, anchor.state)
+            if default_classifier:
+                ref_off = area_of(probe)
+                still = np.flatnonzero(np.abs(ref_off - ref_on) < jump_tol)
+                msg = (f"ice-area separation between the hi and lo states "
+                       f"is below jump_tol={jump_tol:g} for members "
+                       "{m} — either the branch still survives at lo, or "
+                       "the two attractors are indistinguishable in ice "
+                       "area (pass predicate= for a different diagnostic)")
+            else:
+                still = np.flatnonzero(np.atleast_1d(predicate(probe, anchor)))
+                msg = ("the branch still survives at lo for members {m} — "
+                       "the fold is not inside [lo, hi]; widen the "
+                       "bracket (or the branch has no fold there)")
+            if still.size:
+                raise ValueError(msg.format(m=still.tolist()))
+            tick("lo verified off-branch")
 
     def classify(probe):
         nonlocal ref_on, ref_off
@@ -273,7 +322,22 @@ def fold(
     history = np.empty((steps, 2, K))
     survived_hist = np.empty((steps, K), dtype=bool)
     conv_hist = np.empty((steps, K), dtype=bool)
-    for s in range(steps):
+    if s_done:
+        history[:s_done] = resumed["history"]
+        survived_hist[:s_done] = resumed["survived"]
+        conv_hist[:s_done] = resumed["conv"]
+
+    def write(n):
+        if key is not None:
+            ckpt_mod.write_fold_checkpoint(checkpoint, key, anchor, lo, hi, history[:n],
+                                           survived_hist[:n], conv_hist[:n], ref_on, ref_off)
+
+    if resumed is None:
+        # record the anchor stage, so an interruption in step 1 does not
+        # repeat its solves on resume
+        write(0)
+
+    for s in range(s_done, steps):
         mid = 0.5 * (lo + hi)
         probe = solve(mid, anchor.state)
         survived = classify(probe)
@@ -282,6 +346,7 @@ def fold(
         history[s, 0], history[s, 1] = lo, hi
         survived_hist[s] = survived
         conv_hist[s] = np.broadcast_to(np.atleast_1d(probe.converged), (K,))
+        write(s + 1)
         tick(f"step {s + 1}/{steps}: max width {float(np.abs(hi - lo).max()):.4g}")
 
     return FoldResult(lo=lo, hi=hi, history=history, survived=survived_hist,

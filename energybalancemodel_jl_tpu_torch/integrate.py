@@ -11,15 +11,18 @@ Rebuild of ``integrate`` (EnergyBalanceModel.jl
   on a CPU tensor their plain versions), raw-collected years included.
 
 ``'auto'`` (default) picks ``'fused'`` for MIZ and Classic on a CUDA device,
-in float32 and float64 alike, and ``'scan'`` on the CPU. On a CUDA device it
-never falls back to the eager loop: a run the kernel cannot take raises.
+in float32 and float64 alike, and ``'scan'`` on the CPU, or wherever the run
+asks for what only the scan engine has (a ``debug`` hook, sub-year progress
+ticks), as the JAX package does. On a CUDA device it never falls back to the
+eager loop otherwise: a run the kernel cannot take raises.
 
-Not ported yet: the ``debug`` hook, sub-year progress ticks, checkpoints
-(ROADMAP Queue 1 M9) and profiler traces; those arguments raise
-``NotImplementedError``.
+``checkpoint=``/``resume=`` write and resume mid-run checkpoints
+(:mod:`.checkpoint`: the JAX package's files and keys), ``profile_dir=``
+writes a ``torch.profiler`` trace of the run.
 """
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Callable, Optional
 
@@ -112,18 +115,21 @@ def check_fused(model: str, nx: int, device, solver: str = "pcr",
 
 
 def resolve_engine(model: str, st: SpaceTime, device, engine: str = "auto",
-                   solver: str = "pcr") -> str:
+                   solver: str = "pcr", scan_only: bool = False) -> str:
     """The single-run engine that :func:`integrate` uses: ``'auto'`` is
     ``'fused'`` for MIZ and Classic on a CUDA device and ``'scan'`` on the
     CPU. On a CUDA device ``'auto'`` never falls back to the eager loop: a
     run the kernel cannot take raises ``ValueError`` (:func:`check_fused`:
     ``solver='thomas'``, or a grid too wide), except ``solver='pallas'``,
-    which only the eager engine has, and so resolves to ``'scan'``.
+    which only the eager engine has, and so resolves to ``'scan'``, and
+    ``scan_only`` (the run asks for a feature of the scan engine: the
+    ``debug`` hook or sub-year progress ticks, JAX ``integrate.py:441``).
     ``engine='scan'`` stays the caller's explicit choice."""
     spec = get_model(model)
     device = resolve_device(device)
     if engine == "auto":
-        engine = "fused" if auto_is_fused(spec.name, device, solver) else "scan"
+        engine = ("fused" if auto_is_fused(spec.name, device, solver) and not scan_only
+                  else "scan")
     if engine not in ("scan", "fused"):
         raise ValueError(
             f"unknown engine {engine!r}; expected 'auto', 'scan' or 'fused'"
@@ -139,7 +145,8 @@ def _as_tensor(v, dtype, device):
 
 
 def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
-                 collect_raw: bool, step_hook: Optional[Callable] = None):
+                 collect_raw: bool, step_hook: Optional[Callable] = None,
+                 debug: Optional[Callable] = None):
     """The one-year function ``(carry, par, fyear) -> (carry, seasonal,
     converged, raw_or_None)`` of the scan and batched engines, and the plain
     version of the whole-year kernel: an eager loop over the model's step.
@@ -153,7 +160,10 @@ def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
     additionally stacks every step's outputs along a leading time axis.
     ``converged`` is the minimum of the per-step Newton flags.
     ``step_hook(t, outputs)``, when given, sees every step's outputs (the
-    noisy years' in-year crossing detector).
+    noisy years' in-year crossing detector, ``integrate``'s sub-year
+    progress ticks). ``debug(outputs, par) -> tensor``, when given, is
+    recorded every step as the output ``"debug"`` (stored and averaged like
+    the model's own variables), as in the JAX package.
     """
     spec = get_model(model_name)
     w0 = st.winter_inx - 1  # reference tick indices are 1-based (:573-589)
@@ -169,6 +179,8 @@ def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
             carry, out = spec.step(carry, spec.step_inputs(stat, f, t), stat,
                                    par, cfg)
             out = Collection(out)
+            if debug is not None:
+                out["debug"] = debug(out, par)
             step_conv = out.pop("newton_converged", None)
             if step_conv is not None:
                 conv = step_conv if conv is None else torch.minimum(conv, step_conv)
@@ -251,18 +263,31 @@ def integrate(
     ``engine``: see :func:`resolve_engine`. ``years_per_dispatch`` is
     accepted for compatibility with the JAX package and does nothing: each
     year is its own launch, queued without a host round trip.
+
+    ``debug``: a callable ``(vars, par) -> tensor`` evaluated every step on
+    the step's outputs and the run's parameter tensors, recorded as the
+    solution variable ``"debug"`` (raw and seasonal). It needs the scan
+    engine: ``'auto'`` then picks it, ``engine='fused'`` raises.
+
+    ``progress_steps=N`` ticks the progress bar every ``N`` in-year steps on
+    the scan engine (``'auto'`` then picks it); on the fused engine, or with
+    ``years_per_dispatch > 1``, it warns and is ignored, as in the JAX
+    package.
+
+    ``checkpoint`` names an HDF5 file written every ``checkpoint_every``
+    simulated years and after the last (the carry and the seasonal storage
+    so far); with ``resume=True`` a matching checkpoint continues the run
+    bit-exactly from the first unfinished year, and a file of another run
+    warns and starts from ``init`` (:mod:`.checkpoint`; the files and keys
+    are the JAX package's, so a checkpoint of either package resumes in the
+    other). ``raw_mode='all'`` cannot resume: the raw steps of completed
+    years are not checkpointed.
+
+    ``profile_dir`` writes a ``torch.profiler`` trace of the year loop
+    (host and, on a CUDA device, kernel activity) to
+    ``profile_dir/integrate.pt.trace.json``, viewable in Perfetto or
+    ``chrome://tracing``.
     """
-    for name, value in (("debug", debug), ("progress_steps", progress_steps),
-                        ("profile_dir", profile_dir)):
-        if value is not None:
-            raise NotImplementedError(
-                f"integrate({name}=...) is not ported yet (ROADMAP Queue 1 M9 "
-                "and later)"
-            )
-    if checkpoint is not None or resume:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP Queue 1 M9)"
-        )
     spec = get_model(model)
     dtype = resolve_dtype(dtype)
     device = resolve_device(device)
@@ -273,29 +298,85 @@ def integrate(
         raw_mode = "last" if lastonly else "all"
     if raw_mode not in ("last", "all", "none"):
         raise ValueError(f"raw_mode must be 'last'|'all'|'none', got {raw_mode!r}")
-    engine = resolve_engine(spec.name, st, device, engine, solver)
+    ticks = progress_steps is not None and int(progress_steps) > 0
+    if engine == "fused" and debug is not None:
+        raise ValueError("engine='fused' does not support the debug hook; use engine='scan'")
+    engine = resolve_engine(spec.name, st, device, engine, solver,
+                            scan_only=debug is not None or ticks)
     if years_per_dispatch is not None and int(years_per_dispatch) < 1:
         raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
+    # the JAX package's default chunking, which its checkpoint key names
+    ypd = int(years_per_dispatch) if years_per_dispatch is not None else (
+        8 if engine == "fused" else 1)
+    tick_every = 0
+    if ticks:
+        if engine != "scan" or ypd > 1:
+            warnings.warn(
+                "progress_steps is ignored: sub-year progress ticks need "
+                "engine='scan' with years_per_dispatch=1 "
+                f"(got engine={engine!r}, years_per_dispatch={ypd})"
+            )
+        else:
+            tick_every = int(progress_steps)
 
     cfg = default_step_config(dtype_name(dtype), solver=solver,
                               newton_max_iter=newton_max_iter)
-    year_seasonal = make_year_fn(spec.name, st, cfg, False)
-    year_full = make_year_fn(spec.name, st, cfg, True)
-
-    f_tab = forcing.table(st)
-    par_t = Collection({k: _as_tensor(v, dtype, device) for k, v in par.items()})
-    carry = spec.init_carry(init, st, dtype, device)
 
     prog = Progress(
         st.dur * st.nt,
         "Integrating",
         infofeed=lambda t: f"t = {round(t, 2)}",
     ) if (progress is None or progress) else None
+    year_base = [0]  # the year the tick hook reports in
+
+    def tick(t, _out):
+        if (t + 1) % tick_every == 0:
+            step = year_base[0] * st.nt + t + 1
+            prog.update(step, feedargs=(float(st.T[step - 1]),))
+
+    hook = tick if (tick_every and prog is not None) else None
+    year_seasonal = make_year_fn(spec.name, st, cfg, False, hook, debug)
+    year_full = make_year_fn(spec.name, st, cfg, True, hook, debug)
+
+    f_tab = forcing.table(st)
+    par_t = Collection({k: _as_tensor(v, dtype, device) for k, v in par.items()})
+    carry = spec.init_carry(init, st, dtype, device)
+
+    winter_acc, summer_acc, avg_acc = [], [], []
+    start_year = 0
+    write = None
+    if checkpoint is not None:
+        from . import checkpoint as ckpt_mod
+
+        extras = []
+        if engine != "scan":
+            extras.append(engine)
+        if ypd > 1 and engine != "fused":
+            extras.append(f"ypd{ypd}")
+        key = ckpt_mod.config_key("", spec.name, st, forcing, par, dtype_name(dtype),
+                                  solver, newton_max_iter, extras)
+        carry, start_year, winter_acc, summer_acc, avg_acc = ckpt_mod.resume_state(
+            checkpoint, key, resume, raw_mode, st.dur,
+            lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                      device=device).contiguous(),
+            carry)
+        write = ckpt_mod.year_writer(
+            checkpoint, key, lambda: (carry, (winter_acc, summer_acc, avg_acc)))
+    if prog is not None and start_year:
+        prog.update(start_year * st.nt, feedargs=(float(start_year),))
+
+    profiler = None
+    if profile_dir is not None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
 
     raw_chunks = []
-    winter_acc, summer_acc, avg_acc = [], [], []
-    for y in range(st.dur):
+    for y in range(start_year, st.dur):
         collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
+        year_base[0] = y
         if engine == "fused":
             carry, seasonal, converged, ys = _fused_single_year(
                 spec.name, carry, par_t, f_tab[y], st, cfg, collect)
@@ -309,10 +390,22 @@ def integrate(
             raw_chunks.append(ys)
         if verbose and converged is not None and float(converged) < 1.0:
             warnings.warn(f"Solving for T0 failed in year {y + 1}.")
-        if prog is not None:
+        if write is not None and ((y + 1) % max(checkpoint_every, 1) == 0
+                                  or y == st.dur - 1):
+            write(y + 1)
+        if prog is not None and not tick_every:
             prog.update((y + 1) * st.nt, feedargs=(float(st.T[(y + 1) * st.nt - 1]),))
+    if prog is not None and tick_every:
+        prog.update(st.dur * st.nt, feedargs=(float(st.T[-1]),))
 
-    varnames = list(spec.solution_vars)
+    if profiler is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        profiler.__exit__(None, None, None)
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, "integrate.pt.trace.json"))
+
+    varnames = list(spec.solution_vars) + (["debug"] if debug is not None else [])
     if raw_chunks:
         raw = Collection(
             {k: to_numpy(torch.cat([c[k] for c in raw_chunks], dim=0))
@@ -339,7 +432,7 @@ def integrate(
         parameters=Collection(par),
         initconds=Collection({k: np.asarray(v) for k, v in init.items()}),
         lastonly=lastonly,
-        debug=None,
+        debug=debug,
         raw=raw,
         seasonal=seasonal_store,
     )

@@ -133,6 +133,21 @@ def _check_raw_all_budget(K, st, n_vars: int, itemsize: int, raw_memory_limit: i
         )
 
 
+def _ensemble_config_key(model, st, forcing, par, dtype, solver, engine, K,
+                         newton_max_iter) -> str:
+    """The checkpoint key of an ensemble run, character for character the
+    JAX package's (``parallel/ensemble.py::_ensemble_config_key``): swept
+    ``(K,)`` parameter leaves (the virtual ``"F"`` included) are digested;
+    ``dtype`` may be a torch dtype or anything numpy names."""
+    from .. import checkpoint as ckpt_mod
+
+    name = dtype_name(dtype) if isinstance(dtype, torch.dtype) else np.dtype(dtype).name
+    return ckpt_mod.config_key(
+        "ens", model, st, forcing, par, name, solver,
+        newton_max_iter, (engine, f"K={int(K)}"),
+    )
+
+
 def _resolve_engine(engine, spec, st, device, solver) -> str:
     if engine == "auto":
         engine = "fused" if auto_is_fused(spec.name, device, solver) else "batched"
@@ -158,6 +173,7 @@ def ensemble_integrate(
     device=None,
     solver: str = "pcr",
     newton_max_iter: int = 30,
+    donate: bool = True,
     jit_wrapper=None,
     engine: str = "auto",
     mesh=None,
@@ -187,18 +203,24 @@ def ensemble_integrate(
     docstring). ``years_per_dispatch`` is accepted for the JAX package's
     interface (as there, a value above 1 needs ``engine='fused'``) and does
     nothing: every year is one kernel launch, queued without a host round
-    trip.
+    trip. ``donate`` is accepted for the JAX package's interface and does
+    nothing: there it lets XLA reuse the carry's buffers, which the year
+    loop here rebinds each year anyway.
 
-    Not ported yet: ``mesh=`` and ``jit_wrapper=`` (ROADMAP Queue 1 M14),
-    checkpoints (M9).
+    ``checkpoint`` names an HDF5 file written every ``checkpoint_every``
+    simulated years and after the last (the ensemble carry and the per-year
+    seasonal storage); ``resume=True`` continues a matching interrupted run
+    bit-exactly from the first unfinished year, on either engine, as
+    :func:`..integrate.integrate` does (:mod:`..checkpoint`; the JAX
+    package's files and keys). ``raw_mode='all'`` cannot resume.
+
+    Not ported yet: ``mesh=`` and ``jit_wrapper=`` (ROADMAP Queue 1 M14).
     """
     if mesh is not None or jit_wrapper is not None:
         raise NotImplementedError(
             "mesh= and jit_wrapper= (multi-device ensembles) are not ported "
             "yet: ROADMAP Queue 1 M14"
         )
-    if checkpoint is not None or resume:
-        raise NotImplementedError("checkpoints are not ported yet: ROADMAP Queue 1 M9")
     spec = get_model(model)
     if raw_mode not in ("none", "last", "all"):
         raise ValueError(f"ensemble raw_mode must be 'none'|'last'|'all', got {raw_mode!r}")
@@ -259,13 +281,30 @@ def ensemble_integrate(
         # per-member rows, time leading: (nt, K, 1)
         return (f_base[year][:, None] + F_off[None, :])[:, :, None]
 
+    winter_acc, summer_acc, avg_acc, raw_years = [], [], [], []
+    start_year = 0
+    write = None
+    if checkpoint is not None:
+        from .. import checkpoint as ckpt_mod
+
+        key = _ensemble_config_key(spec.name, st, forcing, par_user, dtype, solver,
+                                   engine, K, newton_max_iter)
+        carry, start_year, winter_acc, summer_acc, avg_acc = ckpt_mod.resume_state(
+            checkpoint, key, resume, raw_mode, st.dur,
+            lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                      device=device).contiguous(),
+            carry)
+        write = ckpt_mod.year_writer(
+            checkpoint, key, lambda: (carry, (winter_acc, summer_acc, avg_acc)))
+
     prog = Progress(
         st.dur, "Integrating ensemble",
         infofeed=lambda yy: f"year {int(yy)}/{st.dur}, {K} members",
     ) if (progress is None or progress) else None
+    if prog is not None and start_year:
+        prog.update(start_year, feedargs=(start_year,))
 
-    winter_acc, summer_acc, avg_acc, raw_years = [], [], [], []
-    for y in range(st.dur):
+    for y in range(start_year, st.dur):
         collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
         if engine == "fused":
             carry, seasonal, _conv, ys = fused_year(carry, par_fused, f_base[y], st, cfg,
@@ -276,6 +315,9 @@ def ensemble_integrate(
         winter_acc.append(seasonal.winter)
         summer_acc.append(seasonal.summer)
         avg_acc.append(seasonal.avg)
+        if write is not None and ((y + 1) % max(checkpoint_every, 1) == 0
+                                  or y == st.dur - 1):
+            write(y + 1)
         if collect:
             # the year loop stacks time first: (nt, K, nx) -> (K, nt, nx)
             raw_years.append(Collection({k: v.transpose(0, 1) for k, v in ys.items()}))

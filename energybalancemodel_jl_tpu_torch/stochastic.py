@@ -35,8 +35,10 @@ Engines:
 ``'auto'`` is ``'fused'`` on a CUDA device (float32 and float64) and
 ``'scan'`` on the CPU; on a CUDA device it never falls back.
 
-Not ported: ``mesh=`` (ROADMAP Queue 1 M14); ``TransitionResult`` saving,
-loading and plotting (M9); the JAX package's ``EBM_OU_IMPL`` and
+A ``TransitionResult`` is saved, loaded and drawn by the module-level
+:func:`.io.save`, :func:`.io.load` and :func:`.plot.plot_transitions`, as
+in the JAX package. Not ported: ``mesh=`` (ROADMAP Queue 1 M14); the JAX
+package's ``EBM_OU_IMPL`` and
 ``EBM_FUSED_NOISE`` environment switches (``ou_impl=`` stays an argument);
 its ``block_k=`` member tile (the kernels run one block per member).
 """
@@ -172,21 +174,6 @@ class TransitionResult:
         if total <= 0.0:
             return float("nan")
         return float(np.count_nonzero(esc)) / total
-
-    def save(self, path):
-        """Not ported yet (ROADMAP Queue 1 M9)."""
-        raise NotImplementedError("saving a TransitionResult is not ported yet: "
-                                  "ROADMAP Queue 1 M9")
-
-    @classmethod
-    def load(cls, path):
-        """Not ported yet (ROADMAP Queue 1 M9)."""
-        raise NotImplementedError("loading a TransitionResult is not ported yet: "
-                                  "ROADMAP Queue 1 M9")
-
-    def plot(self, *args, **kwargs):
-        """Not ported yet (ROADMAP Queue 1 M9)."""
-        raise NotImplementedError("plotting is not ported yet: ROADMAP Queue 1 M9")
 
     def __repr__(self):
         K = self.areas.shape[1] if self.areas.ndim == 2 else 0

@@ -17,8 +17,8 @@ histories equal JAX's step for step and its brackets bitwise (host arithmetic
 on equal decisions), from the endpoint states of a JAX ``EdgeResult``, with a
 per-member forcing; ``EdgeResult.states()`` and ``.refine()`` slice what
 JAX's slice; every ``ValueError`` of ``tests/test_basins.py`` for these
-drivers; ``edge``'s checkpoint arguments raise ``NotImplementedError``
-naming ROADMAP M9. Fixed points differ from JAX's by up to ``BAR_CLASSIC``
+drivers; the tracked ``edge`` writes a checkpoint, and resuming it returns
+the search as it ran. Fixed points differ from JAX's by up to ``BAR_CLASSIC``
 in E (``tests/test_torch_equilibrium.py``), so a decision within round-off
 of the classification boundary could flip: every decision here is an
 attractor's ice area against the other's (1.054 against 5.637).
@@ -76,9 +76,15 @@ def mapped(attractors):
 
 
 @pytest.fixture(scope="module")
-def tracked(attractors):
+def edge_ckpt(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("edge") / "edge.h5")
+
+
+@pytest.fixture(scope="module")
+def tracked(attractors, edge_ckpt):
     """``edge`` with a per-member forcing (F = 8, 12), from the endpoint
-    states of a JAX ``EdgeResult``."""
+    states of a JAX ``EdgeResult``; the port's search writes a
+    checkpoint."""
     a, b = attractors
     kw = dict(forcing=0.0, steps=3, tol=TOL, max_years=CAP)
     st, par = st_par(ebm)
@@ -88,7 +94,7 @@ def tracked(attractors):
     j = ebm.edge("Classic", st, par, ja, jb, **kw)
     st, par = st_par(ebt)
     par["F"] = np.array([8.0, 12.0])
-    t = ebt.edge("Classic", st, par, ja, jb, **kw, **KW)
+    t = ebt.edge("Classic", st, par, ja, jb, **kw, **KW, checkpoint=edge_ckpt)
     return j, t
 
 
@@ -205,7 +211,7 @@ def test_starved_probes_flag_unconverged(attractors):
         np.testing.assert_array_equal(getattr(t, name), getattr(j, name), err_msg=name)
 
 
-def test_validation_errors(attractors):
+def test_validation_errors(attractors, tracked, edge_ckpt):
     a, _ = attractors
     st, par = st_par(ebt)
     edge = lambda **kw: ebt.edge("Classic", st, par, kw.pop("a", WARM), kw.pop("b", COLD),
@@ -225,6 +231,16 @@ def test_validation_errors(attractors):
         ebt.basins("Classic", st, par, [WARM, COLD], forcing=F, season="sumer", **KW)
     with pytest.raises(ValueError, match="did not converge"):
         edge(a=WARM, max_years=1)
-    for kw in (dict(checkpoint="edge.h5"), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="M9"):
-            edge(**kw)
+    with pytest.raises(ValueError, match="needs checkpoint"):
+        edge(resume=True)
+    # the tracked search's checkpoint resumes: all its steps are on file, so
+    # the resume solves nothing and returns the search as it ran
+    _, t = tracked
+    ja, jb = t.a, t.b
+    par_f = ebt.Collection(par, F=np.array([8.0, 12.0]))
+    back = ebt.edge("Classic", st, par_f, ja, jb, forcing=0.0, steps=3, tol=TOL, max_years=CAP,
+                    checkpoint=edge_ckpt, resume=True, **KW)
+    for name in ("wa", "wb", "history", "in_a", "probe_converged", "probe_finite",
+                 "area_a", "area_b"):
+        np.testing.assert_array_equal(getattr(back, name), getattr(t, name), err_msg=name)
+    np.testing.assert_array_equal(back.result_a.state["E"], t.result_a.state["E"])

@@ -157,7 +157,7 @@ def test_scalar_F_max_years_and_float_forcing():
     assert a.years == 3 and not a.converged and "NOT converged" in repr(a)
 
 
-def test_equilibrate_validation():
+def test_equilibrate_validation(tmp_path):
     st, par, init = classic(ebt)
     ramp = ebt.Forcing(0.0, 2.0, -2.0, (1, 1), (1.0, -1.0))
     with pytest.raises(ValueError, match="constant"):
@@ -179,8 +179,19 @@ def test_equilibrate_validation():
                         init, **KW)
     with pytest.raises(NotImplementedError, match="M14"):
         ebt.equilibrate("Classic", st, 0.0, par, init, mesh=object(), **KW)
-    with pytest.raises(NotImplementedError, match="M9"):
-        ebt.equilibrate("Classic", st, 0.0, par, init, checkpoint="x.h5", **KW)
+    with pytest.raises(ValueError, match="needs checkpoint"):
+        ebt.equilibrate("Classic", st, 0.0, par, init, resume=True, **KW)
+    # a checkpointed run writes its final state; resuming it returns that
+    # state without a year more (resumes mid-run: tests/test_torch_checkpoint.py)
+    ck = str(tmp_path / "eq.h5")
+    mst, mpar, minit = miz(ebt)
+    first = ebt.equilibrate("MIZ", mst, F, mpar, minit, tol=0.0, max_years=2, checkpoint=ck,
+                            **KW)
+    again = ebt.equilibrate("MIZ", mst, F, mpar, minit, tol=0.0, max_years=2, checkpoint=ck,
+                            resume=True, **KW)
+    assert again.years == first.years == 2
+    for k in first.state:
+        np.testing.assert_array_equal(again.state[k], first.state[k])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device"):
             ebt.equilibrate("Classic", st, 0.0, par, init, dtype="float64")

@@ -94,10 +94,11 @@ def test_continuation_round_trip_matches_jax(record_property):
     assert "round trip" in repr(t)
 
 
-def test_continuation_parameter_path_and_validation():
+def test_continuation_parameter_path_and_validation(tmp_path, monkeypatch):
     st, par, init = classic(ebt)
+    ck = str(tmp_path / "cont.h5")
     res = ebt.continuation("Classic", st, [0.6, 0.55], par, init, vary="D", tol=0.0,
-                           max_years=2, **KW)
+                           max_years=2, checkpoint=ck, **KW)
     assert res.vary == "D" and res.years.tolist() == [2, 2]
     with pytest.raises(ValueError, match="round_trip"):
         res.hysteresis_gap()
@@ -108,8 +109,21 @@ def test_continuation_parameter_path_and_validation():
     with pytest.raises(ValueError, match="constant base forcing"):
         ebt.continuation("Classic", st, [1.0], par, init,
                          forcing=ebt.Forcing(0.0, 1.0, -1.0, (2, 2), (0.5, -0.5)), **KW)
-    with pytest.raises(NotImplementedError, match="M9"):
-        ebt.continuation("Classic", st, [1.0], par, init, checkpoint="x.h5", **KW)
+    with pytest.raises(ValueError, match="needs checkpoint"):
+        ebt.continuation("Classic", st, [1.0], par, init, resume=True, **KW)
+    # every level is on file: the resume solves none and returns them
+    from energybalancemodel_jl_tpu_torch import equilibrium as eqmod
+
+    def boom(*a, **k):
+        raise AssertionError("equilibrate called on a complete resume")
+
+    monkeypatch.setattr(eqmod, "equilibrate", boom)
+    back = ebt.continuation("Classic", st, [0.6, 0.55], par, init, vary="D", tol=0.0,
+                            max_years=2, checkpoint=ck, resume=True, **KW)
+    assert back.years.tolist() == [2, 2]
+    for r0, r1 in zip(res.results, back.results):
+        np.testing.assert_array_equal(r1.state["E"], r0.state["E"])
+    monkeypatch.undo()
     bare = ebt.ContinuationResult(values=res.values, direction=res.direction,
                                   results=res.results, vary="D", spacetime=st)
     with pytest.raises(ValueError, match="model/par/forcing"):

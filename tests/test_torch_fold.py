@@ -18,8 +18,8 @@ converged carry the same flag in both packages, and JAX's uncapped run, in
 which every probe converged, makes the same decisions. Also: a
 reused JAX anchor with the default classifier (the ``hi`` re-probe) and with
 a custom predicate, lockstep members against a solo run of one member, every
-``ValueError`` of ``tests/test_fold.py`` and the checkpoint arguments raising
-``NotImplementedError`` (ROADMAP M9).
+``ValueError`` of ``tests/test_fold.py``, and the tracked fold's checkpoint,
+which resumes to the search as it ran.
 """
 import numpy as np
 import pytest
@@ -54,14 +54,19 @@ def assert_same_decisions(t, j):
 
 
 @pytest.fixture(scope="module")
-def tracked():
+def fold_ckpt(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("fold") / "fold.h5")
+
+
+@pytest.fixture(scope="module")
+def tracked(fold_ckpt):
     kw = dict(lo=LO, hi=HI, steps=STEPS, tol=TOL, max_years=CAP)
     st, par, init = setup(ebm)
     j = ebm.fold("Classic", st, par, init, **kw)
     uncapped = ebm.fold("Classic", st, par, init, lo=LO, hi=HI, steps=STEPS, tol=TOL,
                         max_years=120)
     st, par, init = setup(ebt)
-    t = ebt.fold("Classic", st, par, init, **kw, **KW)
+    t = ebt.fold("Classic", st, par, init, **kw, **KW, checkpoint=fold_ckpt)
     return j, t, uncapped
 
 
@@ -135,7 +140,7 @@ def test_custom_predicate_and_lockstep_matches_solo(tracked):
     np.testing.assert_array_equal(solo.history[:, :, 0], tr.history[:, :, 1])
 
 
-def test_validation_errors(tracked):
+def test_validation_errors(tracked, fold_ckpt):
     _, t, _ = tracked
     st, par, init = setup(ebt, D=0.6)
     fold = lambda **kw: ebt.fold("Classic", st, kw.pop("par", par), kw.pop("init", init),
@@ -165,6 +170,14 @@ def test_validation_errors(tracked):
     with pytest.raises(ValueError, match="survives at lo"):
         fold(par=ebt.Collection(par, D=D_VALS), lo=19.0, anchor=t.anchor,
              predicate=lambda p, a: np.asarray(p.seasonal.avg["E"]).min(-1) > -50.0)
-    for kw in (dict(checkpoint="fold.h5"), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="M9"):
-            fold(**kw)
+    with pytest.raises(ValueError, match="needs checkpoint"):
+        fold(resume=True)
+    # the tracked search's checkpoint resumes: all its steps are on file, so
+    # the resume solves nothing; fewer steps report the file's first ones
+    sp = setup(ebt)
+    for steps in (STEPS, 2):
+        back = ebt.fold("Classic", *sp, lo=LO, hi=HI, steps=steps, tol=TOL, max_years=CAP,
+                        checkpoint=fold_ckpt, resume=True, **KW)
+        np.testing.assert_array_equal(back.history, t.history[:steps])
+        np.testing.assert_array_equal(back.survived, t.survived[:steps])
+    np.testing.assert_array_equal(back.anchor.state["E"], t.anchor.state["E"])

@@ -273,15 +273,26 @@ def test_table_parameter_sweep_runs_on_the_fused_engine():
         np.testing.assert_allclose(runs[0].raw["E"][i], solo.raw["E"], rtol=1e-10, atol=1e-12)
 
 
-def test_unported_options_and_bad_arguments_raise():
+def test_unported_options_and_bad_arguments_raise(tmp_path):
     st = ebt.SpaceTime.sin(8, 100, 1)
     par = ebt.default_parameters("MIZ")
     init = ebt.zeros_init(st)
     args = ("MIZ", st, ebt.Forcing(0.0), par, init)
-    for kw, item in [(dict(checkpoint="x.h5"), "M9"), (dict(debug=lambda o, p: o["E"]), "M9"),
-                     (dict(progress_steps=10), "M9"), (dict(profile_dir="/nonexistent"), "M9")]:
-        with pytest.raises(NotImplementedError, match=item):
-            ebt.integrate(*args, **kw, device="cpu")
+    # the debug hook, sub-year ticks, the profiler trace and a checkpoint in
+    # one run ('auto' picks the scan engine for the hook); resumes are held
+    # bitwise in tests/test_torch_checkpoint.py
+    ck, prof = str(tmp_path / "run.h5"), str(tmp_path / "prof")
+    sols = ebt.integrate(*args, debug=lambda o, p: o["E"] * p["D"], progress_steps=25,
+                         profile_dir=prof, checkpoint=ck, dtype="float64", device="cpu")
+    np.testing.assert_array_equal(sols.raw["debug"], sols.raw["E"] * float(par["D"]))
+    assert sols.seasonal.avg["debug"].shape == (1, 8) and sols.debug is not None
+    assert os.path.getsize(os.path.join(prof, "integrate.pt.trace.json")) > 0
+    with h5py.File(ck, "r") as f:
+        assert int(f.attrs["years_done"]) == 1 and "T0" in f["carry"]
+    with pytest.raises(ValueError, match="debug hook"):
+        ebt.integrate(*args, debug=lambda o, p: o["E"], engine="fused", device="cpu")
+    with pytest.warns(UserWarning, match="progress_steps is ignored"):
+        ebt.integrate(*args, engine="fused", progress_steps=10, device="cpu")
     for kw in (dict(mesh=object()), dict(jit_wrapper=lambda f: f)):
         with pytest.raises(NotImplementedError, match="M14"):
             ebt.ensemble_integrate(*args, n_members=2, **kw, device="cpu")
