@@ -4,7 +4,7 @@ run through its hand-written kernels.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc::
 
-    python3 chip_smoke.py           # about seventeen minutes on an H100
+    python3 chip_smoke.py           # about eighteen minutes on an H100
 
 Phases (any failure exits non-zero, and no phase carries on past its own
 failure):
@@ -103,7 +103,7 @@ failure):
     of its own: ``edge_state`` near the Classic saddle at
     ``SpaceTime.sin(8, 1000)``, F=10 (converged, its ice area between the
     attractors', exactly one eigenvalue of the dense year-map Jacobian
-    outside the unit circle), a 3-level ``unstable_branch`` there,
+    outside the unit circle), a 2-level ``unstable_branch`` there,
     ``lyapunov`` at the ice-free Classic equilibrium against ``stability``'s
     log growth (1e-6), and a MIZ ``lyapunov`` (``SpaceTime.sin(24, 400)``,
     K=64, ``member_chunk=16``, ``project=("Ew", "phi")``) on the card
@@ -120,8 +120,25 @@ failure):
     bitwise; then ``save`` and ``load`` of the ensemble's and
     ``equilibrate``'s results (every array bitwise), and ``plot_avg`` and
     ``plot_seasonal`` of the Classic run to PNG under Agg where matplotlib
-    is installed; each checkpoint write's seconds and file size; the
-    script's total seconds.
+    is installed; each checkpoint write's seconds and file size;
+22. the high-resolution runs on the kernels' wide builds (every cell's
+    state and the PCR rows in device memory): the Classic year against its
+    plain version, bitwise, at nx 8192 and 32768 (K=1, nt=1000,
+    raw-collected, f32 and f64) and with more members than the card keeps
+    resident (each block loops over members; three members bitwise their
+    solo runs), the MIZ year at nx 1536, 2048 and 16384 (nt=64, D scaled to the
+    canonical D nx^2/nt, 2 fixed Newton iterations, raw-collected, f32 and
+    f64) and at the main path's nx 1536 also with the default Newton
+    tolerances (the kernel's Newton updates equal the plain version's), every
+    noise mode of both at nx 8192 / 2048, K11 at (64, 32768)
+    and K10 at (64, 16384) (with ``tridiag_matvec``'s residual), each
+    wide build held to no spill stores in phase 2; then the main paths:
+    ``integrate('Classic', SpaceTime.sin(32768, 1000, 2))`` under a ramp
+    with ``engine='auto'`` and checkpoints, interrupted after year 1 and
+    resumed bitwise (2 + 1 launches), ``integrate('MIZ',
+    SpaceTime.sin(1536, 147456, 1), raw_mode='none')`` (1 launch, every
+    store finite), and the batched engine at the wide widths through K11
+    and K10; the script's total seconds.
 
 The line before the last is the kernel table as JSON (each kernel's time,
 plain time, launches on its path, the least time the card could take for its
@@ -132,6 +149,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -261,6 +279,28 @@ def check_classic_occupancy(ptxas):
     kinds = {n.split("<")[0] for n in found}
     if kinds != {"classic_year_kernel", "classic_warp_kernel", "pcr_warp_kernel"}:
         fail(f"Classic and K11 builds missing from the ptxas log: found {sorted(found)}")
+    return found
+
+
+# the wide builds (csrc/common.cuh): Classic and MIZ by dtype and noise (MIZ
+# by its count output too), K11 and K10 by dtype, each held to no spill
+# stores: every per-cell value lives in the workspace, so the registers hold
+# one cell's step at a time
+WIDE_BUILDS = {"classic_wide_kernel": 4, "miz_wide_kernel": 8, "pcr_wide_kernel": 2,
+               "newton_t0_wide_kernel": 2}
+
+
+def check_wide_builds(ptxas):
+    """Fail when a wide build is missing from the ptxas log or spills;
+    returns ``{build: ptxas line}``."""
+    found = {name: used for name, used in ptxas.items() if "_wide_kernel" in name}
+    counts = {k: sum(name.startswith(k + "<") for name in found) for k in WIDE_BUILDS}
+    if counts != WIDE_BUILDS:
+        fail(f"wide builds in the ptxas log: {counts}, expected {WIDE_BUILDS}")
+    for name, used in found.items():
+        if "spilled" in used:
+            fail(f"{name}: {used}; a wide build keeps its cells in the workspace and must not "
+                 "spill")
     return found
 
 
@@ -529,7 +569,10 @@ def _gradient_task(task, f0_state):
             out["error"] = f"stability side={side}: growth {r.growth}"
     elif task.startswith("fixed point"):
         st8 = ebt.SpaceTime.sin(8, 100, 1)
-        fn = make_equilibrium_seasonal_fn("MIZ", st8, cfg64, "float64", bwd_max_iters=60)
+        # the adjoint capped at 40 iterations, as the CPU tests cap it: card and
+        # CPU run the same iterations, and the card's eager years share it with
+        # the other jobs
+        fn = make_equilibrium_seasonal_fn("MIZ", st8, cfg64, "float64", bwd_max_iters=40)
         p = {k: torch.tensor(float(v), dtype=f64, device=dev, requires_grad=True)
              for k, v in ebt.default_parameters("MIZ").items()}
         fr = torch.full((st8.nt,), 4.0, dtype=f64, device=dev, requires_grad=True)
@@ -613,7 +656,7 @@ def phase17(dev, smi, f0_state, meanwhile):
             fail(f"make_equilibrium_seasonal_fn on the card differs from the CPU's at {k}: "
                  f"{y} against {x}")
     say(17, f"make_equilibrium_seasonal_fn('MIZ', SpaceTime.sin(8, 100), forcing 4, "
-            f"bwd_max_iters=60): value and every gradient on the card equal the CPU's to "
+            f"bwd_max_iters=40): value and every gradient on the card equal the CPU's to "
             f"rel {worst:.3e} (at {worst_at}; bar {BAR_CARD_CPU} + 1e-15 absolute), each "
             f"side in a process of its own; seconds card "
             f"{results['fixed point cuda']['wall_s']:.3f}, cpu "
@@ -922,7 +965,7 @@ def _search_task(task, miz_init):
                             f"{lam[:3]}: not one saddle with exactly one |lambda| > 1")
     elif task == "unstable_branch":
         (_, _), areas = _attractors(ebt, st, par, dev)
-        br = ebt.unstable_branch("Classic", st, [10.0, 10.5, 11.0], par,
+        br = ebt.unstable_branch("Classic", st, [10.0, 10.5], par,
                                  {k: np.asarray(v) for k, v in SADDLE_GUESS.items()},
                                  vary="F", forcing=0.0, polish_max_nfev=4, dtype="float64",
                                  device=dev)
@@ -947,7 +990,8 @@ def _search_task(task, miz_init):
         kw = dict(side="right", v0=mode, dtype="float64", device=dev)
         stab = ebt.stability("Classic", st, 45.0, par, eq.state, n_iter=2, **kw)
         kw.pop("side")
-        ly = ebt.lyapunov("Classic", st, 45.0, par, eq.state, years=2, transient=1, **kw)
+        # from the exact mode one year measures the exponent
+        ly = ebt.lyapunov("Classic", st, 45.0, par, eq.state, years=1, **kw)
         out = dict(exponent=float(ly.exponents[0]), log_growth=float(np.log(stab.growth)),
                    log_dense=float(np.log(np.abs(lam[i]))), eq_years=eq.years,
                    history=ly.history[:, 0].tolist())
@@ -1030,7 +1074,7 @@ class _Interrupted(Exception):
     pass
 
 
-def _checkpointed(mod, name, years_of, run, stop):
+def _checkpointed(mod, name, years_of, run, stop, phase=21):
     """Run ``run()`` with the checkpoint writer ``mod.name`` wrapped: each
     write's seconds and file size are logged, and once the write whose
     ``years_of(args)`` equals ``stop`` is on disk the run is interrupted
@@ -1057,7 +1101,7 @@ def _checkpointed(mod, name, years_of, run, stop):
     finally:
         setattr(mod, name, orig)
     if stop is not None and res is not None:
-        fail(f"phase 21: the run was not interrupted after year {stop}")
+        fail(f"phase {phase}: the run was not interrupted after year {stop}")
     return res, log
 
 
@@ -1065,19 +1109,19 @@ def _writes(log):
     return ", ".join(f"year {y}: {s:.3f} s {b / 2**20:.1f} MiB" for y, s, b in log)
 
 
-def _same_tree(a, b, what):
+def _same_tree(a, b, what, phase=21):
     """Bitwise equality of two (nested) results of numpy arrays, NaNs at the
     same places."""
     if isinstance(a, dict):
         if sorted(a) != sorted(b):
-            fail(f"phase 21 {what}: keys differ")
+            fail(f"phase {phase} {what}: keys differ")
         for k in a:
-            _same_tree(a[k], b[k], f"{what}.{k}")
+            _same_tree(a[k], b[k], f"{what}.{k}", phase)
     elif isinstance(a, (tuple, list)):
         for i, (x, y) in enumerate(zip(a, b)):
-            _same_tree(x, y, f"{what}[{i}]")
+            _same_tree(x, y, f"{what}[{i}]", phase)
     elif not np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True):
-        fail(f"phase 21 {what}: the resumed run differs from the uninterrupted one")
+        fail(f"phase {phase} {what}: the resumed run differs from the uninterrupted one")
 
 
 def checkpoint_phase(dev, smi):
@@ -1235,6 +1279,423 @@ def checkpoint_phase(dev, smi):
     return out
 
 
+# -- phase 22: the high-resolution runs ---------------------------------------
+# The wide builds (csrc/common.cuh) against their plain versions, bitwise,
+# at the widths the JAX package fuses, then the main paths at high
+# resolution. MIZ's explicit Tb diffusion needs D nx^2 / nt near the
+# canonical grid's: its comparisons scale D so (a year of NaNs would compare
+# trivially), and its high-resolution year scales nt
+HR_CLASSIC_NX, HR_CLASSIC_NT = (8192, 32768), 1000
+# the MIZ comparisons: at the main path's width (HR_MIZ_MAIN), at the width
+# timed and given every noise mode, and at the widest
+HR_MIZ_NX, HR_MIZ_NT = (1536, 2048, 16384), 64
+HR_MIZ_TIMED = 2048
+HR_NOISE_NT = 1000  # the Classic noise modes' year (at nt=200 its explicit E step diverges)
+HR_K_OVER = 8  # members beyond the blocks that stay resident, at nx = 8192
+HR_SYSTEMS = 64  # K11 and K10 systems
+HR_BATCHED_NT = 16  # the batched engine's steps at the wide widths (K10, K11 main path)
+# the MIZ high-resolution year: nx = 2048 / nt = 262144 takes 160 s on an
+# H100 in float32, where the Newton solve meets its tolerance rarely and
+# makes ~27 updates a step (tools/kernel_times.py highres, PERF.md), so the phase
+# runs the shorter year at the same coupling
+HR_MIZ_MAIN = (1536, 147456)
+COUPLING = 180 ** 2 / 2000  # the canonical MIZ grid's nx^2 / nt
+
+
+def _bitwise(a, b):
+    import torch
+
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def _max_err(out_k, out_p, label):
+    """Max |kernel - plain| over every tensor of two year results (carry,
+    seasonal stores, raw steps, eta, crossing steps), failing unless they
+    are bitwise equal, NaNs at the same places."""
+    import torch
+
+    def leaves(v, path):
+        if v is None:
+            return
+        if torch.is_tensor(v):
+            yield path, v
+        elif isinstance(v, dict):
+            for k in v:
+                yield from leaves(v[k], f"{path}.{k}")
+        else:
+            for i, x in enumerate(v):
+                yield from leaves(x, f"{path}[{i}]")
+
+    worst = 0.0
+    for (what, a), (_, b) in zip(leaves(tuple(out_k), label), leaves(tuple(out_p), label)):
+        d = float((torch.nan_to_num(a) - torch.nan_to_num(b)).abs().max()) if a.numel() else 0.0
+        worst = max(worst, d)
+        if not _bitwise(a, b):
+            fail(f"phase 22 {what}: kernel and plain version differ (max {d:.3e})")
+    return worst
+
+
+def _event_ms(fn, n):
+    """ms per call by CUDA events over n launches after a warm-up."""
+    from energybalancemodel_jl_tpu_torch.tools.kernel_times import event_ms
+
+    fn()
+    return event_ms(fn, n)
+
+
+@contextlib.contextmanager
+def _plain_newton_updates():
+    """Counts the Newton updates of the plain MIZ year while open: the
+    iterations of each of its lockstep solves (``models/miz.py``)."""
+    from energybalancemodel_jl_tpu_torch.models import miz as tmiz
+
+    count, inner = [0], tmiz._newton_root
+
+    def counting(T0_warm, args, cfg):
+        T0, converged, it = inner(T0_warm, args, cfg)
+        count[0] += it
+        return T0, converged, it
+
+    tmiz._newton_root = counting
+    try:
+        yield count
+    finally:
+        tmiz._newton_root = inner
+
+
+def _host_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def highres_phase(dev, smi):
+    """Phase 22. Returns, per wide build, what the kernel table reports."""
+    import os
+    import tempfile
+
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch import checkpoint as ckpt
+    from energybalancemodel_jl_tpu_torch.integrate import resolve_engine
+    from energybalancemodel_jl_tpu_torch.models.base import StepConfig, default_step_config
+    from energybalancemodel_jl_tpu_torch.ops import _year, prng
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import (classic_year,
+                                                                   classic_year_reference)
+    from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import (CARRY_KEYS, miz_year,
+                                                               miz_year_reference)
+    from energybalancemodel_jl_tpu_torch.ops.newton_t0 import newton_t0, newton_t0_reference
+    from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
+    from energybalancemodel_jl_tpu_torch.ops.tridiag import pcr_solve, tridiag_matvec
+
+    t_phase = time.perf_counter()
+    out = {}
+    fixed2 = StepConfig(solver="pcr", newton_abstol=0.0, newton_reltol=0.0,
+                        newton_max_step=50.0, newton_max_iter=2)
+    resident = _year.sm_count(dev) * _year.WIDE_BLOCKS_PER_SM
+
+    def classic_inputs(nx, nt, K, dtype):
+        st = ebt.SpaceTime.sin(nx, nt, 1)
+        par = ebt.default_parameters("Classic")
+        if K > 1:
+            par["D"] = np.linspace(0.55, 0.65, K)
+        E = torch.full((K, nx), 30.0, dtype=dtype, device=dev)
+        f = torch.as_tensor(np.random.default_rng(7).normal(0.0, 0.5, nt), dtype=dtype,
+                            device=dev)
+        return st, par, ebt.Collection(E=E, Tg=E / par["cw"]), f
+
+    def miz_inputs(nx, nt, K, dtype):
+        st = ebt.SpaceTime.sin(nx, nt, 1)
+        par = ebt.default_parameters("MIZ")
+        D = par["D"] * COUPLING * nt / nx ** 2
+        par["D"] = np.linspace(D, 1.1 * D, K) if K > 1 else D
+        carry = ebt.Collection(
+            {k: torch.zeros((K, nx), dtype=dtype, device=dev) for k in CARRY_KEYS})
+        return st, par, carry, torch.zeros(nt, dtype=dtype, device=dev)
+
+    def raw_year(year, inputs, cfg):
+        st, par, carry, f = inputs
+        res = year(carry, par, f, st, cfg, collect_raw=True)
+        torch.cuda.synchronize()
+        return res
+
+    # (a) Classic single runs, one raw-collected year, f32 and f64
+    err, ms = {}, {}
+    for nx in HR_CLASSIC_NX:
+        for dtype in (torch.float32, torch.float64):
+            inp = classic_inputs(nx, HR_CLASSIC_NT, 1, dtype)
+            cfg = default_step_config(str(dtype).split(".")[1])
+            k = raw_year(classic_year, inp, cfg)
+            p, plain_ms = _host_ms(lambda: raw_year(classic_year_reference, inp, cfg))
+            label = f"Classic {dtype} nx={nx}"
+            err[label] = _max_err(k, p, label)
+            if not bool(torch.isfinite(k[0]["E"]).all()):
+                fail(f"phase 22 {label}: the carry is not finite")
+            if nx == max(HR_CLASSIC_NX) and dtype == torch.float32:
+                st, par, carry, f = inp
+                ms["classic"] = _event_ms(lambda: classic_year(carry, par, f, st, cfg), 2)
+                ms["classic_plain"] = plain_ms
+            del k, p, inp
+    # (b) K beyond the resident blocks, D swept: the blocks loop over members
+    K = resident + HR_K_OVER
+    st, par, carry, f = classic_inputs(HR_CLASSIC_NX[0], HR_CLASSIC_NT, K, torch.float32)
+    cfg = default_step_config("float32")
+    ens = classic_year(carry, par, f, st, cfg)
+    err[f"Classic K={K}"] = _max_err(ens, classic_year_reference(carry, par, f, st, cfg),
+                                     f"Classic K={K} nx={HR_CLASSIC_NX[0]}")
+    for m in (0, K // 2, K - 1):
+        solo = classic_year(ebt.Collection({k: v[m:m + 1] for k, v in carry.items()}),
+                            dict(par, D=par["D"][m]), f, st, cfg)
+        if not (all(_bitwise(solo[0][k][0], ens[0][k][m]) for k in solo[0]) and all(
+                _bitwise(a[k][0], b[k][m]) for a, b in zip(solo[1], ens[1]) for k in a)):
+            fail(f"phase 22: Classic member {m} of K={K} differs from its solo run")
+    del ens, carry
+    say(22, f"Classic wide build vs plain, bitwise: K=1 nt={HR_CLASSIC_NT} raw-collected at "
+            f"nx {HR_CLASSIC_NX}, f32 and f64; K={K} (> the {resident} resident blocks) D swept "
+            f"at nx={HR_CLASSIC_NX[0]}, members 0, {K // 2}, {K - 1} bitwise their solo runs. "
+            "max|kernel-plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+
+    # (c) MIZ, 2 fixed Newton iterations, one raw-collected year, f32 and f64
+    for nx in HR_MIZ_NX:
+        for dtype in (torch.float32, torch.float64):
+            inp = miz_inputs(nx, HR_MIZ_NT, 1, dtype)
+            k = raw_year(miz_year, inp, fixed2)
+            p, plain_ms = _host_ms(lambda: raw_year(miz_year_reference, inp, fixed2))
+            label = f"MIZ {dtype} nx={nx}"
+            err[label] = _max_err(k, p, label)
+            if not all(bool(torch.isfinite(v).all()) for v in k[0].values()):
+                fail(f"phase 22 {label}: the carry is not finite")
+            if nx == HR_MIZ_TIMED and dtype == torch.float32:
+                st, par, carry, f = inp
+                ms["miz"] = _event_ms(lambda: miz_year(carry, par, f, st, fixed2), 3)
+                ms["miz_plain"] = plain_ms
+            del k, p, inp
+    # the main path's Newton mode at its width: the default tolerances at
+    # K=1, where the plain version's lockstep loop is the kernel's own, so
+    # the two make the same updates (the block max of the residual decides
+    # the kernel's) and round alike
+    nx, updates = HR_MIZ_MAIN[0], {}
+    for dtype in (torch.float32, torch.float64):
+        st, par, carry, f = miz_inputs(nx, HR_MIZ_NT, 1, dtype)
+        cfg = default_step_config(str(dtype).split(".")[1])
+        counted = torch.zeros(1, dtype=torch.int32, device=dev)
+        k = miz_year(carry, par, f, st, cfg, newton_iters=counted)
+        with _plain_newton_updates() as plain_count:
+            p = miz_year_reference(carry, par, f, st, cfg)
+        label = f"MIZ adaptive {dtype} nx={nx}"
+        err[label] = _max_err(k, p, label)
+        updates[label] = int(counted.sum()), plain_count[0]
+        if updates[label][0] != updates[label][1]:
+            fail(f"phase 22 {label}: the kernel made {updates[label][0]} Newton updates in "
+                 f"the year, the plain version {updates[label][1]}")
+    say(22, f"MIZ wide build vs plain, bitwise: K=1 nt={HR_MIZ_NT}, D scaled to the canonical "
+            f"D nx^2/nt, 2 fixed Newton iterations, raw-collected, at nx {HR_MIZ_NX}, f32 and "
+            f"f64; the default Newton tolerances at nx={nx}, f32 and f64, Newton updates "
+            f"(kernel, plain) "
+            + ", ".join(f"{k.split()[2]} {v}" for k, v in updates.items()) + ": "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items() if k.startswith("MIZ")))
+
+    # (d) every noise mode once, f32, K=2. The Classic plain year is long
+    # (nt=1000), so its four modes without a crossing share one: its eight
+    # members take each mode's per-step offsets (noise_offsets, as the plain
+    # version computes them) as a noise table, and each member of a plain
+    # year is its run alone (no operation mixes members)
+    OU = (0.95, 3.0, 0.5)
+    noise_err = {}
+    for model, year, plain, mk, nx, nt, cfg in (
+            ("Classic", classic_year, classic_year_reference, classic_inputs,
+             HR_CLASSIC_NX[0], HR_NOISE_NT, default_step_config("float32")),
+            ("MIZ", miz_year, miz_year_reference, miz_inputs, HR_MIZ_TIMED, HR_MIZ_NT, fixed2)):
+        st, par, carry, f = mk(nx, nt, 2, torch.float32)
+        keys = prng.member_year_keys(5, 2, 2)
+        table = torch.as_tensor(np.random.default_rng(3).normal(size=(nt, 2)),
+                                dtype=torch.float32, device=dev)
+        thr = float(np.sum(np.diff(st.x))) * 0.3
+        modes = {"table": dict(noise=table), "table/OU": dict(noise=table, noise_ou=OU),
+                 "keys/serial": dict(noise_keys=keys, noise_ou=OU),
+                 "keys/assoc": dict(noise_keys=keys, noise_ou=OU, ou_assoc=True),
+                 "keys/crossing": dict(noise_keys=keys, noise_ou=OU, crossing=(thr, 1.0))}
+        shared = [m for m in modes if model == "Classic" and "crossing" not in modes[m]]
+        if shared:
+            paths = [_year.noise_offsets(
+                modes[m].get("noise"), modes[m].get("noise_ou"), modes[m].get("noise_keys"),
+                modes[m].get("ou_assoc", False), 2, nt, torch.float32, dev,
+                unroll=_year.classic_ou_unroll(nt)) for m in shared]
+            n = 2 * len(shared)
+            both = plain(ebt.Collection({k: v.repeat(len(shared), 1) for k, v in carry.items()}),
+                         dict(par, D=np.tile(par["D"], len(shared))), f, st, cfg,
+                         noise=torch.cat([off for off, _ in paths], dim=1))
+            if both[0]["E"].shape != (n, nx):
+                fail(f"phase 22: the shared plain year has {both[0]['E'].shape} members")
+        for mode, kw in modes.items():
+            label = f"{model} nx={nx} {mode}"
+            k = year(carry, par, f, st, cfg, **kw)
+            if mode in shared:
+                j = 2 * shared.index(mode)
+                cut = lambda c: {name: v[j:j + 2] for name, v in c.items()}
+                noise_err[label] = _max_err(
+                    (k[0], tuple(k[1]), k[3]),
+                    (cut(both[0]), tuple(cut(s) for s in both[1]),
+                     paths[shared.index(mode)][1]), label)
+                if (k[3] is None) != ("noise_ou" not in kw):
+                    fail(f"phase 22 {label}: the year-end OU value is missing or extra")
+            else:
+                noise_err[label] = _max_err(k, plain(carry, par, f, st, cfg, **kw), label)
+            if not all(bool(torch.isfinite(v).all()) for v in k[0].values()):
+                fail(f"phase 22 {label}: the carry is not finite")
+    say(22, f"noise modes on the wide builds vs plain, bitwise (K=2 f32; Classic "
+            f"nt={HR_NOISE_NT}, its four modes without a crossing against members of one plain "
+            f"year; MIZ nt={HR_MIZ_NT} with 2 fixed Newton iterations; eta and crossing steps "
+            "included; every carry finite): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in noise_err.items()))
+
+    # (e) K11 and K10, f32 and f64
+    rng = np.random.default_rng(22)
+    n11 = max(HR_CLASSIC_NX)
+    k_err, resid = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+        lo, up = rng.normal(size=(HR_SYSTEMS, n11)), rng.normal(size=(HR_SYSTEMS, n11))
+        di = (np.abs(lo) + np.abs(up) + rng.uniform(0.5, 2.0, lo.shape)) * rng.choice(
+            [-1.0, 1.0], lo.shape)
+        lo[:, 0] = up[:, -1] = 0.0
+        b = t(rng.normal(size=(HR_SYSTEMS, n11)))
+        for bands, kind in (((t(lo), t(di), t(up)), "per-system"),
+                            ((t(lo[0]), t(di[0]), t(up[0])), "shared")):
+            x = pcr_fused(*bands, b)
+            label = f"K11 {dtype} {kind}"
+            k_err[label] = _max_err((x,), (pcr_solve(*bands, b),), label)
+            r = tridiag_matvec(*(v.double() for v in bands), x.double()) - b.double()
+            resid[label] = float(r.norm() / b.double().norm())
+        if dtype == torch.float32:
+            bands = (t(lo), t(di), t(up))
+            ms["pcr"] = _event_ms(lambda: pcr_fused(*bands, b), 10)
+            ms["pcr_plain"] = _host_ms(lambda: pcr_solve(*bands, b))[1]
+    n10 = max(HR_MIZ_NX)
+    mpar = ebt.default_parameters("MIZ")
+    st10 = ebt.SpaceTime.sin(n10, 1000, 1)
+    geom = diffusion_bands(st10)
+    insol = (mpar["S0"] - mpar["S1"] * st10.x * np.cos(2 * np.pi * 0.3)) - mpar["S2"] * st10.x ** 2
+    for dtype in (torch.float32, torch.float64):
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        g = np.random.default_rng(12)
+        shape = (HR_SYSTEMS, n10)
+        args = [t(g.normal(-5.0, 5.0, shape)), t(np.abs(g.normal(1.0, 0.5, shape)) + mpar["hmin"]),
+                t(g.normal(0.0, 3.0, shape)), t(g.uniform(0.0, 1.0, shape)),
+                t(np.tile(insol, (HR_SYSTEMS, 1))), t(geom.lo), t(geom.di), t(geom.up),
+                t(np.linspace(0.55, 0.65, HR_SYSTEMS) * COUPLING * 2000 / n10 ** 2), mpar["k"],
+                mpar["Tm"], mpar["A"], mpar["B"], mpar["ai"], 0.0]
+        x = newton_t0(*args, max_step=50.0, iters=6)
+        label = f"K10 {dtype}"
+        k_err[label] = _max_err((x,), (newton_t0_reference(*args, max_step=50.0, iters=6),),
+                                label)
+        if not bool(torch.isfinite(x).all()):
+            fail(f"phase 22 {label}: not finite")
+        if dtype == torch.float32:
+            ms["newton"] = _event_ms(lambda: newton_t0(*args, max_step=50.0, iters=6), 5)
+            ms["newton_plain"] = _host_ms(lambda: newton_t0_reference(*args, max_step=50.0,
+                                                                      iters=6))[1]
+    say(22, f"K11 at ({HR_SYSTEMS}, {n11}) and K10 at ({HR_SYSTEMS}, {n10}) (6 iterations) vs "
+            "plain, bitwise: " + ", ".join(f"{k} {v:.3e}" for k, v in k_err.items())
+            + "; K11 |A x - b| / |b| (tridiag_matvec, in float64): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in resid.items()))
+
+    # (f) the main paths at high resolution
+    with tempfile.TemporaryDirectory() as tmp:
+        nx = max(HR_CLASSIC_NX)
+        st = ebt.SpaceTime.sin(nx, HR_CLASSIC_NT, 2)
+        if resolve_engine("Classic", st, dev) != "fused":
+            fail(f"phase 22: engine='auto' does not resolve to the fused engine at nx={nx}")
+        ramp = ebt.Forcing(0.0, 1.0, 0.0, (0, 0), (1.0, -1.0))
+        cpar = ebt.default_parameters("Classic")
+        E0 = np.full(nx, 30.0)
+
+        def run(path, **kw):
+            return ebt.integrate("Classic", st, ramp, cpar, {"E": E0, "Tg": E0 / cpar["cw"]},
+                                 device=dev, progress=False, raw_mode="none", engine="auto",
+                                 checkpoint=path, **kw)
+
+        years_of = lambda args: args[2]
+        ref, cut = os.path.join(tmp, "full.h5"), os.path.join(tmp, "cut.h5")
+        classic_year.launches = 0
+        t0 = time.perf_counter()
+        full, _ = _checkpointed(ckpt, "write_checkpoint", years_of, lambda: run(ref), None, 22)
+        full_s = time.perf_counter() - t0
+        full_launches = classic_year.launches
+        _checkpointed(ckpt, "write_checkpoint", years_of, lambda: run(cut), 1, 22)
+        classic_year.launches = 0
+        resumed, _ = _checkpointed(ckpt, "write_checkpoint", years_of,
+                                   lambda: run(cut, resume=True), None, 22)
+        resume_launches = classic_year.launches
+        if (full_launches, resume_launches) != (2, 1):
+            fail(f"phase 22: the Classic run made {full_launches} + {resume_launches} "
+                 "classic_year launches, expected 2 + 1")
+        _same_tree(tuple(resumed.seasonal), tuple(full.seasonal), "Classic seasonal", 22)
+        _same_tree(ckpt.read_checkpoint(cut)[0], ckpt.read_checkpoint(ref)[0], "Classic carry",
+                   22)
+        if not np.isfinite(full.seasonal.avg["E"]).all():
+            fail("phase 22: the Classic high-resolution run is not finite")
+        out["classic"] = dict(launches=full_launches + resume_launches,
+                              s_per_year=full_s / st.dur)
+        say(22, f"integrate('Classic', {st!r}, {ramp!r}, engine='auto', checkpoint=...) f32: "
+                f"{full_s / st.dur:.3f} s per year, {full_launches} classic_year launches; "
+                f"interrupted after year 1 and resumed with {resume_launches} launch, every "
+                f"seasonal store and the final carry bitwise the uninterrupted run's; {smi}")
+
+    nx, nt = HR_MIZ_MAIN
+    st = ebt.SpaceTime.sin(nx, nt, 1)
+    miz_year.launches = 0
+    t0 = time.perf_counter()
+    sol = ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
+                        ebt.zeros_init(st), dtype="float32", device=dev, progress=False,
+                        raw_mode="none", engine="auto")
+    secs = time.perf_counter() - t0
+    finite = all(np.isfinite(store[k]).all() for store in sol.seasonal
+                 for k in ("E", "T", "h", "Ei", "Ew", "D", "phi", "n"))
+    if miz_year.launches != 1 or not finite:
+        fail(f"phase 22: MIZ {st!r}: {miz_year.launches} miz_year launches, finite={finite}")
+    out["miz"] = dict(launches=miz_year.launches, s_per_year=secs, shape=f"{st!r} float32")
+    say(22, f"integrate('MIZ', {st!r}, Forcing(0.0), engine='auto', raw_mode='none') f32: "
+            f"{secs:.3f} s for the year ({secs / nt * 1e6:.2f} us per step), 1 miz_year launch, "
+            f"every seasonal store finite (nx^2/nt = {nx ** 2 / nt:.2f}); {smi}")
+
+    # the batched engine at the wide widths: K11 under Classic's implicit
+    # step, K10 under MIZ's T0 solve
+    for model, solver, counter, nx in (("Classic", "pcr_fused", pcr_fused, n11),
+                                       ("MIZ", "pallas", newton_t0, n10)):
+        st = ebt.SpaceTime.sin(nx, HR_BATCHED_NT, 1)
+        par = ebt.default_parameters(model)
+        if model == "MIZ":
+            par["D"] = par["D"] * COUPLING * HR_BATCHED_NT / nx ** 2 * np.array([1.0, 1.1])
+            init = ebt.zeros_init(st)
+        else:
+            par["D"] = np.array([0.55, 0.65])
+            init = {"E": np.full(nx, 30.0), "Tg": np.full(nx, 30.0) / par["cw"]}
+        counter.launches = 0
+        res, batched_ms = _host_ms(lambda: ebt.ensemble_integrate(
+            model, st, ebt.Forcing(0.0), par, init, engine="batched", solver=solver,
+            dtype="float32", device=dev, progress=False))
+        finite = bool(np.isfinite(res.seasonal.avg["E"]).all())
+        if counter.launches <= 0 or not finite:
+            fail(f"phase 22: batched {model} solver={solver!r} at nx={nx}: "
+                 f"{counter.launches} launches, finite={finite}")
+        out[counter.__name__] = dict(launches=counter.launches, ms=batched_ms)
+        say(22, f"ensemble_integrate('{model}', engine='batched', solver={solver!r}) K=2 "
+                f"{st!r} f32: {batched_ms / 1e3:.3f} s, {counter.__name__} launches "
+                f"+{counter.launches}, finite")
+
+    out.update(err=err, noise_err=noise_err, k_err=k_err, resid=resid, ms=ms, resident=resident)
+    say(22, f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1285,6 +1746,9 @@ def main():
     say(2, "Classic and K11 builds, registers and members (systems) per SM (design): " + ", ".join(
         f"{name} {regs} regs {members} ({want})"
         for name, (regs, members, want) in classic_occ.items()))
+    wide_builds = check_wide_builds(ptxas)
+    say(2, "wide builds (every per-cell value in device memory), registers, no spill stores: "
+        + ", ".join(f"{name} {used}" for name, used in wide_builds.items()))
 
     def setup(nx, nt, K, dtype, D=(0.55, 0.65)):
         st = ebt.SpaceTime.sin(nx, nt, 1)
@@ -1310,9 +1774,7 @@ def main():
         return float(np.max(np.abs(np.nan_to_num(a) - np.nan_to_num(b)), initial=0.0)), \
             bool(np.allclose(np.nan_to_num(a), np.nan_to_num(b), rtol=BAR_F64, atol=BAR_F64))
 
-    def bitwise(a, b):
-        return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
-            torch.nan_to_num(a), torch.nan_to_num(b))
+    bitwise = _bitwise
 
     def compare(out_k, out_p, label, bar=None):
         """Max |kernel - plain| over the carry, the seasonal stores and (when
@@ -1703,17 +2165,7 @@ def main():
                f"checksum(avg.E)={float(np.sum(out.seasonal.avg['E'], dtype=np.float64)):.6e}")
 
     # -- 10. timing: Classic per model year, K11 and K10 per call -------------
-    def kernel_time(fn, n):
-        """ms per call by CUDA events over n launches after a warm-up."""
-        fn()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / n
+    kernel_time = _event_ms
 
     def device_time(fn, n, kernel):
         """ms per call that the device spent in kernels whose name holds
@@ -2108,6 +2560,7 @@ def main():
     eq_run = equilibrium_phases(dev, smi)
     search_run = search_phases(dev, smi)
     ckpt_run = checkpoint_phase(dev, smi)
+    hr_run = highres_phase(dev, smi)
 
     # -- the least time the card could take for each kernel's work ------------
     # NVIDIA's H100 SXM data sheet (dense rates, 700 W):
@@ -2129,25 +2582,28 @@ def main():
             "bytes" if t_bytes >= t_ops else "operations"
 
     nx, K = CANONICAL[0], K_MAIN
-    pcr_levels = int(np.ceil(np.log2(nx)))
-    pcr_flops = 5 + 12 * pcr_levels  # row scaling, 12 per level, the last division
+    pcr_at = lambda n: 5 + 12 * int(np.ceil(np.log2(n)))  # PCR flops per row of an n-row system:
+    pcr_flops = pcr_at(nx)  # the row scaling, 12 per level, the last division
     # flops per cell and step, counted from csrc/miz_year.cu and
     # csrc/classic_year.cu: a MIZ step without its Newton updates (step
     # inputs 13, the first T0 residual and bands 35, its block max 7, the
     # tolerance and flag 4, the update of the five fields and the stores
-    # 139), each MIZ Newton update (the PCR solve, the clipped step 3, a new
-    # residual 35, its block max 7, the test 1), a Classic step with its PCR
-    miz_step, miz_update, classic_step = 198, pcr_flops + 46, 40 + pcr_flops
+    # 139); each MIZ Newton update is the PCR solve and 46 more (the clipped
+    # step 3, a new residual 35, its block max 7, the test 1), a Classic step
+    # 40 and its PCR
+    miz_step = 198
     draw_int, draw_flops = 118, 50  # one draw: the cipher, then the float pipeline
 
-    def year_bound(model, mode, itemsize=4, newton_updates=0):
-        """A canonical K=8192 year; ``newton_updates``: the Newton updates of
-        all members, as the kernel counted them in this run."""
+    def year_bound(model, mode, itemsize=4, newton_updates=0, shape=(K, nx, nt)):
+        """A year of ``shape`` (K, nx, nt), the canonical K=8192 year by
+        default; ``newton_updates``: the Newton updates of all members, as
+        the kernel counted them in this run (or made them: a fixed count)."""
+        K, nx, nt = shape
         n_carry, n_out, n_par = (6, 10, 23) if model == "MIZ" else (2, 3, 18)
         nbytes = itemsize * (K * nx * (2 * n_carry + 3 * n_out) + K * (n_par + 1) + 5 * nx
                              + 2 * nt)
-        flops = (K * nx * nt * (miz_step if model == "MIZ" else classic_step)
-                 + nx * newton_updates * miz_update)
+        flops = (K * nx * nt * (miz_step if model == "MIZ" else 40 + pcr_at(nx))
+                 + nx * newton_updates * (pcr_at(nx) + 46))
         ints = 0.0
         if mode.startswith("keys") or mode == "table/OU":
             nbytes += itemsize * 4 * K  # OU rows in, eta out
@@ -2267,7 +2723,44 @@ def main():
                 shape=year_shape.replace("float32", "float64") if f64 else year_shape,
                 path=("transitions (phase 13)" if launches_of.get(mode, 0)
                       else "none: an ops-level mode, no entry point uses it")))
-    say(21, f"total {time.perf_counter() - t_start:.0f} s")
+    # the wide builds (phase 22), each at the shape phase 22 times it and its
+    # plain version; launches from phase 22's main paths
+    hr, hms = hr_run, hr_run["ms"]
+    nxc, nxm, n11, n10 = max(HR_CLASSIC_NX), HR_MIZ_TIMED, max(HR_CLASSIC_NX), max(HR_MIZ_NX)
+    worst = lambda d, prefix: max(v for k, v in d.items() if k.startswith(prefix))
+    kernels["kernels"] += [
+        entry("classic_year[wide]", "classic_year.cu", f"{py}:1378", hr["classic"]["launches"],
+              worst(hr["err"], "Classic"), hms["classic"], hms["classic_plain"],
+              year_bound("Classic", "det", shape=(1, nxc, HR_CLASSIC_NT)),
+              also_replaces=f"{py}:1628",
+              max_abs_err_noise_modes=worst(hr["noise_err"], "Classic"),
+              s_per_year_main_path=hr["classic"]["s_per_year"],
+              shape=f"K=1 nx={nxc} nt={HR_CLASSIC_NT} float32, one model year",
+              path="integrate (phase 22), checkpointed and resumed"),
+        entry("miz_year[wide]", "miz_year.cu", f"{py}:352", hr["miz"]["launches"],
+              worst(hr["err"], "MIZ"), hms["miz"], hms["miz_plain"],
+              year_bound("MIZ", "det", newton_updates=2 * HR_MIZ_NT, shape=(1, nxm, HR_MIZ_NT)),
+              also_replaces=f"{py}:458", max_abs_err_noise_modes=worst(hr["noise_err"], "MIZ"),
+              s_per_year_main_path=hr["miz"]["s_per_year"], main_path_shape=hr["miz"]["shape"],
+              shape=f"K=1 nx={nxm} nt={HR_MIZ_NT} float32, D scaled, 2 fixed Newton updates",
+              path="integrate (phase 22)"),
+        entry("pcr_fused[wide]", "pcr.cu", "energybalancemodel_jl_tpu/ops/pallas_tridiag.py:29",
+              hr["pcr_fused"]["launches"], worst(hr["k_err"], "K11"), hms["pcr"],
+              hms["pcr_plain"], bound(4 * 5 * HR_SYSTEMS * n11, HR_SYSTEMS * n11 * pcr_at(n11)),
+              None, library_call=(f"none: the dense ({HR_SYSTEMS}, {n11}, {n11}) systems of "
+                                  "torch.linalg.solve would take 275 GB"),
+              residual_f32=hr["resid"]["K11 torch.float32 per-system"],
+              shape=f"({HR_SYSTEMS}, {n11}) float32, one solve",
+              path="batched engine, Classic (phase 22)"),
+        entry("newton_t0[wide]", "newton_t0.cu",
+              "energybalancemodel_jl_tpu/ops/pallas_newton.py:90", hr["newton_t0"]["launches"],
+              worst(hr["k_err"], "K10"), hms["newton"], hms["newton_plain"],
+              bound(4 * (6 * HR_SYSTEMS * n10 + 3 * n10 + HR_SYSTEMS),
+                    HR_SYSTEMS * n10 * 6 * (33 + pcr_at(n10) + 3)),
+              shape=f"({HR_SYSTEMS}, {n10}) float32, 6 Newton iterations",
+              path="batched engine, MIZ (phase 22)"),
+    ]
+    say(22, f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,12 @@
 //     keep fewer members per SM resident (long noisy years, whose rows fill
 //     shared memory): ONE THREAD BLOCK PER MEMBER (classic_year_kernel),
 //     grid cells strided over at most 1024 threads (CPT = 1, 2 or 4 cells
-//     per thread).
+//     per thread);
+//   - nx > 4096 (up to 32768, the JAX package's fused single-run reach):
+//     the WIDE build (classic_wide_kernel, below), one block per member with
+//     every cell's state and the PCR rows in device memory.
 //
-// Each thread keeps its cells' carry (E, Tg), their per-member constants
+// Each thread of the register builds keeps its cells' carry (E, Tg), their per-member constants
 // (insolation factor S0 - S2 x^2, water coalbedo, implicit-matrix bands) and
 // the three annual sums in registers for all nt steps (the deterministic
 // and the float64 warp builds keep the constants in the warp's shared
@@ -76,6 +79,51 @@ enum Row {
   P_F, P_S0, P_S1, P_S2, P_A0, P_A2, N_ROWS
 };
 
+// the member's scalars that a cell's step reads
+template <typename T>
+struct ClassicMember {
+  T cg_tau, dt_tau, dc, M, kLf, ai, A, Fb, cw, Lf;
+};
+
+// One cell's step before the implicit solve (models/classic.py::step): from
+// the carry (E, Tg) and the cell's constants, the updated E, the step's
+// outputs (E, T, h) and the cell's row of the Tg system (di, b; lo and up
+// are the member's constant bands). Shared by the block and wide builds.
+template <typename T>
+struct ClassicCell {
+  T out[N_OUT];  // En, Tc, h
+  T di, b;
+};
+
+template <typename T>
+__device__ __forceinline__ ClassicCell<T> classic_cell(const ClassicMember<T>& p, T Ec, T Tgc,
+                                                       T xc, T SA, T aw, T kdi0, T s1c, T s1n,
+                                                       T f, T dt) {
+  const T pos = Ec > T(0) ? T(1) : T(0);
+  const T neg = Ec < T(0) ? T(1) : T(0);
+  const T nonneg = Ec >= T(0) ? T(1) : T(0);
+  const T alpha = aw * pos + p.ai * neg;  // zero at E == 0
+  const T S_i = SA - s1c * xc;
+  const T C = alpha * S_i + p.cg_tau * Tgc - p.A + f;
+  const T T0 = Ec == T(0) ? T(0) : C / (p.M - p.kLf / Ec);
+  const T t0neg = T0 < T(0) ? T(1) : T(0);
+  const T Tc = Ec / p.cw * nonneg + T0 * (neg * t0neg);  // pre-update E
+  const T En = Ec + dt * (C - p.M * Tc + p.Fb);
+
+  const T negn = En < T(0) ? T(1) : T(0);
+  const T nonnegn = En >= T(0) ? T(1) : T(0);
+  const T denom = p.M - p.kLf / (En == T(0) ? T(1) : En);
+  const T mask = t0neg * negn;
+  const T S_ip1 = SA - s1n * xc;  // the wraparound row S_{i+1}
+  ClassicCell<T> r;
+  r.di = kdi0 - p.dc / denom * mask;
+  r.b = Tgc + p.dt_tau * (En / p.cw * nonnegn + (p.ai * S_ip1 - p.A + f) / denom * mask);
+  r.out[0] = En;
+  r.out[1] = Tc;
+  r.out[2] = -En / p.Lf * negn;
+  return r;
+}
+
 // MIN_BLOCKS blocks of MAX_THREADS share an SM: the compiler is held to the
 // registers that allows
 template <typename T, int CPT, int MAX_THREADS, int MIN_BLOCKS, bool NOISY>
@@ -101,6 +149,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
           kLf = p[P_KLF], dtD = p[P_DTD], cg = p[P_CG], ai = p[P_AI], A = p[P_A],
           Fb = p[P_FB], cw = p[P_CW], Lf = p[P_LF], Foff = p[P_F], S0 = p[P_S0],
           S1 = p[P_S1], S2 = p[P_S2], a0 = p[P_A0], a2 = p[P_A2];
+  const ClassicMember<T> mb{cg_tau, dt_tau, dc, M, kLf, ai, A, Fb, cw, Lf};
 
   // per cell: carry, the member's constants (models/classic.py::statics),
   // annual sums
@@ -135,31 +184,15 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     T lo[CPT], di[CPT], up[CPT], b[CPT], out[CPT][N_OUT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
-      const T Ec = E[c];
-      const T pos = Ec > T(0) ? T(1) : T(0);
-      const T neg = Ec < T(0) ? T(1) : T(0);
-      const T nonneg = Ec >= T(0) ? T(1) : T(0);
-      const T alpha = aw[c] * pos + ai * neg;  // zero at E == 0
-      const T S_i = SA[c] - s1c * x[c];
-      const T C = alpha * S_i + cg_tau * Tg[c] - A + f;
-      const T T0 = Ec == T(0) ? T(0) : C / (M - kLf / Ec);
-      const T t0neg = T0 < T(0) ? T(1) : T(0);
-      const T Tc = Ec / cw * nonneg + T0 * (neg * t0neg);  // pre-update E
-      const T En = Ec + dt * (C - M * Tc + Fb);
-
-      const T negn = En < T(0) ? T(1) : T(0);
-      const T nonnegn = En >= T(0) ? T(1) : T(0);
-      const T denom = M - kLf / (En == T(0) ? T(1) : En);
-      const T mask = t0neg * negn;
-      const T S_ip1 = SA[c] - s1n * x[c];
+      const ClassicCell<T> r = classic_cell(mb, E[c], Tg[c], x[c], SA[c], aw[c], kdi0[c], s1c,
+                                            s1n, f, dt);
       lo[c] = klo[c];
-      di[c] = kdi0[c] - dc / denom * mask;
+      di[c] = r.di;
       up[c] = kup[c];
-      b[c] = Tg[c] + dt_tau * (En / cw * nonnegn + (ai * S_ip1 - A + f) / denom * mask);
-      out[c][0] = En;
-      out[c][1] = Tc;
-      out[c][2] = -En / Lf * negn;
-      E[c] = En;
+      b[c] = r.b;
+#pragma unroll
+      for (int v = 0; v < N_OUT; ++v) out[c][v] = r.out[v];
+      E[c] = r.out[0];
     }
     pcr_solve<T, CPT>(lo, di, up, b, s, nx, pcr_steps);
 
@@ -214,6 +247,116 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     cout[plane + idx] = Tg[c];
 #pragma unroll
     for (int v = 0; v < N_OUT; ++v) avg[v * plane + idx] = acc[c][v] / ntf;
+  }
+}
+
+// THE WIDE BUILD (4096 < nx <= MAX_WIDE_NX, common.cuh): one block of
+// wide_year_threads<T>() per member, each cell's record (its carry, constants, three
+// sums and crossing value) and the PCR rows in the block's workspace of
+// device memory at ws + blockIdx.x * classic_wide_words(nx); the block loops
+// over members m, m + gridDim.x, ... Every value is computed by
+// classic_cell, in the block build's order; the outputs are summed and
+// stored before the solve, which does not read them, and the crossing area
+// is summed in the block layout's order (noise.cuh::wide_noise_crossing).
+constexpr int MAX_WIDE_NX = 32768;
+// a cell's record: the carry, the member's constants for the cell, the
+// crossing value, the sums
+enum WideField { W_E, W_TG, W_X, W_SA, W_AW, W_KLO, W_KDI0, W_KUP, W_CROSS, W_ACC,
+                 N_WIDE_FIELDS = W_ACC + N_OUT };
+
+__host__ __device__ inline size_t classic_wide_words(int nx) {
+  return wide_stride(wide_pcr_words(nx) + (size_t)N_WIDE_FIELDS * nx);
+}
+
+template <typename T, bool NOISY>
+__global__ void __launch_bounds__(wide_year_threads<T>(), 1)
+    classic_wide_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
+                        const T* __restrict__ cols, const T* __restrict__ cosv,
+                        const T* __restrict__ fyear, T* __restrict__ cout,
+                        T* __restrict__ wint, T* __restrict__ summ, T* __restrict__ avg,
+                        T* __restrict__ raw, NoiseArgs<T> nz, T* ws, int K, int nx, int nt,
+                        int w0, int s0, int pcr_steps, T dt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the slots of the crossing sum, the noise rows
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  RedSmem<T> cross_red{sm, 0};
+  __shared__ T p[N_ROWS];
+  T* w = ws + (size_t)blockIdx.x * classic_wide_words(nx);
+  const WidePcr<T> pcr = wide_pcr_begin(w, nx);
+  T* fld = w + wide_pcr_words(nx);  // the cells' records
+  const size_t plane = (size_t)K * nx;
+  const bool crossing = NOISY && nz.cross_out != nullptr;
+
+  for (int m = blockIdx.x; m < K; m += gridDim.x) {
+    __syncthreads();  // the last member's reads of p and of the noise row are done
+    if (threadIdx.x < N_ROWS) p[threadIdx.x] = pars[(size_t)m * N_ROWS + threadIdx.x];
+    __syncthreads();
+    const T cg_tau = p[P_CG_TAU], dt_tau = p[P_DT_TAU], dc = p[P_DC], M = p[P_M],
+            kLf = p[P_KLF], dtD = p[P_DTD], cg = p[P_CG], ai = p[P_AI], A = p[P_A],
+            Fb = p[P_FB], cw = p[P_CW], Lf = p[P_LF], Foff = p[P_F], S0 = p[P_S0],
+            S1 = p[P_S1], S2 = p[P_S2], a0 = p[P_A0], a2 = p[P_A2];
+    const ClassicMember<T> mb{cg_tau, dt_tau, dc, M, kLf, ai, A, Fb, cw, Lf};
+    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+      T* c = fld + (size_t)i * N_WIDE_FIELDS;
+      c[W_X] = cols[i];
+      const T x2 = cols[nx + i];
+      c[W_SA] = S0 - S2 * x2;
+      c[W_AW] = a0 - a2 * x2;
+      c[W_KLO] = -dtD * cols[2 * nx + i] / cg;
+      c[W_KDI0] = (T(1) + dt_tau) - dtD * cols[3 * nx + i] / cg;
+      c[W_KUP] = -dtD * cols[4 * nx + i] / cg;
+      c[W_E] = cin[(size_t)m * nx + i];
+      c[W_TG] = cin[plane + (size_t)m * nx + i];
+      for (int v = 0; v < N_OUT; ++v) c[W_ACC + v] = T(0);
+    }
+
+    NoiseState<T> ns;
+    if (NOISY) ns = noise_begin(nz, sm + RED_SLOTS, m, K, nt);
+
+    for (int t = 0; t < nt; ++t) {
+      const T s1c = S1 * cosv[t];
+      const T s1n = S1 * cosv[t + 1];  // the wraparound row S_{i+1}
+      T f = fyear[t] + Foff;
+      if (NOISY) f = noise_forcing(nz, ns, f, t);
+      for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+        T* c = fld + (size_t)i * N_WIDE_FIELDS;
+        const ClassicCell<T> r = classic_cell(mb, c[W_E], c[W_TG], c[W_X], c[W_SA], c[W_AW],
+                                              c[W_KDI0], s1c, s1n, f, dt);
+        c[W_E] = r.out[0];
+        // step 0's outputs seed the sums, as in the plain version
+        for (int v = 0; v < N_OUT; ++v)
+          c[W_ACC + v] = t == 0 ? r.out[v] : c[W_ACC + v] + r.out[v];
+        const size_t idx = (size_t)m * nx + i;
+        if (t == w0 || t == s0) {
+          T* snap = t == w0 ? wint : summ;
+          for (int v = 0; v < N_OUT; ++v) snap[v * plane + idx] = r.out[v];
+          if (t == w0 && t == s0) {
+            for (int v = 0; v < N_OUT; ++v) summ[v * plane + idx] = r.out[v];
+          }
+        }
+        if (raw != nullptr) {
+          T* row = raw + (size_t)t * N_OUT * plane;
+          for (int v = 0; v < N_OUT; ++v) row[v * plane + idx] = r.out[v];
+        }
+        if (crossing) c[W_CROSS] = nz.wts[i] * (r.out[0] < T(0) ? T(1) : T(0));
+        wide_pcr_row(pcr, i, c[W_KLO], r.di, c[W_KUP], r.b);
+      }
+      if (crossing) wide_noise_crossing(ns, fld + W_CROSS, N_WIDE_FIELDS, nx, cross_red, t);
+      const PcrRow<T>* solved = wide_pcr_solve(pcr, pcr_steps);
+      for (int i = threadIdx.x; i < nx; i += blockDim.x)
+        fld[(size_t)i * N_WIDE_FIELDS + W_TG] = wide_pcr_x(solved, i);
+    }
+    if (NOISY) noise_end(nz, ns, m, nt);
+
+    // same `sum / nt` arithmetic as the JAX kernel and storage path
+    const T ntf = T(nt);
+    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+      const T* c = fld + (size_t)i * N_WIDE_FIELDS;
+      const size_t idx = (size_t)m * nx + i;
+      cout[idx] = c[W_E];
+      cout[plane + idx] = c[W_TG];
+      for (int v = 0; v < N_OUT; ++v) avg[v * plane + idx] = c[W_ACC + v] / ntf;
+    }
   }
 }
 
@@ -494,11 +637,39 @@ int launch_warp(cudaStream_t stream, const void* cin, const void* pars, const vo
   return (int)cudaGetLastError();
 }
 
+// the wide build on min(K, ws_blocks) blocks, each with its workspace of
+// classic_wide_words(nx) words at ws
+template <typename T, bool NOISY>
+int launch_wide(cudaStream_t stream, const void* cin, const void* pars, const void* cols,
+                const void* cosv, const void* f, void* cout, void* wint, void* summ, void* avg,
+                void* raw, const NoiseArgs<T>& nz, void* ws, int ws_words, int ws_blocks, int K,
+                int nx, int nt, int w0, int s0, int pcr_steps, double dt) {
+  const size_t shmem =
+      RED_SLOTS * sizeof(T) + (NOISY ? noise_shared_bytes<T>(nt, nz.ou_mode) : 0);
+  if (ws == nullptr || ws_blocks < 1 || (size_t)ws_words != classic_wide_words(nx) ||
+      shmem > MAX_SHARED_BYTES)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = classic_wide_kernel<T, NOISY>;
+  const cudaError_t err = allow_shared(kernel, shmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<K < ws_blocks ? K : ws_blocks, wide_year_threads<T>(), shmem, stream>>>(
+      static_cast<const T*>(cin), static_cast<const T*>(pars),
+      static_cast<const T*>(cols), static_cast<const T*>(cosv),
+      static_cast<const T*>(f), static_cast<T*>(cout), static_cast<T*>(wint),
+      static_cast<T*>(summ), static_cast<T*>(avg), static_cast<T*>(raw), nz,
+      static_cast<T*>(ws), K, nx, nt, w0, s0, pcr_steps, T(dt));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool NOISY>
 int launch_noise(cudaStream_t st, const void* cin, const void* pars, const void* cols,
                  const void* cosv, const void* f, void* cout, void* wint, void* summ,
-                 void* avg, void* raw, const NoiseArgs<T>& nz, int K, int nx, int nt,
-                 int w0, int s0, int pcr_steps, double dt, int warp_min_k) {
+                 void* avg, void* raw, const NoiseArgs<T>& nz, void* ws, int ws_words,
+                 int ws_blocks, int K, int nx, int nt, int w0, int s0, int pcr_steps, double dt,
+                 int warp_min_k) {
+  if (nx > 4096)
+    return launch_wide<T, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, nz,
+                                 ws, ws_words, ws_blocks, K, nx, nt, w0, s0, pcr_steps, dt);
   // the associative OU scan (ou_mode 2) runs on the block build: its
   // nt-long work rows in shared memory left a warp build 12 members per SM,
   // six rounds of them at K = 8192, slower than the block build (PERF.md
@@ -526,18 +697,20 @@ template <typename T>
 int launch(const void* cin, const void* pars, const void* cols, const void* cosv,
            const void* f, void* cout, void* wint, void* summ, void* avg, void* raw,
            const void* noise, const void* keys, const void* ou, void* eta_out,
-           const void* cross, void* cross_out, const void* wts, int K, int nx, int nt,
-           int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll, int warp_min_k, double dt,
-           void* stream) {
-  if (K < 1 || nx < 1 || nx > 4096 || nt < 1) return (int)cudaErrorInvalidValue;
+           const void* cross, void* cross_out, const void* wts, void* ws, int K, int nx,
+           int nt, int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll, int warp_min_k,
+           int ws_words, int ws_blocks, double dt, void* stream) {
+  if (K < 1 || nx < 1 || nx > MAX_WIDE_NX || nt < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const NoiseArgs<T> nz = noise_args<T>(noise, keys, ou, eta_out, cross, cross_out, wts,
                                         ou_mode, ou_unroll);
   if (noise != nullptr || keys != nullptr)
     return launch_noise<T, true>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
-                                 nz, K, nx, nt, w0, s0, pcr_steps, dt, warp_min_k);
+                                 nz, ws, ws_words, ws_blocks, K, nx, nt, w0, s0, pcr_steps, dt,
+                                 warp_min_k);
   return launch_noise<T, false>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
-                                nz, K, nx, nt, w0, s0, pcr_steps, dt, warp_min_k);
+                                nz, ws, ws_words, ws_blocks, K, nx, nt, w0, s0, pcr_steps, dt,
+                                warp_min_k);
 }
 
 }  // namespace
@@ -548,24 +721,24 @@ int ebm_classic_year_f32(const void* cin, const void* pars, const void* cols,
                          const void* cosv, const void* f, void* cout, void* wint,
                          void* summ, void* avg, void* raw, const void* noise,
                          const void* keys, const void* ou, void* eta_out, const void* cross,
-                         void* cross_out, const void* wts, int K, int nx, int nt,
+                         void* cross_out, const void* wts, void* ws, int K, int nx, int nt,
                          int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll,
-                         int warp_min_k, double dt, void* stream) {
+                         int warp_min_k, int ws_words, int ws_blocks, double dt, void* stream) {
   return launch<float>(cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, noise, keys, ou,
-                       eta_out, cross, cross_out, wts, K, nx, nt, w0, s0, pcr_steps, ou_mode,
-                       ou_unroll, warp_min_k, dt, stream);
+                       eta_out, cross, cross_out, wts, ws, K, nx, nt, w0, s0, pcr_steps,
+                       ou_mode, ou_unroll, warp_min_k, ws_words, ws_blocks, dt, stream);
 }
 
 int ebm_classic_year_f64(const void* cin, const void* pars, const void* cols,
                          const void* cosv, const void* f, void* cout, void* wint,
                          void* summ, void* avg, void* raw, const void* noise,
                          const void* keys, const void* ou, void* eta_out, const void* cross,
-                         void* cross_out, const void* wts, int K, int nx, int nt,
+                         void* cross_out, const void* wts, void* ws, int K, int nx, int nt,
                          int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll,
-                         int warp_min_k, double dt, void* stream) {
+                         int warp_min_k, int ws_words, int ws_blocks, double dt, void* stream) {
   return launch<double>(cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, noise, keys, ou,
-                        eta_out, cross, cross_out, wts, K, nx, nt, w0, s0, pcr_steps, ou_mode,
-                        ou_unroll, warp_min_k, dt, stream);
+                        eta_out, cross, cross_out, wts, ws, K, nx, nt, w0, s0, pcr_steps,
+                        ou_mode, ou_unroll, warp_min_k, ws_words, ws_blocks, dt, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Device code shared by the package's kernels (miz_year.cu, classic_year.cu,
 // pcr.cu, newton_t0.cu): NaN-aware helpers, a block-wide max of magnitudes,
 // and the row-scaled parallel cyclic reduction of ops/tridiag.py::pcr_solve,
-// for one system per block in shared memory (pcr_solve) and for one system
-// per warp in registers (warp_pcr_solve).
+// for one system per block in shared memory (pcr_solve), for one system per
+// warp in registers (warp_pcr_solve), and for one system per block in
+// device memory (wide_pcr_solve, the wide builds above 4096 rows).
 //
 // Every helper performs the same operations in the same order as the plain
 // PyTorch code it stands for, so a kernel built with -fmad=false rounds where
@@ -121,10 +122,18 @@ __device__ __forceinline__ double key_value(unsigned long long key) {
 // reduces in one instruction (two in float64) instead of five shuffles with
 // a NaN-aware compare each: the same value, NaN for any NaN, +0 for -0 (the
 // callers only compare the result). Every thread of the block calls it.
+template <typename T> struct KeyOf;
+template <> struct KeyOf<float> { using type = unsigned; };
+template <> struct KeyOf<double> { using type = unsigned long long; };
 template <typename T>
-__device__ __forceinline__ T block_max_magnitude(T v, RedSmem<T>& red) {
-  auto key = warp_max_key(magnitude_key(v));
-  using Key = decltype(key);
+using MagnitudeKey = typename KeyOf<T>::type;
+
+// the same max from each thread's key (the largest of its cells' keys, 0
+// for a thread with none: a max is the same in any grouping)
+template <typename T>
+__device__ __forceinline__ T block_max_key(MagnitudeKey<T> key, RedSmem<T>& red) {
+  key = warp_max_key(key);
+  using Key = MagnitudeKey<T>;
   static_assert(sizeof(Key) == sizeof(T), "a key fills a slot");
   Key* slots = reinterpret_cast<Key*>(red_turn(red));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -132,6 +141,11 @@ __device__ __forceinline__ T block_max_magnitude(T v, RedSmem<T>& red) {
   __syncthreads();
   key = lane < (int)(blockDim.x >> 5) ? slots[lane] : Key(0);
   return key_value(warp_max_key(key));
+}
+
+template <typename T>
+__device__ __forceinline__ T block_max_magnitude(T v, RedSmem<T>& red) {
+  return block_max_key<T>(magnitude_key(v), red);
 }
 
 // One row (lo, di, up, b) of a PCR system in shared memory: 16 bytes in
@@ -370,8 +384,140 @@ __device__ __forceinline__ void warp_pcr_solve(T (&lo)[S], T (&di)[S], T (&up)[S
   for (int s = 0; s < S; ++s) b[s] = b[s] / di[s];
 }
 
-// rows per thread of a block that strides n rows over at most 1024 threads
-inline int rows_per_thread(int n) { return n <= 1024 ? 1 : (n <= 2048 ? 2 : 4); }
+// -- THE WIDE BUILDS (the year kernels above their register builds' widths,
+// K10 and K11 above n = 4096): one block of WIDE_THREADS threads per member,
+// rows strided over them (row i at thread i % WIDE_THREADS), and every
+// per-row value in a workspace of device memory that the block owns (the
+// state of 32768 cells does not fit an SM's registers and shared memory).
+// 512 threads leave a thread 128 registers (1024 would leave 64, and one
+// cell's year step spilled there). A block loops over members m, m + gridDim.x, ...,
+// so the workspace scales with the blocks launched, not with K. The
+// workspace is read and written through plain pointers: a load through the
+// read-only path (const __restrict__, ld.global.nc) is not coherent with the
+// block's own writes. A __syncthreads() orders the block's global writes
+// before its reads as it orders shared ones.
+//
+// The PCR of a wide block: two buffers of rows in the workspace, each with
+// one identity row on each side, written level by level in turn:
+//   [I][buffer 0: n][I] [I][buffer 1: n][I]
+// A level reads its row and the rows at i -+ st of one buffer, the reach
+// clamped onto the identity rows (the semantics of pcr_level's CPT > 1
+// branch, and of ops/tridiag.py::pcr_solve's fills), and writes the next
+// buffer: one barrier per level (write, ONE barrier, read, as above).
+constexpr int WIDE_THREADS = 512;
+
+// the threads of a wide year kernel's blocks (miz_year.cu, classic_year.cu):
+// in float64 one cell's step needs more registers than a block of
+// WIDE_THREADS leaves (128), so its blocks have half the threads (255)
+template <typename T>
+constexpr int wide_year_threads() {
+  return sizeof(T) == 8 ? WIDE_THREADS / 2 : WIDE_THREADS;
+}
+
+template <typename T>
+struct WidePcr {
+  PcrRow<T>* rows;  // row 0 of buffer 0; buffer 1 is n + 2 rows on
+  int n;
+};
+
+// words of T the two buffers take
+__host__ __device__ inline size_t wide_pcr_words(int n) { return 8 * (size_t)(n + 2); }
+
+// Lay the buffers out at the start of the block's workspace (aligned to a
+// row) and write the identity rows, once per kernel: no level writes them.
+// The barrier before a solve's first level orders them before any read.
+template <typename T>
+__device__ __forceinline__ WidePcr<T> wide_pcr_begin(T* ws, int n) {
+  PcrRow<T>* rows = reinterpret_cast<PcrRow<T>*>(ws) + 1;
+  if (threadIdx.x < 4) {  // rows -1 and n of both buffers
+    PcrRow<T>* buf = rows + (threadIdx.x >> 1) * (n + 2);
+    store_row(buf + ((threadIdx.x & 1) ? n : -1), T(0), T(1), T(0), T(0));
+  }
+  return WidePcr<T>{rows, n};
+}
+
+// row i of the system into buffer 0, row-scaled as pcr_solve scales it
+template <typename T>
+__device__ __forceinline__ void wide_pcr_row(const WidePcr<T>& s, int i, T lo, T di, T up,
+                                             T b) {
+  const T inv = T(1) / di;
+  store_row(s.rows + i, lo * inv, T(1), up * inv, b * inv);
+}
+
+// One doubling level at stride st, the operations of pcr_level in its
+// order. A thread loads ROWS of its rows (each with its two neighbours)
+// before it computes and stores any: the compiler cannot move a load past
+// a store to the other buffer, so one row at a time would wait out a
+// device-memory round trip per row.
+template <typename T, bool FIRST>
+__device__ __forceinline__ void wide_pcr_level(const PcrRow<T>* cur, PcrRow<T>* next, int n,
+                                               int st) {
+  constexpr int ROWS = 16 / sizeof(T);
+  for (int i0 = threadIdx.x; i0 < n; i0 += ROWS * blockDim.x) {
+    PcrRow<T> o[ROWS], m[ROWS], p[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int i = i0 + r * blockDim.x;
+      if (i < n) {
+        o[r] = load_row(cur + i);
+        m[r] = load_row(cur + (i - st < -1 ? -1 : i - st));
+        p[r] = load_row(cur + (i + st > n ? n : i + st));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int i = i0 + r * blockDim.x;
+      if (i < n) {
+        const T alpha = FIRST ? -o[r].lo : safe_div(-o[r].lo, m[r].di);
+        const T beta = FIRST ? -o[r].up : safe_div(-o[r].up, p[r].di);
+        const T b = o[r].b + alpha * m[r].b + beta * p[r].b;
+        const T di = o[r].di + alpha * m[r].up + beta * p[r].lo;
+        store_row(next + i, alpha * m[r].lo, di, beta * p[r].up, b);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Solve the system whose rows every thread wrote to buffer 0
+// (wide_pcr_row): ceil(log2 n) = `steps` levels, one barrier before the
+// first and one after each. Returns the buffer of the reduced rows: row i's
+// solution is its b / di (wide_pcr_x). Every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ const PcrRow<T>* wide_pcr_solve(const WidePcr<T>& s, int steps) {
+  PcrRow<T>* cur = s.rows;
+  PcrRow<T>* next = s.rows + (s.n + 2);
+  __syncthreads();
+  for (int level = 0, st = 1; level < steps; ++level, st <<= 1) {
+    if (level == 0)
+      wide_pcr_level<T, true>(cur, next, s.n, st);
+    else
+      wide_pcr_level<T, false>(cur, next, s.n, st);
+    PcrRow<T>* sw = cur;
+    cur = next;
+    next = sw;
+  }
+  return cur;
+}
+
+template <typename T>
+__device__ __forceinline__ T wide_pcr_x(const PcrRow<T>* rows, int i) {
+  const PcrRow<T> r = load_row(rows + i);
+  return r.b / r.di;
+}
+
+// the per-block stride of a wide workspace: `words` rounded up to 32 words,
+// so every block's buffers start aligned
+__host__ __device__ inline size_t wide_stride(size_t words) { return (words + 31) / 32 * 32; }
+
+// rows per thread of a block that strides n rows over at most 1024 threads:
+// the least power of two that is enough (1, 2 or 4 up to n = 4096, the
+// register builds; more in the wide builds)
+__host__ __device__ inline int rows_per_thread(int n) {
+  int cpt = 1;
+  while (cpt * 1024 < n) cpt *= 2;
+  return cpt;
+}
 
 // slots per lane of a warp that holds n <= 256 rows: the builds have 1, 2,
 // 4, 6 or 8
@@ -380,7 +526,7 @@ inline int warp_slots(int n) {
   return s <= 2 ? s : (s <= 4 ? 4 : (s <= 6 ? 6 : 8));
 }
 
-inline int round_up_32(int v) { return ((v + 31) / 32) * 32; }
+__host__ __device__ inline int round_up_32(int v) { return ((v + 31) / 32) * 32; }
 
 // the shared memory a block can use on Hopper (232,448 bytes)
 constexpr size_t MAX_SHARED_BYTES = 232448;

@@ -7,7 +7,10 @@
 //   - pallas_year.py::_kernel     (members on sublanes, grid on lanes; the
 //     single-run 'kx' branch of pallas_miz_year).
 // On Hopper one layout serves both: ONE THREAD BLOCK PER MEMBER, one thread
-// per grid cell (blockDim = round_up(nx, 32)).
+// per grid cell (blockDim = round_up(nx, 32)) up to nx = 1024; above it (up
+// to 16384, the JAX package's fused single-run reach) the WIDE build
+// (miz_wide_kernel, below) strides the cells over the block with each
+// cell's state, the neighbour exchange and the PCR rows in device memory.
 //
 // Each thread keeps its cell's carry (Ei, Ew, h, D, phi, T0) and its ten
 // annual sums in registers for all nt steps; it writes the winter/summer
@@ -114,6 +117,113 @@ __host__ __device__ inline size_t base_shared_bytes(int nx, int pcr_steps) {
          sizeof(T) * (size_t)(2 * RED_SLOTS);
 }
 
+// the derived values of the member's row (enum Derived), by one thread
+template <typename T>
+__device__ __forceinline__ void miz_derive(T* p) {
+  const T Lf = p[P_LF], alpha = p[P_ALPHA], Dmin = p[P_DMIN];
+  p[Q_NEG_INV_LF] = T(-1) / Lf;
+  p[Q_WELD] = p[P_KAPPA] * alpha / T(4);
+  p[Q_DN_DEN] = Lf * alpha * (Dmin * Dmin) * p[P_HMIN];
+  p[Q_LAT_MELT] = T(-3.14159265358979323846 / 2.0) * alpha;  // -pi/2 (D_t quirk)
+  p[Q_TWO_LF] = T(2) * Lf;
+  p[Q_TWO_RL] = T(2) * p[P_RL];
+}
+
+// The step after the Newton solve (models/miz.py::step, its subnormal
+// flushes included), for one cell, shared by the block and the wide builds:
+// miz_head before the Tb exchange, miz_tail after it.
+template <typename T>
+struct MizStep {
+  T Tm, A, B, D, f, dt, Lf, alpha, Dmin, hmin;
+};
+
+template <typename T>
+struct MizHead {
+  T Ti, n, Tb, L;
+};
+
+template <typename T>
+struct MizState {
+  T Ei, Ew, h, Df, phi;
+};
+
+template <typename T>
+__device__ __forceinline__ MizHead<T> miz_head(const MizStep<T>& sp, T T0, T h, T Df, T phi,
+                                               T water) {
+  MizHead<T> o;
+  o.Ti = nan_min(T0, sp.Tm);
+  if (h == T(0)) o.Ti = T(0);
+  const bool zeroD = Df == T(0);
+  o.n = flush_subnormal(zeroD ? T(0) : phi / (sp.alpha * (Df * Df)));
+
+  o.Tb = o.Ti * phi + water;
+  o.L = sp.A + sp.B * (o.Tb - sp.Tm);
+  return o;
+}
+
+// s: the cell's fields, updated in place; out: the step's outputs
+template <typename T>
+__device__ __forceinline__ void miz_tail(const T* p, const MizStep<T>& sp, const MizHead<T>& hd,
+                                         MizState<T>& s, T Tw, T solar, T insol, T x2, T glo,
+                                         T gdi, T gup, T Tbm1, T Tbp1, T (&out)[N_OUT]) {
+  const T pi = T(3.14159265358979323846);
+  const T Lf = sp.Lf, alpha = sp.alpha, Dmin = sp.Dmin, hmin = sp.hmin, dt = sp.dt;
+  const T Ti = hd.Ti, n = hd.n, Ei = s.Ei, Ew = s.Ew, h = s.h, Df = s.Df, phi = s.phi;
+  const bool zeroD = Df == T(0);
+  const T dTb = sp.D * (glo * Tbm1 + gdi * hd.Tb + gup * Tbp1);
+  const T aw = p[P_A0] - p[P_A2] * x2;  // water coalbedo
+  const T Fvi = solar - hd.L + dTb + p[P_FB] + sp.f;
+  const T Fvw = aw * insol - hd.L + dTb + p[P_FB] + sp.f;
+  const T wl = p[P_M1] * (Tw - p[P_TM_POW_M2]);
+  const T Flat = zeroD ? T(0) : phi * h * Lf * wl * pi / (alpha * Df);
+
+  const T rEi = Ei + (phi * Fvi + Flat) * dt;
+  const T rEw = Ew + ((T(1) - phi) * Fvw - Flat) * dt;
+  const T cEi = nan_min(rEi, T(0));
+  const T cEw = nan_max(rEw, T(0));
+  const T psiEidt = rEi - cEi;
+  const T psiEwdt = rEw - cEw;
+  T Ei1 = flush_subnormal(cEi + psiEwdt);
+  const T Ew1 = flush_subnormal(cEw + psiEidt);
+
+  const T Drl = Df + p[Q_TWO_RL];
+  const T ring = alpha * n * (Drl * Drl - Df * Df);
+  const T Al = nan_min(ring, T(1) - phi);
+  const T psiEw = psiEwdt / dt;
+  const T Ql = phi == T(1) ? T(0) : Al / (T(1) - phi) * psiEw;
+  const T Qp = psiEw - Ql;
+  const T dn = dt * (-Qp / p[Q_DN_DEN]);
+
+  const T lat_melt = p[Q_LAT_MELT] * wl;
+  const T lg_den = flush_subnormal(p[Q_TWO_LF] * h * phi);
+  T lat_grow = lg_den == T(0) ? T(0) : -Df / lg_den * Ql;
+  if (h == T(0)) lat_grow = T(0);
+  const T weld = p[Q_WELD] * phi * (Df * (Df * Df));
+  const T rD = Df + (lat_melt + lat_grow + weld) * dt;
+  const T total = flush_subnormal(n + dn);
+  const bool zero_total = total == T(0);
+  T D1 = zero_total ? T(0) : (n * rD + dn * Dmin) / total;
+  D1 = nan_min(nan_max(D1, Dmin), p[P_DMAX]);
+  if (Ei1 == T(0)) D1 = T(0);
+
+  const T rh = nan_max(h + (p[Q_NEG_INV_LF] * Fvi) * dt, T(0));
+  const T h1 = flush_subnormal(zero_total ? T(0) : (n * rh + dn * hmin) / total);
+
+  T phi1 = flush_subnormal(h1 == T(0) ? T(0) : -Ei1 / (Lf * h1));
+  if (phi1 > T(1)) phi1 = T(1);
+
+  if (h1 == T(0)) Ei1 = T(0);
+  const T E = phi1 * Ei1 + (T(1) - phi1) * Ew1;
+  const T Tbar = Ti * phi1 + (T(1) - phi1) * Tw;
+  const T Ti_out = Ei1 == T(0) ? quiet_nan<T>() : Ti;
+  const T Tw_out = phi1 > T(0.99) ? quiet_nan<T>() : Tw;
+
+  s = MizState<T>{Ei1, Ew1, h1, D1, phi1};
+  const T o[N_OUT] = {E, Tbar, h1, Ei1, Ew1, Ti_out, Tw_out, D1, phi1, n};
+#pragma unroll
+  for (int j = 0; j < N_OUT; ++j) out[j] = o[j];
+}
+
 // Registers a thread may use so that MIN_BLOCKS blocks of MAX_THREADS share
 // an SM; the compiler is held to it.
 template <typename T, int MAX_THREADS, int MIN_BLOCKS, bool NOISY, bool COUNT>
@@ -144,15 +254,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
   if (i < N_ROWS) p[i] = pars[(size_t)m * N_ROWS + i];
   if (COUNT && i == 0) n_updates = 0;
   __syncthreads();
-  if (i == 0) {
-    const T Lf = p[P_LF], alpha = p[P_ALPHA], Dmin = p[P_DMIN];
-    p[Q_NEG_INV_LF] = T(-1) / Lf;
-    p[Q_WELD] = p[P_KAPPA] * alpha / T(4);
-    p[Q_DN_DEN] = Lf * alpha * (Dmin * Dmin) * p[P_HMIN];
-    p[Q_LAT_MELT] = T(-3.14159265358979323846 / 2.0) * alpha;  // -pi/2 (D_t quirk)
-    p[Q_TWO_LF] = T(2) * Lf;
-    p[Q_TWO_RL] = T(2) * p[P_RL];
-  }
+  if (i == 0) miz_derive(p);
   __syncthreads();
 
   T0Cell<T> cell[1] = {};
@@ -171,7 +273,6 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     phi = cin[4 * plane + idx];
     T0[0] = cin[5 * plane + idx];
   }
-  const T pi = T(3.14159265358979323846);
 
   T acc[N_OUT];
 #pragma unroll
@@ -219,71 +320,22 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     // -- the rest of the step (models/miz.py::step, its subnormal flushes
     // included) ------------------------------------------------------------
     const T Lf = p[P_LF], alpha = p[P_ALPHA], Dmin = p[P_DMIN], hmin = p[P_HMIN];
-    T Ti = nan_min(T0[0], Tm);
-    if (h == T(0)) Ti = T(0);
-    const bool zeroD = Df == T(0);
-    const T n = flush_subnormal(zeroD ? T(0) : phi / (alpha * (Df * Df)));
-
-    const T Tb = Ti * phi + cell[0].water;
-    const T L = A + B * (Tb - Tm);
+    const MizStep<T> sp{Tm, A, B, D, f, dt, Lf, alpha, Dmin, hmin};
+    const MizHead<T> hd = miz_head(sp, T0[0], h, Df, phi, cell[0].water);
     T Tbm1 = T(0), Tbp1 = T(0);
-    exchange_rolled(Tb, halo, i, nx, Tbm1, Tbp1);
-    const T dTb = D * (cell[0].glo * Tbm1 + cell[0].gdi * Tb + cell[0].gup * Tbp1);
-    const T aw = p[P_A0] - p[P_A2] * x2;  // water coalbedo
-    const T Fvi = cell[0].solar - L + dTb + p[P_FB] + f;
-    const T Fvw = aw * insol - L + dTb + p[P_FB] + f;
-    const T wl = p[P_M1] * (Tw - p[P_TM_POW_M2]);
-    const T Flat = zeroD ? T(0) : phi * h * Lf * wl * pi / (alpha * Df);
-
-    const T rEi = Ei + (phi * Fvi + Flat) * dt;
-    const T rEw = Ew + ((T(1) - phi) * Fvw - Flat) * dt;
-    const T cEi = nan_min(rEi, T(0));
-    const T cEw = nan_max(rEw, T(0));
-    const T psiEidt = rEi - cEi;
-    const T psiEwdt = rEw - cEw;
-    T Ei1 = flush_subnormal(cEi + psiEwdt);
-    const T Ew1 = flush_subnormal(cEw + psiEidt);
-
-    const T Drl = Df + p[Q_TWO_RL];
-    const T ring = alpha * n * (Drl * Drl - Df * Df);
-    const T Al = nan_min(ring, T(1) - phi);
-    const T psiEw = psiEwdt / dt;
-    const T Ql = phi == T(1) ? T(0) : Al / (T(1) - phi) * psiEw;
-    const T Qp = psiEw - Ql;
-    const T dn = dt * (-Qp / p[Q_DN_DEN]);
-
-    const T lat_melt = p[Q_LAT_MELT] * wl;
-    const T lg_den = flush_subnormal(p[Q_TWO_LF] * h * phi);
-    T lat_grow = lg_den == T(0) ? T(0) : -Df / lg_den * Ql;
-    if (h == T(0)) lat_grow = T(0);
-    const T weld = p[Q_WELD] * phi * (Df * (Df * Df));
-    const T rD = Df + (lat_melt + lat_grow + weld) * dt;
-    const T total = flush_subnormal(n + dn);
-    const bool zero_total = total == T(0);
-    T D1 = zero_total ? T(0) : (n * rD + dn * Dmin) / total;
-    D1 = nan_min(nan_max(D1, Dmin), p[P_DMAX]);
-    if (Ei1 == T(0)) D1 = T(0);
-
-    const T rh = nan_max(h + (p[Q_NEG_INV_LF] * Fvi) * dt, T(0));
-    const T h1 = flush_subnormal(zero_total ? T(0) : (n * rh + dn * hmin) / total);
-
-    T phi1 = flush_subnormal(h1 == T(0) ? T(0) : -Ei1 / (Lf * h1));
-    if (phi1 > T(1)) phi1 = T(1);
-
-    if (h1 == T(0)) Ei1 = T(0);
-    const T E = phi1 * Ei1 + (T(1) - phi1) * Ew1;
-    const T Tbar = Ti * phi1 + (T(1) - phi1) * Tw;
-    const T Ti_out = Ei1 == T(0) ? quiet_nan<T>() : Ti;
-    const T Tw_out = phi1 > T(0.99) ? quiet_nan<T>() : Tw;
-
-    Ei = Ei1;
-    Ew = Ew1;
-    h = h1;
-    Df = D1;
-    phi = phi1;
+    exchange_rolled(hd.Tb, halo, i, nx, Tbm1, Tbp1);
+    MizState<T> st{Ei, Ew, h, Df, phi};
+    T out[N_OUT];
+    miz_tail(p, sp, hd, st, Tw, cell[0].solar, insol, x2, cell[0].glo, cell[0].gdi,
+             cell[0].gup, Tbm1, Tbp1, out);
+    Ei = st.Ei;
+    Ew = st.Ew;
+    h = st.h;
+    Df = st.Df;
+    phi = st.phi;
+    const T phi1 = st.phi;
 
     // -- seasonal store ----------------------------------------------------
-    const T out[N_OUT] = {E, Tbar, h1, Ei1, Ew1, Ti_out, Tw_out, D1, phi1, n};
 #pragma unroll
     for (int j = 0; j < N_OUT; ++j) acc[j] = acc[j] + out[j];
     if (active && (t == w0 || t == s0)) {
@@ -319,6 +371,206 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
   }
   if (i == 0) conv[m] = conv_m;
   if (COUNT && i == 0) iters[m] = n_updates;
+}
+
+// THE WIDE BUILD (1024 < nx <= MAX_WIDE_NX, common.cuh): one block of
+// wide_year_threads<T>() per member, each cell's record (enum WideField), the
+// neighbour exchange's two buffers and the PCR rows in the block's workspace
+// of device memory at ws + blockIdx.x * miz_wide_words(nx); the block loops
+// over members m, m + gridDim.x, ... A step is the block build's, loop by
+// loop over the thread's cells: the step inputs with the first residual's
+// exchange, the Jacobian rows into the PCR and the block max of |r| (over
+// all of the thread's cells), each Newton update (the solve, the clipped
+// update with the next exchange, the rows and the max), Tb's exchange, then
+// miz_tail with the sums and the stores; the crossing area is summed in the
+// block layout's order (noise.cuh::wide_noise_crossing). The values are
+// computed by the block build's functions (newton.cuh, miz_head, miz_tail),
+// so they are its bits.
+constexpr int MAX_WIDE_NX = 16384;
+// a cell's record: the solve's fields (newton.cuh, the carry's T0 and phi
+// among them), the rest of the carry, the step's Tw, the crossing value,
+// the sums
+enum WideField {
+  W_EI = N_NEWTON_FIELDS, W_EW, W_H, W_D, W_TW, W_CROSS, W_ACC,
+  N_WIDE_FIELDS = W_ACC + N_OUT
+};
+
+__host__ __device__ inline size_t miz_wide_words(int nx) {
+  return wide_stride(wide_pcr_words(nx) + wide_halo_words(nx) + (size_t)N_WIDE_FIELDS * nx);
+}
+
+template <typename T, bool NOISY, bool COUNT>
+__global__ void __launch_bounds__(wide_year_threads<T>(), 1)
+    miz_wide_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
+                    const T* __restrict__ cols, const T* __restrict__ cosv,
+                    const T* __restrict__ fyear, T* __restrict__ cout,
+                    T* __restrict__ wint, T* __restrict__ summ, T* __restrict__ avg,
+                    T* __restrict__ conv, int* __restrict__ iters, T* __restrict__ raw,
+                    NoiseArgs<T> nz, T* ws, int K, int nx, int nt, int w0, int s0, int pcr_steps,
+                    int max_iter, T dt, T abstol, T reltol, T max_step) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T p[N_SHARED];
+  __shared__ int n_updates;  // COUNT: the member's Newton updates, by thread 0
+  // the slots of the two block reductions (Newton's max, the crossing sum),
+  // then the noise rows
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  RedSmem<T> red{sm, 0};
+  RedSmem<T> cross_red{sm + RED_SLOTS, 0};
+  T* w = ws + (size_t)blockIdx.x * miz_wide_words(nx);
+  const WidePcr<T> pcr = wide_pcr_begin(w, nx);
+  Halo<T> halo = wide_halo_begin<T, true>(w + wide_pcr_words(nx), nx);
+  T* fld = w + wide_pcr_words(nx) + wide_halo_words(nx);  // the cells' records
+  const WideCells<T, N_WIDE_FIELDS> wc{cols + 2 * nx, cols + 3 * nx, cols + 4 * nx, fld};
+  // the carry's fields in CARRY_KEYS order
+  constexpr int carry_field[N_CARRY] = {W_EI, W_EW, W_H, W_D, F_PHI, F_T0};
+  const size_t plane = (size_t)K * nx;
+  const bool crossing = NOISY && nz.cross_out != nullptr;
+
+  for (int m = blockIdx.x; m < K; m += gridDim.x) {
+    __syncthreads();  // the last member's reads of p and of the noise row are done
+    if (threadIdx.x < N_ROWS) p[threadIdx.x] = pars[(size_t)m * N_ROWS + threadIdx.x];
+    if (COUNT && threadIdx.x == 0) n_updates = 0;
+    __syncthreads();
+    if (threadIdx.x == 0) miz_derive(p);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+      T* c = wc.at(i);
+      const size_t idx = (size_t)m * nx + i;
+#pragma unroll
+      for (int j = 0; j < N_CARRY; ++j) c[carry_field[j]] = cin[j * plane + idx];
+      for (int j = 0; j < N_OUT; ++j) c[W_ACC + j] = T(0);
+    }
+    T conv_m = T(1);
+    NoiseState<T> ns;
+    if (NOISY) ns = noise_begin(nz, sm + 2 * RED_SLOTS, m, K, nt);
+
+    for (int t = 0; t < nt; ++t) {
+      const T Tm = p[P_TM], A = p[P_A], B = p[P_B], D = p[P_D], cw = p[P_CW];
+      T f = fyear[t] + p[P_F];
+      if (NOISY) f = noise_forcing(nz, ns, f, t);
+      const T0Par<T> tp{p[P_K], Tm, A, B, D, f};
+
+      // -- step inputs, and the first residual's exchange ------------------
+      Pair<T>* cur = halo_turn(halo);
+      for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+        T* c = wc.at(i);
+        const T insol = (p[P_S0] - (p[P_S1] * cols[i]) * cosv[t]) - p[P_S2] * cols[nx + i];
+        const T ph = c[F_PHI];
+        const T den = (T(1) - ph) * cw;
+        T tw = Tm + (den == T(0) ? T(0) : c[W_EW] / den);
+        if (is_nan(tw)) tw = T(0);
+        c[W_TW] = tw;
+        c[F_WATER] = (T(1) - ph) * tw;
+        c[F_SOLAR] = p[P_AI] * insol;
+        c[F_KH] = c[W_H] == T(0) ? p[P_HMIN] : c[W_H];
+        wide_t0_put<T, N_WIDE_FIELDS, true>(wc, tp, cur, i, nx);
+      }
+      __syncthreads();
+
+      // -- Newton for T0 (per member) -------------------------------------
+      T rnorm = block_max_key<T>(
+          wide_t0_rows<T, N_WIDE_FIELDS, false>(wc, tp, cur, pcr, nx), red);
+      const T tol = nan_max(abstol, reltol * rnorm);
+      for (int it = 0; it < max_iter && rnorm > tol; ++it) {
+        const PcrRow<T>* solved = wide_pcr_solve(pcr, pcr_steps);
+        cur = halo_turn(halo);
+        for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+          T* c = wc.at(i);
+          c[F_T0] = c[F_T0] + clip_step(wide_pcr_x(solved, i), max_step);
+          wide_t0_put<T, N_WIDE_FIELDS, true>(wc, tp, cur, i, nx);
+        }
+        __syncthreads();
+        rnorm = block_max_key<T>(
+            wide_t0_rows<T, N_WIDE_FIELDS, false>(wc, tp, cur, pcr, nx), red);
+        if (COUNT && threadIdx.x == 0) ++n_updates;
+      }
+      conv_m = nan_min(conv_m, rnorm <= tol ? T(1) : T(0));
+
+      // -- the rest of the step: Tb's exchange, then miz_tail --------------
+      const T Lf = p[P_LF], alpha = p[P_ALPHA], Dmin = p[P_DMIN], hmin = p[P_HMIN];
+      const MizStep<T> sp{Tm, A, B, D, f, dt, Lf, alpha, Dmin, hmin};
+      cur = halo_turn(halo);
+      for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+        const T* c = wc.at(i);
+        const T Tb = miz_head(sp, c[F_T0], c[W_H], c[W_D], c[F_PHI], c[F_WATER]).Tb;
+        cur[i].a = Tb;
+        if (i == 0) cur[nx].a = Tb;
+        if (i == nx - 1) cur[-1].a = Tb;
+      }
+      __syncthreads();
+      // one cell at a time: the step's tail holds the most values of any
+      // loop here, and two cells' worth would spill
+#pragma unroll 1
+      for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+        T* c = wc.at(i);
+        const MizHead<T> hd = miz_head(sp, c[F_T0], c[W_H], c[W_D], c[F_PHI], c[F_WATER]);
+        const T x2 = cols[nx + i];
+        const T insol = (p[P_S0] - (p[P_S1] * cols[i]) * cosv[t]) - p[P_S2] * x2;
+        MizState<T> st{c[W_EI], c[W_EW], c[W_H], c[W_D], c[F_PHI]};
+        T out[N_OUT];
+        miz_tail(p, sp, hd, st, c[W_TW], c[F_SOLAR], insol, x2, wc.glo[i], wc.gdi[i],
+                 wc.gup[i], cur[i - 1].a, cur[i + 1].a, out);
+        c[W_EI] = st.Ei;
+        c[W_EW] = st.Ew;
+        c[W_H] = st.h;
+        c[W_D] = st.Df;
+        c[F_PHI] = st.phi;
+
+        // -- seasonal store ------------------------------------------------
+        for (int j = 0; j < N_OUT; ++j) c[W_ACC + j] = c[W_ACC + j] + out[j];
+        const size_t idx = (size_t)m * nx + i;
+        if (t == w0 || t == s0) {
+          T* snap = t == w0 ? wint : summ;
+          for (int j = 0; j < N_OUT; ++j) snap[j * plane + idx] = out[j];
+          if (t == w0 && t == s0) {
+            for (int j = 0; j < N_OUT; ++j) summ[j * plane + idx] = out[j];
+          }
+        }
+        if (raw != nullptr) {
+          T* row = raw + (size_t)t * N_OUT * plane;
+          for (int j = 0; j < N_OUT; ++j) row[j * plane + idx] = out[j];
+        }
+        // the instantaneous ice area, phi with NaN counted as 0
+        if (crossing) c[W_CROSS] = nz.wts[i] * (is_nan(st.phi) ? T(0) : st.phi);
+      }
+      if (crossing) wide_noise_crossing(ns, fld + W_CROSS, N_WIDE_FIELDS, nx, cross_red, t);
+    }
+    if (NOISY) noise_end(nz, ns, m, nt);
+
+    // same `sum / nt` arithmetic as the JAX kernel and storage path
+    const T ntf = T(nt);
+    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+      const T* c = wc.at(i);
+      const size_t idx = (size_t)m * nx + i;
+#pragma unroll
+      for (int j = 0; j < N_CARRY; ++j) cout[j * plane + idx] = c[carry_field[j]];
+      for (int j = 0; j < N_OUT; ++j) avg[j * plane + idx] = c[W_ACC + j] / ntf;
+    }
+    if (threadIdx.x == 0) conv[m] = conv_m;
+    if (COUNT && threadIdx.x == 0) iters[m] = n_updates;
+  }
+}
+
+template <typename T, bool NOISY, bool COUNT>
+int launch_wide(int K, size_t shmem, cudaStream_t stream, const void* cin, const void* pars,
+                const void* cols, const void* cosv, const void* f, void* cout, void* wint,
+                void* summ, void* avg, void* conv, void* iters, void* raw,
+                const NoiseArgs<T>& nz, void* ws, int ws_words, int ws_blocks, int nx, int nt,
+                int w0, int s0, int pcr_steps, int max_iter, double dt, double abstol,
+                double reltol, double max_step) {
+  if (ws == nullptr || ws_blocks < 1 || (size_t)ws_words != miz_wide_words(nx))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = miz_wide_kernel<T, NOISY, COUNT>;
+  const cudaError_t err = allow_shared(kernel, shmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<K < ws_blocks ? K : ws_blocks, wide_year_threads<T>(), shmem, stream>>>(
+      static_cast<const T*>(cin), static_cast<const T*>(pars),
+      static_cast<const T*>(cols), static_cast<const T*>(cosv),
+      static_cast<const T*>(f), static_cast<T*>(cout), static_cast<T*>(wint),
+      static_cast<T*>(summ), static_cast<T*>(avg), static_cast<T*>(conv),
+      static_cast<int*>(iters), static_cast<T*>(raw), nz, static_cast<T*>(ws), K, nx, nt, w0,
+      s0, pcr_steps, max_iter, T(dt), T(abstol), T(reltol), T(max_step));
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int MAX_THREADS, int MIN_BLOCKS, bool NOISY, bool COUNT>
@@ -377,21 +629,32 @@ template <typename T>
 int launch(const void* cin, const void* pars, const void* cols, const void* cosv,
            const void* f, void* cout, void* wint, void* summ, void* avg, void* conv,
            void* iters, void* raw, const void* noise, const void* keys, const void* ou,
-           void* eta_out, const void* cross, void* cross_out, const void* wts, int K, int nx,
-           int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode, int ou_unroll,
-           double dt, double abstol, double reltol, double max_step, void* stream) {
-  if (K < 1 || nx < 1 || nx > 1024 || nt < 1) return (int)cudaErrorInvalidValue;
+           void* eta_out, const void* cross, void* cross_out, const void* wts, void* ws, int K,
+           int nx, int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
+           int ou_unroll, int ws_words, int ws_blocks, double dt, double abstol, double reltol,
+           double max_step, void* stream) {
+  if (K < 1 || nx < 1 || nx > MAX_WIDE_NX || nt < 1) return (int)cudaErrorInvalidValue;
+  const bool wide = nx > 1024;
   const int threads = ((nx + 31) / 32) * 32;
   const NoiseArgs<T> nz = noise_args<T>(noise, keys, ou, eta_out, cross, cross_out, wts,
                                         ou_mode, ou_unroll);
   const bool noisy = noise != nullptr || keys != nullptr;
-  const size_t shmem = base_shared_bytes<T>(nx, pcr_steps) +
+  // the wide build keeps its rows and exchange in the workspace: shared
+  // memory holds the reductions' slots and the noise rows
+  const size_t shmem = (wide ? sizeof(T) * (size_t)(2 * RED_SLOTS)
+                             : base_shared_bytes<T>(nx, pcr_steps)) +
                        (noisy ? noise_shared_bytes<T>(nt, ou_mode) : 0);
   if (shmem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the four builds: NOISY by the noise inputs, COUNT by the count output
+  // the builds: NOISY by the noise inputs, COUNT by the count output
   auto run = [&](auto noisy_c, auto count_c) {
-    return launch_threads<T, decltype(noisy_c)::value, decltype(count_c)::value>(
+    constexpr bool NOISY = decltype(noisy_c)::value, COUNT = decltype(count_c)::value;
+    if (wide)
+      return launch_wide<T, NOISY, COUNT>(K, shmem, st, cin, pars, cols, cosv, f, cout, wint,
+                                          summ, avg, conv, iters, raw, nz, ws, ws_words,
+                                          ws_blocks, nx, nt, w0, s0, pcr_steps, max_iter, dt,
+                                          abstol, reltol, max_step);
+    return launch_threads<T, NOISY, COUNT>(
         K, threads, shmem, st, cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters,
         raw, nz, nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol, max_step);
   };
@@ -409,28 +672,28 @@ int ebm_miz_year_f32(const void* cin, const void* pars, const void* cols,
                      const void* cosv, const void* f, void* cout, void* wint,
                      void* summ, void* avg, void* conv, void* iters, void* raw,
                      const void* noise, const void* keys, const void* ou, void* eta_out,
-                     const void* cross, void* cross_out, const void* wts, int K, int nx,
-                     int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
-                     int ou_unroll, double dt, double abstol, double reltol,
-                     double max_step, void* stream) {
+                     const void* cross, void* cross_out, const void* wts, void* ws, int K,
+                     int nx, int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
+                     int ou_unroll, int ws_words, int ws_blocks, double dt, double abstol,
+                     double reltol, double max_step, void* stream) {
   return launch<float>(cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
-                       noise, keys, ou, eta_out, cross, cross_out, wts, K, nx, nt, w0, s0,
-                       pcr_steps, max_iter, ou_mode, ou_unroll, dt, abstol, reltol,
-                       max_step, stream);
+                       noise, keys, ou, eta_out, cross, cross_out, wts, ws, K, nx, nt, w0,
+                       s0, pcr_steps, max_iter, ou_mode, ou_unroll, ws_words, ws_blocks, dt,
+                       abstol, reltol, max_step, stream);
 }
 
 int ebm_miz_year_f64(const void* cin, const void* pars, const void* cols,
                      const void* cosv, const void* f, void* cout, void* wint,
                      void* summ, void* avg, void* conv, void* iters, void* raw,
                      const void* noise, const void* keys, const void* ou, void* eta_out,
-                     const void* cross, void* cross_out, const void* wts, int K, int nx,
-                     int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
-                     int ou_unroll, double dt, double abstol, double reltol,
-                     double max_step, void* stream) {
+                     const void* cross, void* cross_out, const void* wts, void* ws, int K,
+                     int nx, int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
+                     int ou_unroll, int ws_words, int ws_blocks, double dt, double abstol,
+                     double reltol, double max_step, void* stream) {
   return launch<double>(cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
-                        noise, keys, ou, eta_out, cross, cross_out, wts, K, nx, nt, w0, s0,
-                        pcr_steps, max_iter, ou_mode, ou_unroll, dt, abstol, reltol,
-                        max_step, stream);
+                        noise, keys, ou, eta_out, cross, cross_out, wts, ws, K, nx, nt, w0,
+                        s0, pcr_steps, max_iter, ou_mode, ou_unroll, ws_words, ws_blocks, dt,
+                        abstol, reltol, max_step, stream);
 }
 
 const char* ebm_cuda_error_string(int err) {

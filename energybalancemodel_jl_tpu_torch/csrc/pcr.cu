@@ -13,7 +13,10 @@
 //     barrier and no shared memory;
 //   - n > 256: ONE THREAD BLOCK PER SYSTEM (pcr_solve), rows strided over at
 //     most 1024 threads (1, 2 or 4 rows per thread, n <= 4096) in shared
-//     memory.
+//     memory;
+//   - n > 4096 (up to 32768): the wide build (common.cuh), one block per
+//     system with its rows in a workspace of device memory, each block
+//     solving systems m, m + gridDim.x, ...
 //
 // Bands are shared by all systems (row stride 0) or one row per system
 // (row stride n); the right-hand side and the solution are (K, n).
@@ -53,6 +56,28 @@ __global__ void __launch_bounds__(1024)
   for (int c = 0; c < CPT; ++c) {
     const int i = threadIdx.x + c * blockDim.x;
     if (i < n) x[m * n + i] = r[c];
+  }
+}
+
+constexpr int MAX_WIDE_N = 32768;
+
+__host__ __device__ inline size_t pcr_wide_words(int n) { return wide_stride(wide_pcr_words(n)); }
+
+// the wide build: each thread writes its rows to the workspace (a thread
+// reads back only its own rows of the last solve before it writes the next
+// system's, so the systems need no barrier between them)
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    pcr_wide_kernel(const T* __restrict__ lo, const T* __restrict__ di,
+                    const T* __restrict__ up, const T* __restrict__ b, T* __restrict__ x,
+                    T* ws, int K, int n, int lo_stride, int di_stride, int up_stride, int steps) {
+  const WidePcr<T> s = wide_pcr_begin(ws + (size_t)blockIdx.x * pcr_wide_words(n), n);
+  for (size_t m = blockIdx.x; m < (size_t)K; m += gridDim.x) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      wide_pcr_row(s, i, lo[m * lo_stride + i], di[m * di_stride + i], up[m * up_stride + i],
+                   b[m * n + i]);
+    const PcrRow<T>* solved = wide_pcr_solve(s, steps);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) x[m * n + i] = wide_pcr_x(solved, i);
   }
 }
 
@@ -119,12 +144,30 @@ int launch_cells(cudaStream_t stream, const void* lo, const void* di, const void
   return (int)cudaGetLastError();
 }
 
+// the wide build on min(K, ws_blocks) blocks, each with its workspace of
+// pcr_wide_words(n) words at ws
 template <typename T>
-int launch(const void* lo, const void* di, const void* up, const void* b, void* x,
-           int K, int n, int lo_stride, int di_stride, int up_stride, int steps,
-           void* stream) {
-  if (K < 1 || n < 1 || n > 4096) return (int)cudaErrorInvalidValue;
+int launch_wide(cudaStream_t stream, const void* lo, const void* di, const void* up,
+                const void* b, void* x, void* ws, int K, int n, int lo_stride, int di_stride,
+                int up_stride, int steps, int ws_words, int ws_blocks) {
+  if (ws == nullptr || ws_blocks < 1 || (size_t)ws_words != pcr_wide_words(n))
+    return (int)cudaErrorInvalidValue;
+  pcr_wide_kernel<T><<<K < ws_blocks ? K : ws_blocks, WIDE_THREADS, 0, stream>>>(
+      static_cast<const T*>(lo), static_cast<const T*>(di), static_cast<const T*>(up),
+      static_cast<const T*>(b), static_cast<T*>(x), static_cast<T*>(ws), K, n, lo_stride,
+      di_stride, up_stride, steps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* lo, const void* di, const void* up, const void* b, void* x, void* ws,
+           int K, int n, int lo_stride, int di_stride, int up_stride, int steps, int ws_words,
+           int ws_blocks, void* stream) {
+  if (K < 1 || n < 1 || n > MAX_WIDE_N) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n > 4096)
+    return launch_wide<T>(st, lo, di, up, b, x, ws, K, n, lo_stride, di_stride, up_stride,
+                          steps, ws_words, ws_blocks);
   if (n <= 256) {
     switch (warp_slots(n)) {
       case 1:
@@ -162,17 +205,17 @@ int launch(const void* lo, const void* di, const void* up, const void* b, void* 
 extern "C" {
 
 int ebm_pcr_f32(const void* lo, const void* di, const void* up, const void* b, void* x,
-                int K, int n, int lo_stride, int di_stride, int up_stride, int steps,
-                void* stream) {
-  return launch<float>(lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride, steps,
-                       stream);
+                void* ws, int K, int n, int lo_stride, int di_stride, int up_stride, int steps,
+                int ws_words, int ws_blocks, void* stream) {
+  return launch<float>(lo, di, up, b, x, ws, K, n, lo_stride, di_stride, up_stride, steps,
+                       ws_words, ws_blocks, stream);
 }
 
 int ebm_pcr_f64(const void* lo, const void* di, const void* up, const void* b, void* x,
-                int K, int n, int lo_stride, int di_stride, int up_stride, int steps,
-                void* stream) {
-  return launch<double>(lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride, steps,
-                        stream);
+                void* ws, int K, int n, int lo_stride, int di_stride, int up_stride, int steps,
+                int ws_words, int ws_blocks, void* stream) {
+  return launch<double>(lo, di, up, b, x, ws, K, n, lo_stride, di_stride, up_stride, steps,
+                        ws_words, ws_blocks, stream);
 }
 
 }  // extern "C"

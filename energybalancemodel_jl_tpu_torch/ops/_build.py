@@ -42,25 +42,28 @@ _D = ctypes.c_double
 # name -> (argtypes, restype) of every exported C entry point
 _SIGNATURES = {
     # (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
-    #  noise, keys, ou, eta_out, cross, cross_out, wts,
-    #  K, nx, nt, w0, s0, pcr_steps, max_iter, ou_mode, ou_unroll,
+    #  noise, keys, ou, eta_out, cross, cross_out, wts, ws,
+    #  K, nx, nt, w0, s0, pcr_steps, max_iter, ou_mode, ou_unroll, ws_words, ws_blocks,
     #  dt, abstol, reltol, max_step, stream)
-    "ebm_miz_year_f32": ([_P] * 19 + [_I] * 9 + [_D] * 4 + [_P], _I),
-    "ebm_miz_year_f64": ([_P] * 19 + [_I] * 9 + [_D] * 4 + [_P], _I),
+    "ebm_miz_year_f32": ([_P] * 20 + [_I] * 11 + [_D] * 4 + [_P], _I),
+    "ebm_miz_year_f64": ([_P] * 20 + [_I] * 11 + [_D] * 4 + [_P], _I),
     # (cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
-    #  noise, keys, ou, eta_out, cross, cross_out, wts,
-    #  K, nx, nt, w0, s0, pcr_steps, ou_mode, ou_unroll, warp_min_k, dt, stream)
-    "ebm_classic_year_f32": ([_P] * 17 + [_I] * 9 + [_D] + [_P], _I),
-    "ebm_classic_year_f64": ([_P] * 17 + [_I] * 9 + [_D] + [_P], _I),
+    #  noise, keys, ou, eta_out, cross, cross_out, wts, ws,
+    #  K, nx, nt, w0, s0, pcr_steps, ou_mode, ou_unroll, warp_min_k, ws_words, ws_blocks,
+    #  dt, stream)
+    "ebm_classic_year_f32": ([_P] * 18 + [_I] * 11 + [_D] + [_P], _I),
+    "ebm_classic_year_f64": ([_P] * 18 + [_I] * 11 + [_D] + [_P], _I),
     # (keys, out, K, nt, stream) and (bits, out, n, stream)
     "ebm_normal_table": ([_P] * 2 + [_I] * 2 + [_P], _I),
     "ebm_normal_bits": ([_P] * 2 + [_I] + [_P], _I),
-    # (lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride, steps, stream)
-    "ebm_pcr_f32": ([_P] * 5 + [_I] * 6 + [_P], _I),
-    "ebm_pcr_f64": ([_P] * 5 + [_I] * 6 + [_P], _I),
-    # (T0, hp, Tw, phi, insol, bands, D, scal, out, K, n, iters, steps, stream)
-    "ebm_newton_t0_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
-    "ebm_newton_t0_f64": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    # (lo, di, up, b, x, ws, K, n, lo_stride, di_stride, up_stride, steps,
+    #  ws_words, ws_blocks, stream)
+    "ebm_pcr_f32": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    "ebm_pcr_f64": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    # (T0, hp, Tw, phi, insol, bands, D, scal, out, ws, K, n, iters, steps,
+    #  ws_words, ws_blocks, stream)
+    "ebm_newton_t0_f32": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    "ebm_newton_t0_f64": ([_P] * 10 + [_I] * 6 + [_P], _I),
     "ebm_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

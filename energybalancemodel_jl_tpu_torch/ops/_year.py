@@ -12,6 +12,8 @@ the JAX module have no counterpart: a block per member pads nothing.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -21,7 +23,8 @@ __all__ = ["member_columns", "check_year_args", "check_width", "check_noise_args
            "check_crossing_args", "trapezoid_weights", "ou_path", "assoc_ou_path",
            "classic_ou_unroll", "noise_offsets", "member_rows", "keys_tensor",
            "block_sum", "block_layout", "pcr_shared_bytes", "CrossingTracker", "NoiseLaunch",
-           "year_result", "MAX_SHARED_BYTES", "refuse_grad"]
+           "year_result", "MAX_SHARED_BYTES", "refuse_grad", "WIDE", "WIDE_BLOCKS_PER_SM",
+           "wide_workspace", "wide_words", "workspace", "sm_count", "check_raw_fits"]
 
 
 def refuse_grad(kernel: str, *values) -> None:
@@ -101,12 +104,15 @@ def check_year_args(carry, keys, fyear, st, what: str):
     return K, nx, first.dtype, first.device
 
 
-def check_width(kernel: str, nx: int, max_nx: int, layout: str) -> None:
-    """Raise ``ValueError`` when a grid is wider than the kernel runs."""
-    if nx > max_nx:
+def check_width(kernel: str, nx: int) -> None:
+    """Raise ``ValueError`` when a grid is wider than the kernel's wide build
+    runs (:data:`WIDE`)."""
+    top = WIDE[kernel]["max"]
+    if nx > top:
         raise ValueError(
-            f"the {kernel} kernel runs {layout} (nx <= {max_nx}); nx={nx} needs "
-            "the high-resolution layout of ROADMAP Queue 1 M8"
+            f"the {kernel} kernel runs nx <= {top}: its wide build (one block per member, "
+            f"each cell's state in device memory) is built and held against its plain "
+            f"version up to that width; nx={nx} is wider"
         )
 
 
@@ -268,10 +274,94 @@ def noise_offsets(noise, noise_ou, noise_keys, ou_assoc, K: int, nt: int, dtype,
 
 def block_layout(n: int):
     """``(rows per thread, threads)`` of the block that holds an ``n``-row
-    member in the kernels: rows strided over at most 1024 threads, whole
-    warps (``csrc/common.cuh::rows_per_thread``)."""
-    cpt = 1 if n <= 1024 else (2 if n <= 2048 else 4)
+    member in the register builds: rows strided over at most 1024 threads,
+    whole warps, the least power of two of rows per thread that is enough
+    (1, 2 or 4 up to n = 4096; ``csrc/common.cuh::rows_per_thread``). Above
+    that (8 to 32) it is the order in which the wide builds, whatever their
+    own threads, sum a crossing area (:func:`block_sum`)."""
+    cpt = 1
+    while cpt * 1024 < n:
+        cpt *= 2
     return cpt, -(-(-(-n // cpt)) // 32) * 32
+
+
+# The kernels' builds by width (csrc/common.cuh): up to "narrow" cells the
+# register builds (a warp or a block per member, every per-cell value in
+# registers and shared memory), above it up to "max" the WIDE build: one
+# block per member (its threads chosen by the C side), each cell's record of
+# "fields" values, the PCR rows and (with "halo") the neighbour exchange in
+# a workspace of device memory, each block looping over members. A wide
+# build sums a crossing area in the order of block_layout, whatever its own
+# threads.
+WIDE = {
+    "classic_year": dict(narrow=4096, max=32768, fields=12, halo=False),
+    "miz_year": dict(narrow=1024, max=16384, fields=21, halo=True),
+    "pcr_fused": dict(narrow=4096, max=32768, fields=0, halo=False),
+    "newton_t0": dict(narrow=4096, max=16384, fields=5, halo=True),
+}
+# blocks of a wide build that one SM holds: its __launch_bounds__(..., 1)
+WIDE_BLOCKS_PER_SM = 1
+
+
+def wide_words(kernel: str, n: int) -> int:
+    """Words of the run's dtype in one wide block's workspace
+    (``csrc/*.cu::*_wide_words``): the PCR's two buffers of four-value rows
+    with an identity row on each side, the exchange's two buffers of
+    two-value cells with one beyond each end, the per-cell fields; rounded
+    up to 32 words so every block's part starts aligned."""
+    spec = WIDE[kernel]
+    words = 8 * (n + 2) + (4 * (n + 2) if spec["halo"] else 0) + spec["fields"] * n
+    return -(-words // 32) * 32
+
+
+def wide_workspace(kernel: str, n: int, K: int, sms: int):
+    """``(blocks, words per block)`` of the workspace that ``kernel`` takes
+    for ``K`` members (systems) of ``n`` cells (rows) on a card of ``sms``
+    SMs: ``(0, 0)`` up to the register builds' width, which take none, and
+    above it the wide build's, at most the blocks that stay resident, each
+    looping over members, so it scales with the card and not with ``K``.
+    The C side checks the words against its own count. Raises past the wide
+    build's width."""
+    check_width(kernel, n)
+    if n <= WIDE[kernel]["narrow"]:
+        return 0, 0
+    return min(K, sms * WIDE_BLOCKS_PER_SM), wide_words(kernel, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device."""
+    device = torch.device(device)
+    return _sms(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def workspace(kernel: str, n: int, K: int, dtype, device):
+    """``(tensor or None, pointer or None, words per block, blocks)``: the
+    workspace of :func:`wide_workspace`, uninitialised (each kernel writes
+    every word before it reads it). The caller holds the tensor until its
+    launch is queued; the allocator hands the memory on in stream order."""
+    blocks, words = wide_workspace(kernel, n, K, sm_count(device))
+    if words == 0:
+        return None, None, 0, 0
+    ws = torch.empty(blocks * words, dtype=dtype, device=device)
+    return ws, ws.data_ptr(), words, blocks
+
+
+def check_raw_fits(nt: int, n_vars: int, K: int, nx: int, dtype, device) -> None:
+    """Raise ``ValueError``, naming the memory, when the every-step store of
+    a raw-collected year would not fit in what the device has free."""
+    need = nt * n_vars * K * nx * torch.empty((), dtype=dtype).element_size()
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    if need > free:
+        raise ValueError(
+            f"a raw-collected year stores nt*{n_vars}*K*nx = {nt}*{n_vars}*{K}*{nx} values: "
+            f"{need / 1e9:.1f} GB, above the {free / 1e9:.1f} GB free on {device}; collect "
+            "fewer years raw (raw_mode='none' or 'last') or split the year")
 
 
 def pcr_shared_bytes(n: int, steps: int, itemsize: int) -> int:

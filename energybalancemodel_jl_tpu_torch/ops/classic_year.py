@@ -42,9 +42,10 @@ from ..models.classic import cos_table, member_scalars, uniform_bands
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from . import _build
-from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args, check_noise_args,
-                    check_width, check_year_args, classic_ou_unroll, member_columns,
-                    noise_offsets, pcr_shared_bytes, refuse_grad, year_result)
+from ._year import (WIDE, CrossingTracker, NoiseLaunch, check_crossing_args, check_noise_args,
+                    check_raw_fits, check_width, check_year_args, classic_ou_unroll,
+                    member_columns, noise_offsets, pcr_shared_bytes, refuse_grad, workspace,
+                    year_result)
 from .tridiag import pcr_steps
 
 __all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
@@ -61,8 +62,9 @@ PAR_NAMES = ("cg", "tau", "B", "k", "Lf", "D", "ai", "A", "Fb", "cw",
 # reads, the virtual "F" forcing offset and the table parameters
 ROW_NAMES = ("cg_tau", "dt_tau", "dc", "M", "kLf", "dtD", "cg", "ai", "A", "Fb", "cw",
              "Lf", "F", "S0", "S1", "S2", "a0", "a2")
-# grid cells strided over at most 1024 threads, at most 4 per thread
-MAX_NX = 4096
+# up to 4096 cells in registers (at most 4 per thread of 1024), above that
+# the wide build (each cell's state in device memory)
+MAX_NX = WIDE["classic_year"]["max"]
 # the least K that runs a grid of nx <= 256 on the kernel's warp builds (one
 # member per warp, csrc/classic_year.cu); a smaller K runs the block build,
 # whose one member per block is faster while it needs few rounds of resident
@@ -82,7 +84,7 @@ def member_params(par, K: int, dt: float, dtype, device) -> torch.Tensor:
 
 def check_nx(nx: int) -> None:
     """Raise ``ValueError`` when the kernel cannot run an ``nx``-cell grid."""
-    check_width("classic_year", nx, MAX_NX, "at most 4 grid cells per thread of 1024")
+    check_width("classic_year", nx)
 
 
 def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
@@ -101,8 +103,9 @@ def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = Fal
     modes return as :func:`.miz_year.miz_year`'s do.
 
     On a CUDA device this launches the kernel (counted in
-    ``classic_year.launches``) and raises if it cannot (``nx > 4096`` names
-    ROADMAP M8); on the CPU it runs :func:`classic_year_reference`.
+    ``classic_year.launches``; above nx = 4096 its wide build) and raises if
+    it cannot (``nx > MAX_NX``); on the CPU it runs
+    :func:`classic_year_reference`.
     """
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "classic_year")
     noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,
@@ -158,11 +161,15 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the classic_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
-    # the PCR buffers and the crossing sum's slots (csrc/classic_year.cu)
+    # the PCR buffers (but on the wide build, whose rows are in its
+    # workspace) and the crossing sum's slots (csrc/classic_year.cu)
     size = torch.empty((), dtype=dtype).element_size()
+    rows = 0 if nx > WIDE["classic_year"]["narrow"] else pcr_shared_bytes(nx, pcr_steps(nx),
+                                                                          size)
     nz = NoiseLaunch(noise, noise_ou, noise_keys, ou_assoc, crossing, st, K, dtype, device,
-                     pcr_shared_bytes(nx, pcr_steps(nx), size) + 64 * size,
-                     unroll=classic_ou_unroll(st.nt))
+                     rows + 64 * size, unroll=classic_ou_unroll(st.nt))
+    if collect_raw:
+        check_raw_fits(st.nt, len(OUT_VARS), K, nx, dtype, device)
     pars = member_params(par, K, st.dt, dtype, device)
     # per-cell columns (5, nx): x, x^2 and the uniform-grid bands
     x = torch.as_tensor(st.x, dtype=dtype, device=device)
@@ -180,11 +187,12 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     # every step's outputs, (nt, 3, K, nx), or a null pointer
     raw = (torch.empty((st.nt, len(OUT_VARS), K, nx), dtype=dtype, device=device)
            if collect_raw else None)
+    ws, ws_ptr, ws_words, ws_blocks = workspace("classic_year", nx, K, dtype, device)
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg)]
     ptrs.append(raw.data_ptr() if raw is not None else None)
-    _build.launch("ebm_classic_year", dtype, device, *ptrs, *nz.ptrs, K, nx, st.nt,
+    _build.launch("ebm_classic_year", dtype, device, *ptrs, *nz.ptrs, ws_ptr, K, nx, st.nt,
                   st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), nz.ou_mode, nz.unroll,
-                  WARP_MIN_K, st.dt)
+                  WARP_MIN_K, ws_words, ws_blocks, st.dt)
     classic_year.launches += 1
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(

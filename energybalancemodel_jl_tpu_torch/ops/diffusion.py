@@ -18,7 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["DiffusionGeometry", "diffusion_bands", "neighbor_cells", "apply_diffusion"]
+__all__ = ["DiffusionGeometry", "diffusion_bands", "neighbor_cells", "apply_diffusion",
+           "diffusion"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +88,10 @@ def apply_diffusion(T: torch.Tensor, geom: DiffusionGeometry, D):
     Tm1, Tp1 = neighbor_cells(T)
     return D * (band(geom.lo) * Tm1 + band(geom.di) * T + band(geom.up) * Tp1)
 
+
+def diffusion(T, st, par):
+    """Out-of-place ``D∇²T`` on the grid of ``st`` with ``par["D"]`` (JAX
+    ``ops/diffusion.py::diffusion``, the reference's ``diffusion``,
+    ``src/infrastructure.jl:529-530``)."""
+    T = T if torch.is_tensor(T) else torch.as_tensor(np.asarray(T))
+    return apply_diffusion(T, diffusion_bands(st), par["D"])

@@ -37,9 +37,10 @@ from ..models.base import StepConfig
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from . import _build
-from ._year import (CrossingTracker, NoiseLaunch, check_crossing_args,
-                    check_noise_args, check_width, check_year_args, member_columns,
-                    noise_offsets, pcr_shared_bytes, refuse_grad, year_result)
+from ._year import (WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
+                    check_noise_args, check_raw_fits, check_width, check_year_args,
+                    member_columns, noise_offsets, pcr_shared_bytes, refuse_grad, workspace,
+                    year_result)
 from .diffusion import diffusion_bands
 from .tridiag import pcr_steps
 
@@ -61,8 +62,9 @@ XK_TABLE_ROWS = ("S0", "S1", "S2", "a0", "a2")
 # the (K, 23) stack: PAR_NAMES, the hoisted Tm^m2, the virtual "F" forcing
 # offset, then the table parameters (JAX pallas_year.py:102-119, :901-908)
 ROW_NAMES = PAR_NAMES + ("Tm_pow_m2", "F") + XK_TABLE_ROWS
-# the kernel runs one grid cell per thread of a block
-MAX_NX = 1024
+# up to 1024 cells in registers (one per thread), above that the wide
+# build (each cell's state in device memory)
+MAX_NX = WIDE["miz_year"]["max"]
 
 
 def member_params(par, K: int, dtype, device) -> torch.Tensor:
@@ -76,7 +78,7 @@ def member_params(par, K: int, dtype, device) -> torch.Tensor:
 
 def check_nx(nx: int) -> None:
     """Raise ``ValueError`` when the kernel cannot run an ``nx``-cell grid."""
-    check_width("miz_year", nx, MAX_NX, "one grid cell per thread")
+    check_width("miz_year", nx)
 
 
 def _year_tables(st, dtype, device):
@@ -114,8 +116,8 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
     members and has no such count, so it raises.
 
     On a CUDA device this launches the kernel (counted in
-    ``miz_year.launches``) and raises if it cannot; on the CPU it runs
-    :func:`miz_year_reference`.
+    ``miz_year.launches``; above nx = 1024 its wide build) and raises if it
+    cannot (``nx > MAX_NX``); on the CPU it runs :func:`miz_year_reference`.
     """
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "miz_year")
     noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,
@@ -185,11 +187,15 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys
         raise ValueError(f"the miz_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
     # csrc/miz_year.cu::base_shared_bytes: the PCR buffers, the neighbour
-    # exchange, two sets of reduction slots
+    # exchange (but on the wide build, which keeps both in its workspace),
+    # two sets of reduction slots
     size = pars.element_size()
-    base = pcr_shared_bytes(nx, pcr_steps(nx), size) + 4 * size * (nx + 2) + 128 * size
+    rows = (0 if nx > WIDE["miz_year"]["narrow"]
+            else pcr_shared_bytes(nx, pcr_steps(nx), size) + 4 * size * (nx + 2))
     nz = NoiseLaunch(noise, noise_ou, noise_keys, ou_assoc, crossing, st, K, dtype, device,
-                     base)
+                     rows + 128 * size)
+    if collect_raw:
+        check_raw_fits(st.nt, len(OUT_VARS), K, nx, dtype, device)
     cols, cosv = _year_tables(st, dtype, device)
     cin = torch.stack([carry[k] for k in CARRY_KEYS])  # (6, K, nx), contiguous
     f = f.contiguous()
@@ -202,12 +208,14 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys
     # every step's outputs, (nt, 10, K, nx), or a null pointer
     raw = (torch.empty((st.nt, len(OUT_VARS), K, nx), dtype=dtype, device=device)
            if collect_raw else None)
+    ws, ws_ptr, ws_words, ws_blocks = workspace("miz_year", nx, K, dtype, device)
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv)]
     ptrs += [v.data_ptr() if v is not None else None for v in (newton_iters, raw)]
     max_step = cfg.newton_max_step if cfg.newton_max_step is not None else math.inf
-    _build.launch("ebm_miz_year", dtype, device, *ptrs, *nz.ptrs, K, nx, st.nt,
+    _build.launch("ebm_miz_year", dtype, device, *ptrs, *nz.ptrs, ws_ptr, K, nx, st.nt,
                   st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), cfg.newton_max_iter,
-                  nz.ou_mode, nz.unroll, st.dt, cfg.newton_abstol, cfg.newton_reltol, max_step)
+                  nz.ou_mode, nz.unroll, ws_words, ws_blocks, st.dt,
+                  cfg.newton_abstol, cfg.newton_reltol, max_step)
     miz_year.launches += 1
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(

@@ -17,13 +17,14 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._year import refuse_grad
+from ._year import WIDE, check_width, refuse_grad, workspace
 from .tridiag import _shift, pcr_solve, pcr_steps
 
 __all__ = ["newton_t0", "newton_t0_reference", "MAX_N"]
 
-# cells strided over at most 1024 threads, at most 4 per thread
-MAX_N = 4096
+# up to 4096 cells in registers (at most 4 per thread of 1024), above that
+# the wide build (each cell's state in device memory)
+MAX_N = WIDE["newton_t0"]["max"]
 
 
 def _check_args(T0, fields, bands):
@@ -62,7 +63,8 @@ def newton_t0(T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, ai, f,
     A, B, ai, f`` and ``max_step``. Returns the updated ``(K, nx)`` ``T0``.
 
     On a CUDA device this launches the kernel (counted in
-    ``newton_t0.launches``) and raises if it cannot; on the CPU it runs
+    ``newton_t0.launches``; above nx = 4096 its wide build, up to ``MAX_N``
+    cells) and raises if it cannot; on the CPU it runs
     :func:`newton_t0_reference`."""
     dtype, device = T0.dtype, T0.device
     as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
@@ -75,17 +77,17 @@ def newton_t0(T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, ai, f,
         raise ValueError(f"newton_t0 has no kernel for device {device}")
     refuse_grad("newton_t0", T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, ai, f)
     K, n = T0.shape
-    if n > MAX_N:
-        raise ValueError(f"the newton_t0 kernel takes at most {MAX_N} cells, got nx={n}")
+    check_width("newton_t0", n)
     s = _scalars(dtype, device, k=k, Tm=Tm, A=A, B=B, ai=ai, f=f, max_step=max_step)
     scal = torch.stack([s[name] for name in ("k", "Tm", "A", "B", "ai", "f", "max_step")])
     D = as_t(D).reshape(-1).expand(K).contiguous()
     bands = torch.stack([glo, gdi, gup])
     inputs = [v.contiguous() for v in (T0, hp, Tw, phi, insol)]
     out = torch.empty_like(inputs[0])
+    ws, ws_ptr, ws_words, ws_blocks = workspace("newton_t0", n, K, dtype, device)
     _build.launch("ebm_newton_t0", dtype, device, *(v.data_ptr() for v in inputs),
-                  bands.data_ptr(), D.data_ptr(), scal.data_ptr(), out.data_ptr(), K, n,
-                  int(iters), pcr_steps(n))
+                  bands.data_ptr(), D.data_ptr(), scal.data_ptr(), out.data_ptr(), ws_ptr, K, n,
+                  int(iters), pcr_steps(n), ws_words, ws_blocks)
     newton_t0.launches += 1
     return out
 

@@ -17,20 +17,22 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._year import refuse_grad
+from ._year import WIDE, check_width, refuse_grad, workspace
 from .tridiag import pcr_solve, pcr_steps
 
 __all__ = ["pcr_fused", "MAX_N"]
 
-# rows strided over at most 1024 threads, at most 4 per thread
-MAX_N = 4096
+# up to 4096 rows in shared memory (at most 4 per thread of 1024), above
+# that the wide build (its rows in device memory)
+MAX_N = WIDE["pcr_fused"]["max"]
 
 
 def pcr_fused(lo, di, up, b):
     """Solve the ``(K, n)`` systems ``lo x[i-1] + di x[i] + up x[i+1] = b``
     (``lo[..., 0]`` and ``up[..., -1]`` are not read as couplings: the rows
     out of range are identity rows). On a CUDA device this launches the
-    kernel (counted in ``pcr_fused.launches``); on the CPU it runs
+    kernel (counted in ``pcr_fused.launches``; above n = 4096 its wide
+    build, up to ``MAX_N`` rows); on the CPU it runs
     :func:`.tridiag.pcr_solve`."""
     if b.ndim != 2:
         raise ValueError(f"pcr_fused solves (K, n) systems, got rhs shape {tuple(b.shape)}")
@@ -40,10 +42,7 @@ def pcr_fused(lo, di, up, b):
         raise ValueError(f"pcr_fused has no kernel for device {b.device}")
     refuse_grad("pcr_fused", lo, di, up, b)
     K, n = b.shape
-    if n > MAX_N:
-        raise ValueError(
-            f"the pcr_fused kernel solves systems of at most {MAX_N} rows, got n={n}"
-        )
+    check_width("pcr_fused", n)
 
     def band(v):
         """A band and its row stride: 0 for one row shared by every system."""
@@ -55,9 +54,10 @@ def pcr_fused(lo, di, up, b):
     (lo, s_lo), (di, s_di), (up, s_up) = band(lo), band(di), band(up)
     b = b.contiguous()
     x = torch.empty_like(b)
+    ws, ws_ptr, ws_words, ws_blocks = workspace("pcr_fused", n, K, b.dtype, b.device)
     _build.launch("ebm_pcr", b.dtype, b.device, lo.data_ptr(), di.data_ptr(),
-                  up.data_ptr(), b.data_ptr(), x.data_ptr(), K, n, s_lo, s_di, s_up,
-                  pcr_steps(n))
+                  up.data_ptr(), b.data_ptr(), x.data_ptr(), ws_ptr, K, n, s_lo, s_di, s_up,
+                  pcr_steps(n), ws_words, ws_blocks)
     pcr_fused.launches += 1
     return x
 

@@ -20,7 +20,14 @@ import math
 
 import torch
 
-__all__ = ["thomas_solve", "pcr_solve", "pcr_steps", "tridiag_solve"]
+__all__ = ["thomas_solve", "pcr_solve", "pcr_steps", "tridiag_solve", "tridiag_matvec"]
+
+
+def tridiag_matvec(lo, di, up, x):
+    """``A @ x`` for bands ``(lo, di, up)`` with lo[0] = up[-1] = 0, along
+    the last axis (JAX ``ops/tridiag.py::tridiag_matvec``): the rolled
+    neighbours meet the zero band ends."""
+    return lo * torch.roll(x, 1, dims=-1) + di * x + up * torch.roll(x, -1, dims=-1)
 
 
 def thomas_solve(lo, di, up, b):

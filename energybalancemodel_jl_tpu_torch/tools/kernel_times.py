@@ -1,12 +1,14 @@
 """Time the port's kernels at the main paths' shapes, and compare two
 checkouts of the package on one card in one session.
 
-Two commands, run from the root of a checkout on a machine with a CUDA device
-and nvcc::
+Three commands, run from the root of a checkout on a machine with a CUDA
+device and nvcc::
 
     python energybalancemodel_jl_tpu_torch/tools/kernel_times.py measure
     python energybalancemodel_jl_tpu_torch/tools/kernel_times.py compare \\
         --parent _checkout/parent --out kernel_times.json
+    python energybalancemodel_jl_tpu_torch/tools/kernel_times.py highres \\
+        --out highres_times.json
 
 (as a script, not with ``-m``: the package it measures is the one under
 ``--root``, imported after the arguments are read)
@@ -37,6 +39,14 @@ kernels round alike print equal hashes. ``compare`` runs ``measure`` in a
 process of its own for the parent, this checkout, this checkout, the parent,
 in that order, and prints the rows side by side with the card's name and
 power limit.
+
+``highres`` times the high-resolution MIZ years on the wide build: for each
+grid of ``--miz`` (``nx:nt``; default the two of ``chip_smoke.py`` phase 22,
+nx^2/nt = 16.0, the canonical grid's coupling) one float32 year from zero
+init at F = 0 with the default Newton tolerances on the kernel's counting
+build, with its seconds (CUDA events), microseconds per step and Newton
+updates per step, each row beside the card's name and power limit. It
+prints one JSON object and, with ``--out``, writes it there.
 """
 from __future__ import annotations
 
@@ -62,13 +72,29 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
+def event_ms(fn, n):
+    """ms per call of ``fn`` by CUDA events around ``n`` calls (the caller
+    makes any warm-up)."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def ptxas_rows(log):
     """kernel<dtype,template values> -> 'N registers[, S bytes spilled]' from
     an ``-Xptxas -v`` log."""
     rows, name, spill = {}, None, "0"
     for line in log.splitlines():
         m = re.search(r"(miz_year_kernel|classic_year_kernel|classic_warp_kernel|pcr_kernel|"
-                      r"pcr_warp_kernel|newton_t0_kernel|normal_table_kernel|normal_bits_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
+                      r"pcr_warp_kernel|newton_t0_kernel|normal_table_kernel|normal_bits_kernel|"
+                      r"classic_wide_kernel|miz_wide_kernel|pcr_wide_kernel|"
+                      r"newton_t0_wide_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
                       line)
         if m and "entry function" in line:
             args = [{"f": "f32", "d": "f64"}[m.group(2)]] if m.group(2) else []
@@ -124,14 +150,7 @@ def measure(root, flags, rows_wanted):
 
     def kernel_time(fn, n=3):
         out = fn()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / n, out
+        return event_ms(fn, n), out
 
     def device_time(fn, n, kernel):
         """ms per call that the device spent in kernels whose name holds
@@ -336,6 +355,40 @@ def compare(parent, out, rows_wanted):
                        "runs": runs}, fh, indent=1)
 
 
+def highres(grids, out):
+    sys.path.insert(0, os.path.abspath("."))
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.models.base import default_step_config
+    from energybalancemodel_jl_tpu_torch.ops import _build
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import CARRY_KEYS, miz_year
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    _build.load_library()  # outside the timed years
+    result = {"gpu": nvidia_smi(), "miz": []}
+    cfg = default_step_config("float32")
+    for nx, nt in grids:
+        st = ebt.SpaceTime.sin(nx, nt, 1)
+        carry = ebt.Collection(
+            {k: torch.zeros((1, nx), dtype=torch.float32, device=dev) for k in CARRY_KEYS})
+        f = torch.zeros(nt, dtype=torch.float32, device=dev)
+        updates = torch.zeros(1, dtype=torch.int32, device=dev)
+        s = event_ms(lambda: miz_year(carry, ebt.default_parameters("MIZ"), f, st, cfg,
+                                      newton_iters=updates), 1) / 1e3
+        row = dict(nx=nx, nt=nt, coupling=nx ** 2 / nt, s_per_year=s, us_per_step=s / nt * 1e6,
+                   newton_updates_per_step=int(updates.sum()) / nt,
+                   newton_max_iter=cfg.newton_max_iter, gpu=result["gpu"])
+        result["miz"].append(row)
+        print(json.dumps(row), flush=True)
+    if out:
+        with open(out, "w") as fh:
+            json.dump(result, fh, indent=1)
+    print(json.dumps(result))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -348,6 +401,10 @@ def main(argv=None):
     c.add_argument("--parent", required=True)
     c.add_argument("--out", default="")
     c.add_argument("--rows", nargs="*", default=[])
+    h = sub.add_parser("highres")
+    h.add_argument("--miz", nargs="*", type=lambda v: tuple(map(int, v.split(":"))),
+                   default=[(2048, 262144), (1536, 147456)])
+    h.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if args.cmd == "measure":
         res = measure(args.root, args.nvcc_flag, args.rows)
@@ -356,6 +413,8 @@ def main(argv=None):
             print(f"  {k}: {v}")
         if args.json:
             print(json.dumps(res))
+    elif args.cmd == "highres":
+        highres(args.miz, args.out)
     else:
         compare(args.parent, args.out, args.rows)
     return 0

@@ -153,5 +153,7 @@ def test_wrapper_argument_checks():
     with pytest.raises(ValueError, match="no kernel for device"):
         tcy.classic_year(meta, par, fyear, st, CFG)
     tcy.check_nx(4096)  # the high-resolution single run of tests/test_highres.py
-    with pytest.raises(ValueError, match="M8"):
-        tcy.check_nx(4097)
+    tcy.check_nx(4097)  # the wide build, up to the JAX package's fused Classic reach
+    tcy.check_nx(32768)
+    with pytest.raises(ValueError, match="runs nx <= 32768"):
+        tcy.check_nx(32769)

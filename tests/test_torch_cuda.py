@@ -30,7 +30,15 @@ Bars:
   their solo runs, and both sides of the K dispatch: bitwise;
 - the batched PCR and the fixed-iteration Newton for T0: bitwise equal, with
   shared and per-system bands, 1 to 4 rows per thread, and K11's warp
-  layout (a system per warp up to n = 256).
+  layout (a system per warp up to n = 256);
+- the wide builds (above the register builds' widths, every cell's state in
+  device memory): Classic at nx 8192 and 32768, MIZ at 1025, 1536, 2048
+  and 16384 (D scaled so D nx^2/nt is the canonical grid's, 2 fixed Newton
+  iterations), every noise mode, K11 up to 32768 rows and K10 up to 16384:
+  bitwise equal; MIZ with the adaptive Newton: float64 to 1e-8 at K=2, and
+  at K=1 (nx=1536, f32 and f64) bitwise with the plain version's Newton
+  updates; more members than the card keeps resident, each bitwise its solo run; the entry points
+  launch them with ``engine='auto'`` and raise past their widths.
 """
 import contextlib
 
@@ -46,6 +54,7 @@ from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year, class
 from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
 from energybalancemodel_jl_tpu_torch.ops.miz_year import (CARRY_KEYS, miz_year,
                                                            miz_year_reference)
+from energybalancemodel_jl_tpu_torch.ops import _year, prng
 from energybalancemodel_jl_tpu_torch.ops.newton_t0 import newton_t0, newton_t0_reference
 from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
 from energybalancemodel_jl_tpu_torch.ops.tridiag import pcr_solve
@@ -149,22 +158,27 @@ def test_newton_update_counts_unchanged_by_the_redesign(cuda, dtype, K):
 
 def test_unsupported_inputs_raise_instead_of_running_the_plain_version(cuda):
     before = miz_year.launches
-    st, par, carry, f = setup(cuda, torch.float64, nx=1025, nt=10, K=2)
-    with pytest.raises(ValueError, match="M8"):
+    st, par, carry, f = setup(cuda, torch.float64, nx=16385, nt=10, K=2)
+    with pytest.raises(ValueError, match="runs nx <= 16384"):
         miz_year(carry, par, f, st, default_step_config("float64"))
     st, par, carry, f = setup(cuda, torch.float16, nt=10, K=2)
     with pytest.raises(ValueError, match="float32 or float64"):
         miz_year(carry, par, f, st, default_step_config("float32"))
     # the entry points raise too, with engine='auto', before any work
-    wide = ebt.SpaceTime.sin(1025, 10, 1)
-    with pytest.raises(ValueError, match="M8"):
+    wide = ebt.SpaceTime.sin(16385, 10, 1)
+    with pytest.raises(ValueError, match="runs nx <= 16384"):
         ebt.integrate("MIZ", wide, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
                       ebt.zeros_init(wide), device=cuda, progress=False)
-    with pytest.raises(ValueError, match="M8"):
+    with pytest.raises(ValueError, match="runs nx <= 16384"):
         ebt.ensemble_integrate("MIZ", wide, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
                                ebt.zeros_init(wide), n_members=2, device=cuda,
                                progress=False)
     assert miz_year.launches == before
+    # nx = 1025, which raised before the wide build, launches it
+    wide = ebt.SpaceTime.sin(1025, 10, 1)
+    ebt.integrate("MIZ", wide, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
+                  ebt.zeros_init(wide), device=cuda, progress=False, raw_mode="none")
+    assert miz_year.launches == before + 1
 
 
 def test_entry_points_launch_the_kernel(cuda):
@@ -316,8 +330,9 @@ def test_classic_k_dispatch_crossover_both_sides(cuda):
 
 # one case per shape class of the padded, packed PCR rows: no level, one
 # level, around a warp, the canonical grid, the widest one-row-per-thread
-# system, and the 2- and 4-row builds with their one clamped buffer
-SHAPE_CLASSES = [1, 2, 7, 31, 32, 33, 180, 1024, 1025, 1500, 4096]
+# system, the 2- and 4-row builds with their one clamped buffer, and the
+# wide build (rows in device memory) up to its widest
+SHAPE_CLASSES = [1, 2, 7, 31, 32, 33, 180, 1024, 1025, 1500, 4096, 8192, 32768]
 
 
 # K11 runs one system per warp up to n = 256 and a block per system above
@@ -356,7 +371,8 @@ def test_newton_t0_kernel_matches_plain_bitwise(cuda, dtype, K, nx):
     assert bitwise(x, newton_t0_reference(*args, max_step=50.0, iters=6))
 
 
-@pytest.mark.parametrize("n", SHAPE_CLASSES)
+# K10's wide build runs up to n = 16384
+@pytest.mark.parametrize("n", [n for n in SHAPE_CLASSES if n <= 16384] + [16384])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_newton_t0_kernel_shape_classes_bitwise(cuda, dtype, n):
     """K10 at every shape class of the shared PCR and exchange layer, on
@@ -406,10 +422,17 @@ def test_classic_and_solver_entry_points_launch_their_kernels(cuda):
                         init, dtype="float64", device=cuda, progress=False)
     assert classic_year.launches == before + 6  # the raw last year runs the kernel too
     assert sol.raw["E"].shape == (st.nt, st.nx) and np.isfinite(sol.raw["E"]).all()
+    # nx = 4097 runs the wide build; past 32768 the kernel raises, before any work
     wide = ebt.SpaceTime.sin(4097, 1000, 1)
-    with pytest.raises(ValueError, match="M8"):
-        ebt.integrate("Classic", wide, ebt.Forcing(0.0), ebt.default_parameters("Classic"),
-                      ebt.zeros_init(wide, "Classic"), device=cuda, progress=False)
+    ebt.integrate("Classic", wide, ebt.Forcing(0.0), ebt.default_parameters("Classic"),
+                  ebt.zeros_init(wide, "Classic"), device=cuda, progress=False,
+                  raw_mode="none")
+    assert classic_year.launches == before + 7
+    past = ebt.SpaceTime.sin(32769, 1000, 1)
+    with pytest.raises(ValueError, match="runs nx <= 32768"):
+        ebt.integrate("Classic", past, ebt.Forcing(0.0), ebt.default_parameters("Classic"),
+                      ebt.zeros_init(past, "Classic"), device=cuda, progress=False)
+    assert classic_year.launches == before + 7
     st = ebt.SpaceTime.sin(40, 200, 1)
     mpar = ebt.default_parameters("MIZ")
     mpar["D"] = np.linspace(0.55, 0.65, 4)
@@ -420,3 +443,180 @@ def test_classic_and_solver_entry_points_launch_their_kernels(cuda):
                                      solver=solver, progress=False)
         assert counter.launches > before, solver
         assert np.isfinite(out.seasonal.avg["E"]).all()
+
+
+# -- the wide builds (grids above the register builds' widths): bitwise the
+# plain versions, as chip_smoke.py phase 22 holds them. Each year is held
+# finite too (a year of NaNs would compare trivially): MIZ scales D so that
+# D nx^2 / nt is the canonical grid's (its Tb diffusion is explicit), Classic
+# runs nt = 1000 (at nt = 200 its explicit E step diverges at these widths)
+COUPLING = 180 ** 2 / 2000
+FIXED2 = StepConfig(solver="pcr", newton_abstol=0.0, newton_reltol=0.0,
+                    newton_max_step=50.0, newton_max_iter=2)
+
+
+def wide_miz_setup(dev, dtype, nx, nt, K):
+    st, par, carry, f = setup(dev, dtype, nx=nx, nt=nt, K=K)
+    par["D"] = par["D"] * COUPLING * nt / nx ** 2
+    return st, par, carry, f
+
+
+def leaves(v, path="result"):
+    """(name, tensor) over a year's results, nested."""
+    if torch.is_tensor(v):
+        yield path, v
+    elif isinstance(v, dict):
+        for k in v:
+            yield from leaves(v[k], f"{path}.{k}")
+    elif v is not None:
+        for i, x in enumerate(v):
+            yield from leaves(x, f"{path}[{i}]")
+
+
+def assert_same_years(k, p):
+    pairs_kp = list(zip(leaves(tuple(k)), leaves(tuple(p))))
+    assert pairs_kp
+    for (what, x), (_, y) in pairs_kp:
+        assert bitwise(x, y), what
+
+
+@pytest.mark.parametrize("nx", [8192, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classic_wide_build_matches_plain_bitwise(cuda, dtype, nx):
+    st, par, carry, f = classic_setup(cuda, dtype, nx=nx, nt=1000, K=2)
+    cfg = default_step_config(dtype_name(dtype))
+    before = classic_year.launches
+    k = two_years(classic_year, carry, par, f, st, cfg)
+    assert classic_year.launches == before + 2
+    assert_same_years(k, two_years(classic_year_reference, carry, par, f, st, cfg))
+    assert torch.isfinite(k[0]["E"]).all()
+
+
+@pytest.mark.parametrize("nx", [1025, 1536, 2048, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_miz_wide_build_matches_plain_bitwise(cuda, dtype, nx):
+    st, par, carry, f = wide_miz_setup(cuda, dtype, nx, 32, 2)
+    before = miz_year.launches
+    k = two_years(miz_year, carry, par, f, st, FIXED2)
+    assert miz_year.launches == before + 2
+    assert_same_years(k, two_years(miz_year_reference, carry, par, f, st, FIXED2))
+    assert all(torch.isfinite(v).all() for v in k[0].values())
+
+
+def test_miz_wide_build_adaptive_newton_float64(cuda):
+    """The default Newton tolerances: the kernel iterates per member, the
+    plain version in lockstep, so they agree to below the tolerance (the
+    bar of the canonical grid's float64 test)."""
+    st, par, carry, f = wide_miz_setup(cuda, torch.float64, 2048, 32, 2)
+    cfg = default_step_config("float64")
+    k = two_years(miz_year, carry, par, f, st, cfg)
+    p = two_years(miz_year_reference, carry, par, f, st, cfg)
+    for what, x, y in pairs(k, p):
+        assert torch.equal(torch.isnan(x), torch.isnan(y)), what
+        torch.testing.assert_close(torch.nan_to_num(x), torch.nan_to_num(y), rtol=1e-8,
+                                   atol=1e-8, msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_miz_wide_build_adaptive_newton_single_run_bitwise(cuda, monkeypatch, dtype):
+    """The default Newton tolerances in a single run at the width of the
+    high-resolution year: at K=1 the plain version's lockstep loop is the
+    kernel's per-member one, so both make the same Newton updates (the
+    kernel's decided by its block max of the residual) and round alike."""
+    st, par, carry, f = wide_miz_setup(cuda, dtype, 1536, 64, 1)
+    cfg = default_step_config(dtype_name(dtype))
+    counted = torch.zeros(1, dtype=torch.int32, device=cuda)
+    k = miz_year(carry, par, f, st, cfg, newton_iters=counted)
+    plain_updates, inner = [0], tmiz._newton_root
+
+    def counting(T0_warm, args, cfg):
+        T0, converged, it = inner(T0_warm, args, cfg)
+        plain_updates[0] += it
+        return T0, converged, it
+
+    monkeypatch.setattr(tmiz, "_newton_root", counting)
+    assert_same_years(k, miz_year_reference(carry, par, f, st, cfg))
+    assert int(counted.sum()) == plain_updates[0] > 64
+
+
+def test_wide_build_loops_over_members_beyond_the_resident_blocks(cuda):
+    K = _year.sm_count(cuda) * _year.WIDE_BLOCKS_PER_SM + 4
+    st, par, carry, f = classic_setup(cuda, torch.float32, nx=8192, nt=1000, K=K)
+    cfg = default_step_config("float32")
+    ens = classic_year(carry, par, f, st, cfg)
+    assert_same_years(ens, classic_year_reference(carry, par, f, st, cfg))
+    for m in (0, K // 2, K - 1):
+        solo_par = {n: (v[m] if np.ndim(v) else v) for n, v in par.items()}
+        one = classic_year(ebt.Collection({n: v[m:m + 1] for n, v in carry.items()}),
+                           solo_par, f, st, cfg)
+        for x, y in [(one[0][n][0], ens[0][n][m]) for n in one[0]] + [
+                (a[n][0], b[n][m]) for a, b in zip(one[1], ens[1]) for n in a]:
+            assert bitwise(x, y)
+
+
+NOISE_MODES = ["table", "table/OU", "keys/serial", "keys/assoc", "keys/crossing"]
+
+
+@pytest.mark.parametrize("mode", NOISE_MODES)
+@pytest.mark.parametrize("model", ["Classic", "MIZ"])
+def test_wide_build_noise_modes_match_plain_bitwise(cuda, model, mode):
+    if model == "Classic":
+        st, par, carry, f = classic_setup(cuda, torch.float32, nx=8192, nt=1000, K=2)
+        year, plain, cfg = classic_year, classic_year_reference, default_step_config("float32")
+    else:
+        st, par, carry, f = wide_miz_setup(cuda, torch.float32, 2048, 32, 2)
+        year, plain, cfg = miz_year, miz_year_reference, FIXED2
+    table = torch.as_tensor(np.random.default_rng(3).normal(size=(st.nt, 2)),
+                            dtype=torch.float32, device=cuda)
+    keys, ou = prng.member_year_keys(5, 2, 2), (0.95, 3.0, 0.5)
+    kw = {"table": dict(noise=table), "table/OU": dict(noise=table, noise_ou=ou),
+          "keys/serial": dict(noise_keys=keys, noise_ou=ou),
+          "keys/assoc": dict(noise_keys=keys, noise_ou=ou, ou_assoc=True),
+          "keys/crossing": dict(noise_keys=keys, noise_ou=ou,
+                                crossing=(float(np.sum(np.diff(st.x))) * 0.3, 1.0))}[mode]
+    k = year(carry, par, f, st, cfg, **kw)
+    assert_same_years(k, plain(carry, par, f, st, cfg, **kw))
+    assert all(torch.isfinite(v).all() for v in k[0].values())
+
+
+def test_entry_points_launch_the_wide_builds(cuda):
+    """ensemble_integrate and transitions with engine='auto' above the
+    register builds' widths run the wide build, one launch per year."""
+    st = ebt.SpaceTime.sin(8192, 1000, 1)
+    par = ebt.default_parameters("Classic")
+    E0 = np.full(st.nx, 30.0)
+    warm = ebt.Collection(E=E0, Tg=E0 / par["cw"])
+    cold = ebt.Collection(E=-E0, Tg=-E0 / par["cw"])
+    before = classic_year.launches
+    ens = ebt.ensemble_integrate("Classic", st, ebt.Forcing(0.0),
+                                 dict(par, D=np.array([0.55, 0.65])), warm, dtype="float32",
+                                 device=cuda, progress=False)
+    assert classic_year.launches == before + 1
+    assert np.isfinite(ens.seasonal.avg["E"]).all()
+    before = classic_year.launches
+    r = ebt.transitions("Classic", st, 0.0, par, warm, cold, sigma=4.0, tau=0.05, years=1, K=2,
+                        seed=0, dtype="float32", device=cuda)
+    assert classic_year.launches > before
+    assert r.finite.all()
+    mst = ebt.SpaceTime.sin(2048, 64, 1)
+    mpar = ebt.default_parameters("MIZ")
+    mpar["D"] = mpar["D"] * COUPLING * mst.nt / mst.nx ** 2 * np.array([1.0, 1.1])
+    before = miz_year.launches
+    ebt.ensemble_integrate("MIZ", mst, ebt.Forcing(0.0), mpar, ebt.zeros_init(mst),
+                           dtype="float32", device=cuda, progress=False)
+    assert miz_year.launches == before + 1
+
+
+def test_wide_build_workspace_scales_with_resident_blocks(cuda):
+    """The workspace of a wide call: at most one block per SM, whatever K,
+    and a raw year that would not fit raises naming its size."""
+    sms = _year.sm_count(cuda)
+    blocks, words = _year.wide_workspace("classic_year", 32768, 8192, sms)
+    assert (blocks, words) == (sms * _year.WIDE_BLOCKS_PER_SM,
+                               _year.wide_words("classic_year", 32768))
+    st = ebt.SpaceTime.sin(16384, 262144, 1)
+    carry = ebt.Collection({k: torch.zeros((64, st.nx), device=cuda) for k in CARRY_KEYS})
+    with pytest.raises(ValueError, match="raw-collected year stores"):
+        miz_year(carry, ebt.default_parameters("MIZ"), torch.zeros(st.nt, device=cuda), st,
+                 default_step_config("float32"), collect_raw=True)
+

@@ -175,9 +175,12 @@ def test_years_per_dispatch_is_bitwise_invariant():
 def test_engine_resolution():
     """'auto' is the kernel on a CUDA device and the eager loop on the CPU;
     on a CUDA device a run the kernel cannot take raises, it never falls
-    back to the eager loop. An explicit eager engine stays the caller's."""
+    back to the eager loop. An explicit eager engine stays the caller's.
+    Grids above the register builds' widths run the kernels' wide builds:
+    MIZ up to nx = 16384, Classic up to 32768; wider raises."""
     st = ebt.SpaceTime.sin(180, 2000, 1)
-    wide = ebt.SpaceTime.sin(2048, 100, 1)  # nx > 1024: one cell per thread no more
+    wide = ebt.SpaceTime.sin(2048, 100, 1)  # nx > 1024: the MIZ wide build
+    too_wide = ebt.SpaceTime.sin(16385, 100, 1)
     gpu, cpu = torch.device("cuda"), torch.device("cpu")
     spec = ebt.integrate.__globals__["get_model"]("MIZ")
     assert resolve_engine("MIZ", st, gpu) == "fused"
@@ -185,29 +188,34 @@ def test_engine_resolution():
     assert resolve_engine("MIZ", wide, cpu, "fused") == "fused"  # the plain version
     assert _resolve_engine("auto", spec, st, gpu, "pcr") == "fused"
     assert _resolve_engine("auto", spec, st, cpu, "pcr") == "batched"
-    for eager in (lambda: resolve_engine("MIZ", wide, gpu, "scan"),
-                  lambda: _resolve_engine("batched", spec, wide, gpu, "pcr"),
+    for eager in (lambda: resolve_engine("MIZ", too_wide, gpu, "scan"),
+                  lambda: _resolve_engine("batched", spec, too_wide, gpu, "pcr"),
                   lambda: resolve_engine("MIZ", st, gpu, "scan", solver="thomas")):
         assert eager() in ("scan", "batched")
-    with pytest.raises(ValueError, match="M8"):
-        resolve_engine("MIZ", wide, gpu)
-    with pytest.raises(ValueError, match="M8"):
-        _resolve_engine("auto", spec, wide, gpu, "pcr")
+    assert resolve_engine("MIZ", wide, gpu) == "fused"
+    assert _resolve_engine("auto", spec, wide, gpu, "pcr") == "fused"
+    with pytest.raises(ValueError, match="runs nx <= 16384"):
+        resolve_engine("MIZ", too_wide, gpu)
+    with pytest.raises(ValueError, match="runs nx <= 16384"):
+        _resolve_engine("auto", spec, too_wide, gpu, "pcr")
     with pytest.raises(ValueError, match="solver='thomas' runs on engine='scan'"):
         resolve_engine("MIZ", st, gpu, solver="thomas")
     with pytest.raises(ValueError, match="solver='thomas' runs on engine='batched'"):
         _resolve_engine("fused", spec, st, cpu, "thomas")
-    # Classic: the kernel takes up to 4 cells per thread of a 1024-thread block
+    # Classic: up to 4 cells per thread in registers, the wide build above
     classic = ebt.integrate.__globals__["get_model"]("Classic")
     hires = ebt.SpaceTime.sin(4096, 1000, 1)
     assert resolve_engine("Classic", hires, gpu) == "fused"
     assert _resolve_engine("auto", classic, st, gpu, "pcr") == "fused"
     assert _resolve_engine("auto", classic, st, cpu, "pcr") == "batched"
-    for too_wide in (lambda: resolve_engine("Classic", ebt.SpaceTime.sin(4097, 1000, 1), gpu),
-                     lambda: _resolve_engine("auto", classic, ebt.SpaceTime.sin(8192, 1000, 1),
-                                             gpu, "pcr")):
-        with pytest.raises(ValueError, match="M8"):
-            too_wide()
+    assert resolve_engine("Classic", ebt.SpaceTime.sin(4097, 1000, 1), gpu) == "fused"
+    assert _resolve_engine("auto", classic, ebt.SpaceTime.sin(8192, 1000, 1), gpu,
+                           "pcr") == "fused"
+    for past in (lambda: resolve_engine("Classic", ebt.SpaceTime.sin(32769, 1000, 1), gpu),
+                 lambda: _resolve_engine("auto", classic, ebt.SpaceTime.sin(40000, 1000, 1),
+                                         gpu, "pcr")):
+        with pytest.raises(ValueError, match="runs nx <= 32768"):
+            past()
 
 
 @pytest.mark.parametrize("model", ["MIZ", "Classic"])
