@@ -4,7 +4,7 @@ run through its hand-written kernels.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc::
 
-    python3 chip_smoke.py           # about eighteen minutes on an H100
+    python3 chip_smoke.py           # about fifteen minutes on an H100
 
 Phases (any failure exits non-zero, and no phase carries on past its own
 failure):
@@ -58,13 +58,16 @@ failure):
     counted per mode; then the same for Classic, with the scan engine, whose
     draws come from the draw kernel;
 14. every mode that phase 13 runs (f32 keys/serial, keys/assoc, crossing,
-    f64 table/OU), MIZ and Classic, against its plain version at the main
-    path's shape and on its first year's inputs, bitwise (MIZ with fixed
-    Newton iterations); then every mode, K5's table too, timed per canonical
-    model year at K=8192 in the dtype its path runs (table/OU in float32
-    too), beside the deterministic kernel in the same call, with each
-    member's Newton updates counted, and its plain version one year; the
-    draw kernel per call;
+    f64 table/OU) and K5's table, MIZ and Classic, against its plain version
+    at the main path's shape and on its first year's inputs, bitwise (MIZ
+    with fixed Newton iterations): the kernel runs all K=8192 members, the
+    plain version 64 of them spread over the ensemble, each with its own
+    keys, OU row, noise column and threshold, in three plain years per model
+    run at once in processes of their own (members are independent); then
+    every mode timed per canonical model
+    year at K=8192 in the dtype its path runs (table/OU in float32 too),
+    beside the deterministic kernel in the same call, with each member's
+    Newton updates counted; the draw kernel per call;
 15. the equilibrium layer's main path: ``equilibrate`` of 8192 canonical MIZ
     members (f32, the forcing offset F swept over [-10, 10], tol 5e-2, at
     most 150 years), one ``miz_year`` launch per simulated year, the first
@@ -100,14 +103,16 @@ failure):
 20. the solo and eager drivers at the JAX package's own diagnostic grids
     (the dense polish refuses grids past ``basins._POLISH_UNIT_CAP``, and
     the eager year is launch-bound on the card), f64, each job in a process
-    of its own: ``edge_state`` near the Classic saddle at
+    of its own, queued in phase 17's pool behind its jobs (they run on the
+    workers phase 17's shorter jobs free; their holds are read here):
+    ``edge_state`` near the Classic saddle at
     ``SpaceTime.sin(8, 1000)``, F=10 (converged, its ice area between the
     attractors', exactly one eigenvalue of the dense year-map Jacobian
     outside the unit circle), a 2-level ``unstable_branch`` there,
     ``lyapunov`` at the ice-free Classic equilibrium against ``stability``'s
     log growth (1e-6), and a MIZ ``lyapunov`` (``SpaceTime.sin(24, 400)``,
     K=64, ``member_chunk=16``, ``project=("Ew", "phi")``) on the card
-    against the same run on the CPU (1e-10, that job beside phases 18-19);
+    against the same run on the CPU (1e-10);
 21. checkpoints on the main paths, each run interrupted by a writer that
     raises once the chosen year is on disk, then resumed: the phase 4
     ensemble over 4 years (a checkpoint every year, interrupted after year
@@ -121,18 +126,22 @@ failure):
     ``equilibrate``'s results (every array bitwise), and ``plot_avg`` and
     ``plot_seasonal`` of the Classic run to PNG under Agg where matplotlib
     is installed; each checkpoint write's seconds and file size;
-22. the high-resolution runs on the kernels' wide builds (every cell's
-    state and the PCR rows in device memory): the Classic year against its
-    plain version, bitwise, at nx 8192 and 32768 (K=1, nt=1000,
-    raw-collected, f32 and f64) and with more members than the card keeps
-    resident (each block loops over members; three members bitwise their
-    solo runs), the MIZ year at nx 1536, 2048 and 16384 (nt=64, D scaled to the
-    canonical D nx^2/nt, 2 fixed Newton iterations, raw-collected, f32 and
-    f64) and at the main path's nx 1536 also with the default Newton
-    tolerances (the kernel's Newton updates equal the plain version's), every
-    noise mode of both at nx 8192 / 2048, K11 at (64, 32768)
-    and K10 at (64, 16384) (with ``tridiag_matvec``'s residual), each
-    wide build held to no spill stores in phase 2; then the main paths:
+22. the high-resolution runs on the kernels' wide builds (the year
+    kernels' cluster builds: a thread-block cluster per member, the PCR rows
+    and the neighbour exchange in the blocks' shared memory; K11's and K10's
+    rows in device memory): the Classic year against its plain version,
+    bitwise, at nx 8192 and 32768 (K=1, nt=1000, raw-collected, f32 and
+    f64) and with more members than the card keeps clusters resident (each
+    cluster loops over members; three members bitwise their solo runs), the
+    MIZ year at nx 1536, 2048 and 16384 (nt=64, D scaled to the canonical D
+    nx^2/nt, 2 fixed Newton iterations, raw-collected, f32 and f64), at the
+    main path's nx 1536 also with the default Newton tolerances (the
+    kernel's Newton updates equal the plain version's) and with more members
+    than clusters resident, every noise mode of both at nx 8192 / 2048, K11
+    at (64, 32768) and K10 at (64, 16384) (with ``tridiag_matvec``'s
+    residual), each wide build held to no spill stores in phase 2; each
+    cluster build's plan (C, threads, shared bytes, resident clusters,
+    registers); then the main paths:
     ``integrate('Classic', SpaceTime.sin(32768, 1000, 2))`` under a ramp
     with ``engine='auto'`` and checkpoints, interrupted after year 1 and
     resumed bitwise (2 + 1 launches), ``integrate('MIZ',
@@ -161,6 +170,8 @@ import numpy as np
 
 CANONICAL = (180, 2000)  # SpaceTime.sin(nx, nt, dur), bench.py's grid
 K_MAIN = 8192
+# phase 14: the members of the K_MAIN ensemble that its plain years hold
+HOLD_MEMBERS = 64
 # kernel vs plain on the small grid: float64 point by point, both tolerances
 BAR_F64 = 1e-8
 # float32 with a fixed Newton iteration count (on the small grid and at the
@@ -282,18 +293,20 @@ def check_classic_occupancy(ptxas):
     return found
 
 
-# the wide builds (csrc/common.cuh): Classic and MIZ by dtype and noise (MIZ
-# by its count output too), K11 and K10 by dtype, each held to no spill
-# stores: every per-cell value lives in the workspace, so the registers hold
-# one cell's step at a time
-WIDE_BUILDS = {"classic_wide_kernel": 4, "miz_wide_kernel": 8, "pcr_wide_kernel": 2,
+# the wide builds: the year kernels' cluster builds (csrc/cluster.cuh),
+# Classic and MIZ by dtype and noise (MIZ by its count output too), and K11's
+# and K10's device-memory builds (csrc/common.cuh) by dtype, each held to no
+# spill stores: every per-cell value lives in a record, so the registers
+# hold one cell's step at a time
+WIDE_BUILDS = {"classic_cluster_kernel": 4, "miz_cluster_kernel": 8, "pcr_wide_kernel": 2,
                "newton_t0_wide_kernel": 2}
 
 
 def check_wide_builds(ptxas):
     """Fail when a wide build is missing from the ptxas log or spills;
     returns ``{build: ptxas line}``."""
-    found = {name: used for name, used in ptxas.items() if "_wide_kernel" in name}
+    found = {name: used for name, used in ptxas.items()
+             if "_wide_kernel" in name or "_cluster_kernel" in name}
     counts = {k: sum(name.startswith(k + "<") for name in found) for k in WIDE_BUILDS}
     if counts != WIDE_BUILDS:
         fail(f"wide builds in the ptxas log: {counts}, expected {WIDE_BUILDS}")
@@ -316,15 +329,20 @@ FD_STEPS = (1e-6, 1e-7)  # both held
 BAR_CARD_CPU = 1e-9
 
 
-def equilibrium_phases(dev, smi):
+def equilibrium_phases(dev, smi, search_init=None):
     """Phases 15-17: the equilibrium layer on the card. Returns the launch
     counts and times the kernel table reports for the year kernels. Phase
     17's jobs start once the continuation has given their state, and run
     beside phase 16's float64 pair (a K=64 year keeps the card and the host
-    mostly idle)."""
+    mostly idle). With ``search_init`` (:func:`search_init_state`), phase
+    20's jobs queue behind phase 17's in its pool, on the workers its
+    shorter jobs free, and their results come back under
+    ``"search_jobs"``."""
     out = phase15(dev, smi)
     out.update(phase16(dev, smi))
-    phase17(dev, smi, out.pop("f0_state"), meanwhile=lambda: phase16_f64(dev, smi))
+    out["search_jobs"] = phase17(dev, smi, out.pop("f0_state"),
+                                 meanwhile=lambda: phase16_f64(dev, smi),
+                                 search_init=search_init)
     return out
 
 
@@ -602,12 +620,14 @@ GRADIENT_TASKS = ("year gradient", "stability adjoint", "stability right", "sens
                   "fixed point cpu", "fixed point cuda")
 
 
-def phase17(dev, smi, f0_state, meanwhile):
+def phase17(dev, smi, f0_state, meanwhile, search_init=None):
     """Gradients on the card, each job in a process of its own (all joined
     before this returns; ``meanwhile()`` runs in this process while they
     do): the eager year's gradient against central differences,
     ``stability`` both sides, ``sensitivity``, and the fixed point's gradient
-    on the card against the CPU's; then the wrappers' refusals."""
+    on the card against the CPU's; then the wrappers' refusals. With
+    ``search_init``, phase 20's jobs queue in the same pool; returns their
+    results (None without)."""
     import multiprocessing
 
     import torch
@@ -620,12 +640,20 @@ def phase17(dev, smi, f0_state, meanwhile):
     from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
 
     t0 = time.perf_counter()
+    search = None
     with multiprocessing.get_context("spawn").Pool(len(GRADIENT_TASKS)) as pool:
         pending = pool.starmap_async(_gradient_task,
                                      [(task, f0_state) for task in GRADIENT_TASKS])
+        if search_init is not None:
+            queued = pool.starmap_async(_search_task,
+                                        [(task, search_init) for task in SEARCH_TASKS])
         meanwhile()
         results = dict(zip(GRADIENT_TASKS, pending.get()))
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        if search_init is not None:
+            search = dict(zip(SEARCH_TASKS, queued.get()))
+            say(17, f"phase 20's jobs, queued behind these: done "
+                    f"{time.perf_counter() - t0:.1f} s after the pool started")
     for task, r in results.items():
         if "error" in r:
             fail(f"phase 17 {task}: {r['error']}")
@@ -695,6 +723,7 @@ def phase17(dev, smi, f0_state, meanwhile):
     if refused != 4:
         fail("a kernel wrapper refused an input that requires grad with the wrong message")
     say(17, "miz_year, classic_year, pcr_fused, newton_t0 refuse inputs that require grad")
+    return search
 
 
 # -- phases 18-20: the search and spectra drivers ----------------------------
@@ -1009,30 +1038,43 @@ def _search_task(task, miz_init):
     return out
 
 
-def search_phases(dev, smi):
-    """Phases 18-20. Phase 20's CPU job runs beside phases 18-19 (it does
-    not touch the card); its card jobs run beside each other after them, so
-    that phases 18-19 time their kernels alone. Returns the year kernel's
-    launches and times for the kernel table."""
-    import multiprocessing
-
+def search_init_state(dev):
+    """Phase 20's MIZ state: 20 years of ``SpaceTime.sin(24, 400)`` from
+    zeros, f64 (the MIZ ``lyapunov`` jobs start there)."""
     import energybalancemodel_jl_tpu_torch as ebt
 
     nx, nt, K, chunk = LYA_MIZ
     st = ebt.SpaceTime.sin(nx, nt, 20)
     sol = ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
                         ebt.zeros_init(st), dtype="float64", device=dev, progress=False)
-    miz_init = {k: np.array(sol.raw[k][-1]) for k in ("Ei", "Ew", "h", "D", "phi")}
+    return {k: np.array(sol.raw[k][-1]) for k in ("Ei", "Ew", "h", "D", "phi")}
+
+
+def search_phases(dev, smi, jobs=None):
+    """Phases 18-20. ``jobs``: phase 20's results, where its jobs ran in
+    phase 17's pool (the script's way); without them phase 20's CPU job runs
+    beside phases 18-19 (it does not touch the card) and its card jobs beside
+    each other after them, so that phases 18-19 time their kernels alone.
+    Returns the year kernel's launches and times for the kernel table."""
+    import multiprocessing
+
+    nx, nt, K, chunk = LYA_MIZ
     t0 = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(len(SEARCH_TASKS)) as pool:
-        cpu_job = pool.apply_async(_search_task, ("lyapunov miz cpu", miz_init))
+    if jobs is not None:
         out = phase18(dev, smi)
         out.update(phase19(dev, smi, out.pop("fold")))
-        t20 = time.perf_counter()
-        card = pool.starmap_async(_search_task, [(t, miz_init) for t in SEARCH_TASKS[:-1]])
-        results = dict(zip(SEARCH_TASKS[:-1], card.get()))
-        results["lyapunov miz cpu"] = cpu_job.get()
+        t20, results = time.perf_counter(), jobs
+    else:
+        miz_init = search_init_state(dev)
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(len(SEARCH_TASKS)) as pool:
+            cpu_job = pool.apply_async(_search_task, ("lyapunov miz cpu", miz_init))
+            out = phase18(dev, smi)
+            out.update(phase19(dev, smi, out.pop("fold")))
+            t20 = time.perf_counter()
+            card = pool.starmap_async(_search_task, [(t, miz_init) for t in SEARCH_TASKS[:-1]])
+            results = dict(zip(SEARCH_TASKS[:-1], card.get()))
+            results["lyapunov miz cpu"] = cpu_job.get()
     for task, r in results.items():
         if "error" in r:
             fail(f"phase 20 {task}: {r['error']}")
@@ -1055,8 +1097,9 @@ def search_phases(dev, smi):
     say(20, f"lyapunov('MIZ', SpaceTime.sin({nx}, {nt}), K={K}, member_chunk={chunk}, "
             f"project=('Ew', 'phi'), f64, 1 year) on the card equals the CPU's to {worst:.3e} "
             f"(bar {BAR_LYA_CPU}); card {a['wall_s']:.1f} s, CPU {b['wall_s']:.1f} s")
-    say(20, f"phases 18-20: {time.perf_counter() - t0:.1f} s wall (phase 20's card jobs "
-            f"{time.perf_counter() - t20:.1f} s: "
+    where = ("in phase 17's pool" if jobs is not None
+             else f"{time.perf_counter() - t20:.1f} s after phase 19")
+    say(20, f"phases 18-20: {time.perf_counter() - t0:.1f} s wall (phase 20's jobs {where}: "
             + ", ".join(f"{t} {r['wall_s']:.1f} s" for t, r in results.items()) + ")")
     return out
 
@@ -1279,6 +1322,45 @@ def checkpoint_phase(dev, smi):
     return out
 
 
+def _held_plain_task(model, dtype, carry, par, f, cfg, kw):
+    """One of phase 14's plain years, in a process of its own: ``model``'s
+    plain version on the canonical grid for the held members (numpy inputs:
+    the carry, the forcing row, the keyword modes with their arrays), on
+    the card. Returns ``((carry, seasonal, rest), ms)``: the results as
+    numpy (``rest`` the year-end OU value and the crossing steps, where the
+    mode has them) and the year's milliseconds on the host clock."""
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year_reference
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import miz_year_reference
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    t = lambda v: torch.as_tensor(v, dtype=getattr(torch, dtype), device=dev)
+    args = {}
+    for k, v in kw.items():
+        if k == "noise_keys":
+            args[k] = v
+        elif k == "noise_ou":
+            args[k] = (v[0], v[1], t(v[2]))
+        elif k == "crossing":
+            args[k] = tuple(t(x) for x in v)
+        else:
+            args[k] = t(v)
+    plain = miz_year_reference if model == "MIZ" else classic_year_reference
+    st = ebt.SpaceTime.sin(*CANONICAL, 1)
+    carry = ebt.Collection({k: t(v) for k, v in carry.items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = plain(carry, par, t(f), st, cfg, **args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = lambda c: {k: v.cpu().numpy() for k, v in c.items()}
+    return (cpu(out[0]), [cpu(c) for c in out[1]],
+            [None if v is None else v.cpu().numpy() for v in out[3:]]), ms
+
+
 # -- phase 22: the high-resolution runs ---------------------------------------
 # The wide builds (csrc/common.cuh) against their plain versions, bitwise,
 # at the widths the JAX package fuses, then the main paths at high
@@ -1384,8 +1466,9 @@ def highres_phase(dev, smi):
     import energybalancemodel_jl_tpu_torch as ebt
     from energybalancemodel_jl_tpu_torch import checkpoint as ckpt
     from energybalancemodel_jl_tpu_torch.integrate import resolve_engine
-    from energybalancemodel_jl_tpu_torch.models.base import StepConfig, default_step_config
-    from energybalancemodel_jl_tpu_torch.ops import _year, prng
+    from energybalancemodel_jl_tpu_torch.models.base import (StepConfig, default_step_config,
+                                                              dtype_name)
+    from energybalancemodel_jl_tpu_torch.ops import _build, _year, prng
     from energybalancemodel_jl_tpu_torch.ops.classic_year import (classic_year,
                                                                    classic_year_reference)
     from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
@@ -1394,6 +1477,7 @@ def highres_phase(dev, smi):
     from energybalancemodel_jl_tpu_torch.ops.newton_t0 import newton_t0, newton_t0_reference
     from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
     from energybalancemodel_jl_tpu_torch.ops.tridiag import pcr_solve, tridiag_matvec
+    from energybalancemodel_jl_tpu_torch.tools.kernel_times import ptxas_rows
 
     t_phase = time.perf_counter()
     out = {}
@@ -1443,10 +1527,14 @@ def highres_phase(dev, smi):
                 ms["classic"] = _event_ms(lambda: classic_year(carry, par, f, st, cfg), 2)
                 ms["classic_plain"] = plain_ms
             del k, p, inp
-    # (b) K beyond the resident blocks, D swept: the blocks loop over members
+    # (b) K beyond the resident clusters, D swept: the clusters loop over
+    # members (the plan takes the narrowest cluster, the most resident)
     K = resident + HR_K_OVER
     st, par, carry, f = classic_inputs(HR_CLASSIC_NX[0], HR_CLASSIC_NT, K, torch.float32)
     cfg = default_step_config("float32")
+    over_plan = _year.cluster_plan("classic_year", st.nx, st.nt, K, torch.float32, dev)
+    if K <= over_plan.clusters:
+        fail(f"phase 22: K={K} members fit the {over_plan.clusters} resident clusters")
     ens = classic_year(carry, par, f, st, cfg)
     err[f"Classic K={K}"] = _max_err(ens, classic_year_reference(carry, par, f, st, cfg),
                                      f"Classic K={K} nx={HR_CLASSIC_NX[0]}")
@@ -1457,9 +1545,10 @@ def highres_phase(dev, smi):
                 _bitwise(a[k][0], b[k][m]) for a, b in zip(solo[1], ens[1]) for k in a)):
             fail(f"phase 22: Classic member {m} of K={K} differs from its solo run")
     del ens, carry
-    say(22, f"Classic wide build vs plain, bitwise: K=1 nt={HR_CLASSIC_NT} raw-collected at "
-            f"nx {HR_CLASSIC_NX}, f32 and f64; K={K} (> the {resident} resident blocks) D swept "
-            f"at nx={HR_CLASSIC_NX[0]}, members 0, {K // 2}, {K - 1} bitwise their solo runs. "
+    say(22, f"Classic cluster build vs plain, bitwise: K=1 nt={HR_CLASSIC_NT} raw-collected at "
+            f"nx {HR_CLASSIC_NX}, f32 and f64; K={K} (> the {over_plan.clusters} resident "
+            f"clusters of C={over_plan.C}) D swept at nx={HR_CLASSIC_NX[0]}, members 0, "
+            f"{K // 2}, {K - 1} bitwise their solo runs. "
             "max|kernel-plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
 
     # (c) MIZ, 2 fixed Newton iterations, one raw-collected year, f32 and f64
@@ -1495,7 +1584,26 @@ def highres_phase(dev, smi):
         if updates[label][0] != updates[label][1]:
             fail(f"phase 22 {label}: the kernel made {updates[label][0]} Newton updates in "
                  f"the year, the plain version {updates[label][1]}")
-    say(22, f"MIZ wide build vs plain, bitwise: K=1 nt={HR_MIZ_NT}, D scaled to the canonical "
+    # K beyond the resident clusters at the main path's width
+    K = resident + HR_K_OVER
+    st, par, carry, f = miz_inputs(nx, HR_MIZ_NT, K, torch.float32)
+    over_plan = _year.cluster_plan("miz_year", nx, HR_MIZ_NT, K, torch.float32, dev)
+    if K <= over_plan.clusters:
+        fail(f"phase 22: K={K} members fit the {over_plan.clusters} resident clusters")
+    ens = miz_year(carry, par, f, st, fixed2)
+    err[f"MIZ K={K}"] = _max_err(ens, miz_year_reference(carry, par, f, st, fixed2),
+                                 f"MIZ K={K} nx={nx}")
+    for m in (0, K // 2, K - 1):
+        solo = miz_year(ebt.Collection({k: v[m:m + 1] for k, v in carry.items()}),
+                        dict(par, D=par["D"][m]), f, st, fixed2)
+        if not (all(_bitwise(solo[0][k][0], ens[0][k][m]) for k in solo[0]) and all(
+                _bitwise(a[k][0], b[k][m]) for a, b in zip(solo[1], ens[1]) for k in a)):
+            fail(f"phase 22: MIZ member {m} of K={K} differs from its solo run")
+    del ens, carry
+    say(22, f"MIZ cluster build: K={K} (> the {over_plan.clusters} resident clusters of "
+            f"C={over_plan.C}) D swept at nx={nx}, nt={HR_MIZ_NT}, 2 fixed Newton iterations, "
+            f"bitwise the plain version, members 0, {K // 2}, {K - 1} bitwise their solo runs")
+    say(22, f"MIZ cluster build vs plain, bitwise: K=1 nt={HR_MIZ_NT}, D scaled to the canonical "
             f"D nx^2/nt, 2 fixed Newton iterations, raw-collected, at nx {HR_MIZ_NX}, f32 and "
             f"f64; the default Newton tolerances at nx={nx}, f32 and f64, Newton updates "
             f"(kernel, plain) "
@@ -1607,6 +1715,35 @@ def highres_phase(dev, smi):
             + "; K11 |A x - b| / |b| (tridiag_matvec, in float64): "
             + ", ".join(f"{k} {v:.3e}" for k, v in resid.items()))
 
+    # the cluster builds as the C side planned them for this phase's calls:
+    # C, threads, shared bytes per block, resident clusters, registers
+    regs = ptxas_rows(_build.build_log())
+    plans = {}
+    for kernel, nx_, nt_, K_, noisy, count in (
+            ("classic_year", HR_CLASSIC_NX[0], HR_CLASSIC_NT, 1, False, False),
+            ("classic_year", HR_CLASSIC_NX[1], HR_CLASSIC_NT, 1, False, False),
+            ("classic_year", HR_CLASSIC_NX[0], HR_NOISE_NT, 2, True, False),
+            ("classic_year", HR_CLASSIC_NX[0], HR_CLASSIC_NT, resident + HR_K_OVER, False, False),
+            ("miz_year", HR_MIZ_MAIN[0], HR_MIZ_MAIN[1], 1, False, False),
+            ("miz_year", HR_MIZ_MAIN[0], HR_MIZ_NT, 1, False, True),
+            ("miz_year", HR_MIZ_TIMED, HR_MIZ_NT, 2, True, False),
+            ("miz_year", max(HR_MIZ_NX), HR_MIZ_NT, 1, False, False),
+            ("miz_year", HR_MIZ_MAIN[0], HR_MIZ_NT, resident + HR_K_OVER, False, False)):
+        for dtype in (torch.float32, torch.float64):
+            p = _year.cluster_plan(kernel, nx_, nt_, K_, dtype, dev, noisy, 1 if noisy else 0,
+                                   count)
+            flags = f"{int(noisy)}" + (f",{int(count)}" if kernel == "miz_year" else "")
+            short = "f32" if dtype == torch.float32 else "f64"
+            build = f"{kernel.split('_')[0]}_cluster_kernel<{short},{flags}>"
+            plans[f"{kernel} nx={nx_} K={K_} {dtype_name(dtype)}{' noisy' if noisy else ''}"
+                  f"{' count' if count else ''}"] = dict(p._asdict(), registers=regs.get(build))
+    say(22, "cluster builds as planned (C, threads, records in shared memory, resident "
+            "clusters, shared bytes per block, registers): " + "; ".join(
+                f"{k}: C={v['C']} threads={v['threads']} records_shared={v['records_shared']} "
+                f"clusters={v['clusters']} shared={v['shared_bytes']} B {v['registers']}"
+                for k, v in plans.items()))
+    out["plans"] = plans
+
     # (f) the main paths at high resolution
     with tempfile.TemporaryDirectory() as tmp:
         nx = max(HR_CLASSIC_NX)
@@ -1706,7 +1843,7 @@ def main():
     from energybalancemodel_jl_tpu_torch.integrate import resolve_engine
     from energybalancemodel_jl_tpu_torch.models.base import (StepConfig, default_step_config,
                                                               dtype_name, get_model)
-    from energybalancemodel_jl_tpu_torch.ops import _build, prng
+    from energybalancemodel_jl_tpu_torch.ops import _build, _year, prng
     from energybalancemodel_jl_tpu_torch.ops import classic_year as classic_mod
     from energybalancemodel_jl_tpu_torch.ops.classic_year import (classic_year,
                                                                    classic_year_reference)
@@ -1747,7 +1884,8 @@ def main():
         f"{name} {regs} regs {members} ({want})"
         for name, (regs, members, want) in classic_occ.items()))
     wide_builds = check_wide_builds(ptxas)
-    say(2, "wide builds (every per-cell value in device memory), registers, no spill stores: "
+    say(2, "wide builds (the year kernels' cluster builds, K11's and K10's in device memory), "
+        "registers, no spill stores: "
         + ", ".join(f"{name} {used}" for name, used in wide_builds.items()))
 
     def setup(nx, nt, K, dtype, D=(0.55, 0.65)):
@@ -2456,20 +2594,57 @@ def main():
     # thresholds spread over [0, 1] with alternating signs, so that members
     # cross (at the main path's midpoint none did in phase 13). Each mode that
     # phase 13 runs is held against its plain version, bitwise: MIZ (f32 and
-    # f64) with 2 fixed Newton iterations, Classic as it runs. Then each mode
-    # is timed as its path runs it (the adaptive Newton, each member's Newton
-    # updates counted); its plain version is timed, one year on the host
-    # clock, in the run that holds the kernel: for MIZ that run has 2 fixed
-    # Newton iterations per step, so the kernel is also timed so, beside it
-    # (the kernel table's plain_config and ms_plain_config); table/OU also in
+    # f64) with 2 fixed Newton iterations, Classic as it runs. The kernel runs
+    # all K=8192 members; the plain version runs HOLD_MEMBERS of them, spread
+    # over the ensemble, each with its own keys, OU row, noise column and
+    # threshold (members are independent: a member of a year is its run
+    # alone), in three plain years per model: keys/crossing (which holds
+    # keys/serial too: the same members, keys and OU rows), keys/assoc and the
+    # table sharing one (each mode's per-step offsets as columns of one noise
+    # table, noise_offsets), and the float64 table/OU; the six run at once,
+    # each in a process of its own, after every kernel here is timed. Each
+    # mode is timed as its path runs it (the adaptive Newton, each member's
+    # Newton updates counted); its plain time is the plain year that holds it
+    # (the kernel table's plain_config says which); MIZ's plain years have 2
+    # fixed Newton iterations per step, so the kernel is also timed so,
+    # beside them (the kernel table's ms_plain_config); table/OU also in
     # float32, beside its float64 path.
     nt = CANONICAL[1]
     rho = float(np.exp(-1.0 / nt / 0.05))
     keys_dev = prng.member_year_keys(0, K_MAIN, 0)
     thr_sgn = (torch.linspace(0.0, 1.0, K_MAIN, device=dev),
                torch.tensor([1.0, -1.0], device=dev).repeat(K_MAIN // 2))
+    # spread over the ensemble, both crossing signs (alternating parity)
+    held = np.array([(K_MAIN // HOLD_MEMBERS) * j + (j % 2) for j in range(HOLD_MEMBERS)])
+    held_dev = torch.as_tensor(held, device=dev)
+
+    def held_out(out):
+        """A year's results (carry, seasonal, -, eta[, crossing]) at the held
+        members."""
+        cut = lambda c: ebt.Collection({k: v[held_dev] for k, v in c.items()})
+        return (cut(out[0]), tuple(cut(c) for c in out[1]), None,
+                *(None if v is None else v[held_dev] for v in out[3:]))
+
+    def held_kw(kw):
+        """A mode's noise arguments for the held members."""
+        sub = {}
+        for k, v in kw.items():
+            if k == "noise_keys":
+                sub[k] = v[held]
+            elif k == "noise_ou":
+                sub[k] = (v[0], v[1], v[2][held_dev])
+            elif k == "crossing":
+                sub[k] = tuple(x[held_dev] for x in v)
+            elif k == "noise":
+                sub[k] = v[:, held_dev].contiguous()
+            else:
+                sub[k] = v
+        return sub
+
     timed, plain_timed, updates, main_err, crossed = {}, {}, {}, {}, {}
     timed_fixed = {}  # MIZ: the kernel with the plain run's 2 fixed Newton iterations
+    plain_config = {}  # the plain year that holds each mode
+    plain_tasks, kernels_held, held_eta, modes_of = [], {}, {}, {}
     for model, year, plain, state, par, sigma, F in (
             ("MIZ", miz_year, miz_year_reference, refs["a"], mpar, 4.0, 0.0),
             ("Classic", classic_year, classic_year_reference, crefs["a"], cpar, 8.0, 10.0)):
@@ -2499,9 +2674,11 @@ def main():
             # an ops-level mode that no entry point runs (K5)
             "table": (torch.float32, dict(noise=table32)),
         }
+        # the kernel at the held members, in the configuration its plain
+        # version runs (MIZ: 2 fixed Newton iterations)
+        kernel_held = {}
         for mode, (dtype, kw) in modes.items():
             args, cfg = inputs[dtype][0], cfg_of(dtype)
-            label = f"{model} {dtype_name(dtype)} canonical K={K_MAIN} {mode}"
             if model == "MIZ":
                 n = torch.zeros(K_MAIN, dtype=torch.int32, device=dev)
                 year(*args, cfg, newton_iters=n, **kw)
@@ -2512,44 +2689,102 @@ def main():
             timed[model, mode] = kernel_time(lambda: year(*args, cfg, **kw), 2)
             if mode in ("det", "sigma0", "table/OU f32"):
                 continue
-            if model == "Classic":
-                # no Newton loop: the year as the path runs it is compared and timed
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out_p = plain(*args, cfg, **kw)
-                torch.cuda.synchronize()
-                plain_timed[model, mode] = (time.perf_counter() - t0) * 1e3
-                out_k = year(*args, cfg, **kw)
-                main_err[model, mode] = compare_noisy(out_k, out_p, label, BAR_BITWISE)
-            else:
-                # the plain year held against the kernel (2 fixed Newton
-                # iterations) is the one timed; the table mode is only timed
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out_p = plain(*args, fixed_short, **kw)
-                torch.cuda.synchronize()
-                plain_timed[model, mode] = (time.perf_counter() - t0) * 1e3
-                timed_fixed[model, mode] = kernel_time(lambda: year(*args, fixed_short, **kw), 2)
-                if mode == "table":
-                    continue
-                out_k = year(*args, fixed_short, **kw)
-                main_err[model, mode] = compare_noisy(out_k, out_p, label, BAR_BITWISE)
+            held_cfg = fixed_short if model == "MIZ" else cfg
+            if model == "MIZ":
+                timed_fixed[model, mode] = kernel_time(lambda: year(*args, held_cfg, **kw), 2)
+            out_k = year(*args, held_cfg, **kw)
             if mode == "keys/crossing":
                 crossed[model] = int((out_k[4] >= 0).sum())
+            kernel_held[mode] = held_out(out_k)
             del out_k
+        # the three plain years of the held members, as numpy for the
+        # processes that run them
+        cpu = lambda v: None if v is None else (v.cpu().numpy() if torch.is_tensor(v) else v)
+        carry32, carry64 = ({k: cpu(v[held_dev]) for k, v in inputs[d][0][0].items()}
+                            for d in (torch.float32, torch.float64))
+        held_cfg = fixed_short if model == "MIZ" else cfg_of(torch.float32)
+        f32_row, f64_row = (cpu(inputs[d][0][2]) for d in (torch.float32, torch.float64))
+        numpy_kw = lambda kw: {k: tuple(cpu(x) for x in v) if isinstance(v, tuple) else cpu(v)
+                               for k, v in held_kw(kw).items()}
+        # keys/assoc and the table: their offsets as the columns of one table
+        akw = held_kw(modes["keys/assoc"][1])
+        assoc_off, assoc_eta = _year.noise_offsets(None, akw["noise_ou"], akw["noise_keys"],
+                                                   True, HOLD_MEMBERS, nt, torch.float32, dev)
+        both_noise = torch.cat([assoc_off, held_kw(modes["table"][1])["noise"]], dim=1)
+        plain_tasks += [
+            ((model, "p1"), (model, "float32", carry32, dict(par), f32_row, held_cfg,
+                             numpy_kw(modes["keys/crossing"][1]))),
+            ((model, "p2"), (model, "float32",
+                             {k: np.concatenate([v, v]) for k, v in carry32.items()},
+                             dict(par), f32_row, held_cfg, {"noise": cpu(both_noise)})),
+            ((model, "p3"), (model, "float64", carry64, dict(par), f64_row,
+                             fixed_short if model == "MIZ" else cfg_of(torch.float64),
+                             numpy_kw(modes["table/OU"][1])))]
+        held_eta[model] = assoc_eta
+        kernels_held[model] = kernel_held
+        modes_of[model] = {m: d for m, (d, _) in modes.items()}
+        del inputs, modes, table32
+
+    # the six plain years at once, each in a process of its own (they are
+    # bound by the host's launches, one core each; the kernels above were
+    # timed before they start)
+    import multiprocessing
+
+    t_plain = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(len(plain_tasks)) as pool:
+        plains = dict(zip([key for key, _ in plain_tasks],
+                          pool.starmap(_held_plain_task, [args for _, args in plain_tasks])))
+    t_plain = time.perf_counter() - t_plain
+    on_dev = lambda v: None if v is None else torch.as_tensor(v, device=dev)
+
+    def plain_out(key, j=None):
+        """A plain year's results as tensors on the card; with j, the j-th
+        block of HOLD_MEMBERS members."""
+        (carry, seasonal, rest), _ = plains[key]
+        cut = (lambda c: ebt.Collection({k: on_dev(v if j is None else
+                                                   v[j * HOLD_MEMBERS:(j + 1) * HOLD_MEMBERS])
+                                         for k, v in c.items()}))
+        return (cut(carry), tuple(cut(c) for c in seasonal), None, *(on_dev(v) for v in rest))
+
+    for model in ("MIZ", "Classic"):
+        kernel_held = kernels_held[model]
+        ms = {key[1]: plains[key][1] for key in plains if key[0] == model}
+        p1 = plain_out((model, "p1"))
+        for mode in ("keys/crossing", "keys/serial"):
+            label = f"{model} float32 canonical K={K_MAIN} {mode}"
+            want = p1 if mode == "keys/crossing" else p1[:4]
+            main_err[model, mode] = compare_noisy(kernel_held[mode], want, label, BAR_BITWISE)
+            plain_timed[model, mode] = ms["p1"]
+            plain_config[model, mode] = ("the plain year of keys/crossing on the held members, "
+                                         "which holds keys/serial too")
+        for j, (mode, eta) in enumerate((("keys/assoc", held_eta[model]), ("table", None))):
+            label = f"{model} float32 canonical K={K_MAIN} {mode}"
+            want = plain_out((model, "p2"), j)[:3] + (eta,)
+            main_err[model, mode] = compare_noisy(kernel_held[mode], want, label, BAR_BITWISE)
+            plain_timed[model, mode] = ms["p2"]
+            plain_config[model, mode] = ("one plain year on the held members of keys/assoc and "
+                                         "the table, each mode's offsets as noise columns")
+        main_err[model, "table/OU"] = compare_noisy(
+            kernel_held["table/OU"], plain_out((model, "p3")),
+            f"{model} float64 canonical K={K_MAIN} table/OU", BAR_BITWISE)
+        plain_timed[model, "table/OU"] = ms["p3"]
+        plain_config[model, "table/OU"] = "the plain year of table/OU on the held members"
+        modes = modes_of[model]
         say(14, json.dumps(dict(
             kernel=f"{model.lower()}_year", K=K_MAIN, gpu=smi,
-            dtype={m: dtype_name(d) for m, (d, _) in modes.items()},
+            dtype={m: dtype_name(d) for m, d in modes.items()},
             ms_per_year={m: timed[model, m] for m in modes},
             plain_ms_per_year={m: plain_timed.get((model, m)) for m in modes},
+            plain_members=HOLD_MEMBERS, plain_years_wall_s=t_plain,
             ms_per_year_2_fixed_newton={m: timed_fixed.get((model, m)) for m in modes},
             max_abs_err_kernel_vs_plain={m: main_err.get((model, m)) for m in modes},
             newton_updates_per_member_step={m: updates[model, m] / K_MAIN / nt
                                             for m in modes if (model, m) in updates},
             crossings_recorded=f"{crossed[model]} of {K_MAIN}")))
-        del inputs, modes, table32
+    del kernels_held, plains
     say(14, f"every mode phase 13 runs, kernel vs plain at SpaceTime.sin(180, 2000, 1) "
-            f"K={K_MAIN} on its inputs, bitwise (MIZ with 2 fixed Newton iterations): "
+            f"K={K_MAIN} on its inputs, {HOLD_MEMBERS} members spread over the ensemble held "
+            f"bitwise (MIZ with 2 fixed Newton iterations): "
             + ", ".join(
                 f"{model} {mode} {e:.3e}" for (model, mode), e in main_err.items()))
     draw_ms = kernel_time(lambda: normal_table(keys_dev, nt, dev), 20)
@@ -2557,8 +2792,8 @@ def main():
     say(14, json.dumps(dict(kernel="normal_table", shape=f"({nt}, {K_MAIN}) float32",
                             kernel_ms_per_call=draw_ms, plain_ms_per_call=draw_plain_ms, gpu=smi)))
 
-    eq_run = equilibrium_phases(dev, smi)
-    search_run = search_phases(dev, smi)
+    eq_run = equilibrium_phases(dev, smi, search_init=search_init_state(dev))
+    search_run = search_phases(dev, smi, jobs=eq_run.pop("search_jobs"))
     ckpt_run = checkpoint_phase(dev, smi)
     hr_run = highres_phase(dev, smi)
 
@@ -2717,8 +2952,9 @@ def main():
                 ms_float32_same_call=timed[model, "table/OU f32"] if f64 else None,
                 det_ms_same_call=timed[model, "det"], sigma0_ms_same_call=timed[model, "sigma0"],
                 newton_updates_per_member_step=n_upd / K / nt if model == "MIZ" else None,
-                plain_config=("2 fixed Newton iterations per step; ms: the adaptive Newton"
-                              if model == "MIZ" else "as the path runs"),
+                plain_config=(f"{plain_config[model, mode]} ({HOLD_MEMBERS} of {K} members); "
+                              + ("2 fixed Newton iterations per step; ms: the adaptive Newton"
+                                 if model == "MIZ" else "as the path runs")),
                 ms_plain_config=timed_fixed.get((model, mode), timed[model, mode]),
                 shape=year_shape.replace("float32", "float64") if f64 else year_shape,
                 path=("transitions (phase 13)" if launches_of.get(mode, 0)
@@ -2728,6 +2964,7 @@ def main():
     hr, hms = hr_run, hr_run["ms"]
     nxc, nxm, n11, n10 = max(HR_CLASSIC_NX), HR_MIZ_TIMED, max(HR_CLASSIC_NX), max(HR_MIZ_NX)
     worst = lambda d, prefix: max(v for k, v in d.items() if k.startswith(prefix))
+    main_plan = lambda key: {k: v for k, v in hr["plans"][key].items()}
     kernels["kernels"] += [
         entry("classic_year[wide]", "classic_year.cu", f"{py}:1378", hr["classic"]["launches"],
               worst(hr["err"], "Classic"), hms["classic"], hms["classic_plain"],
@@ -2735,6 +2972,8 @@ def main():
               also_replaces=f"{py}:1628",
               max_abs_err_noise_modes=worst(hr["noise_err"], "Classic"),
               s_per_year_main_path=hr["classic"]["s_per_year"],
+              design="cluster build (csrc/cluster.cuh): a thread-block cluster per member",
+              cluster=main_plan(f"classic_year nx={nxc} K=1 float32"),
               shape=f"K=1 nx={nxc} nt={HR_CLASSIC_NT} float32, one model year",
               path="integrate (phase 22), checkpointed and resumed"),
         entry("miz_year[wide]", "miz_year.cu", f"{py}:352", hr["miz"]["launches"],
@@ -2742,6 +2981,8 @@ def main():
               year_bound("MIZ", "det", newton_updates=2 * HR_MIZ_NT, shape=(1, nxm, HR_MIZ_NT)),
               also_replaces=f"{py}:458", max_abs_err_noise_modes=worst(hr["noise_err"], "MIZ"),
               s_per_year_main_path=hr["miz"]["s_per_year"], main_path_shape=hr["miz"]["shape"],
+              design="cluster build (csrc/cluster.cuh): a thread-block cluster per member",
+              cluster=main_plan(f"miz_year nx={HR_MIZ_MAIN[0]} K=1 float32"),
               shape=f"K=1 nx={nxm} nt={HR_MIZ_NT} float32, D scaled, 2 fixed Newton updates",
               path="integrate (phase 22)"),
         entry("pcr_fused[wide]", "pcr.cu", "energybalancemodel_jl_tpu/ops/pallas_tridiag.py:29",

@@ -16,8 +16,9 @@
 //     grid cells strided over at most 1024 threads (CPT = 1, 2 or 4 cells
 //     per thread);
 //   - nx > 4096 (up to 32768, the JAX package's fused single-run reach):
-//     the WIDE build (classic_wide_kernel, below), one block per member with
-//     every cell's state and the PCR rows in device memory.
+//     the CLUSTER build (classic_cluster_kernel, below), one thread-block
+//     cluster per member, each block owning a slice of the cells, the PCR
+//     rows in the owners' shared memory (cluster.cuh).
 //
 // Each thread of the register builds keeps its cells' carry (E, Tg), their per-member constants
 // (insolation factor S0 - S2 x^2, water coalbedo, implicit-matrix bands) and
@@ -67,6 +68,7 @@
 // fixed order of noise.cuh (one more barrier in a block, shuffles in a
 // warp). The deterministic year is the NOISY = false instantiation,
 // unchanged.
+#include "cluster.cuh"
 #include "common.cuh"
 #include "noise.cuh"
 
@@ -88,7 +90,7 @@ struct ClassicMember {
 // One cell's step before the implicit solve (models/classic.py::step): from
 // the carry (E, Tg) and the cell's constants, the updated E, the step's
 // outputs (E, T, h) and the cell's row of the Tg system (di, b; lo and up
-// are the member's constant bands). Shared by the block and wide builds.
+// are the member's constant bands). Shared by the block and cluster builds.
 template <typename T>
 struct ClassicCell {
   T out[N_OUT];  // En, Tc, h
@@ -250,44 +252,91 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
   }
 }
 
-// THE WIDE BUILD (4096 < nx <= MAX_WIDE_NX, common.cuh): one block of
-// wide_year_threads<T>() per member, each cell's record (its carry, constants, three
-// sums and crossing value) and the PCR rows in the block's workspace of
-// device memory at ws + blockIdx.x * classic_wide_words(nx); the block loops
-// over members m, m + gridDim.x, ... Every value is computed by
-// classic_cell, in the block build's order; the outputs are summed and
-// stored before the solve, which does not read them, and the crossing area
-// is summed in the block layout's order (noise.cuh::wide_noise_crossing).
+// THE CLUSTER BUILD (4096 < nx <= MAX_WIDE_NX, cluster.cuh): one cluster of
+// C blocks of classic_cluster_threads<T>() per member, rank r owning cells
+// [r slice, (r + 1) slice); the clusters loop over members m, m + clusters,
+// ... Each cell's record (its carry, constants and three sums) lives in its
+// rank's shared memory, or, where the records and the rows would not fit
+// there together (the C side's plan), in the rank's part of a workspace of
+// device memory; the PCR rows and the crossing values always live in the
+// shared memory of the rank that owns the cell, read by the other ranks
+// through distributed shared memory. A step: every cell's classic_cell, its
+// sums and stores and its row of the Tg system (and its crossing value), one
+// cluster barrier (after which rank 0 sums the crossing area in the block
+// layout's order), the solve (ceil(log2 nx) - 1 more barriers), Tg. Every
+// value is computed by classic_cell and the block build's PCR, in their
+// order, so it is the block build's bits whatever C.
+//
+// What bounds it: a single run is one member, so its year is the latency of
+// its chain: ceil(log2 nx) cluster barriers a step with distributed-shared-
+// memory loads between them, the cluster's C SMs sharing each level's rows
+// (a block per member with the rows in device memory waited out an L2 round
+// trip per level).
 constexpr int MAX_WIDE_NX = 32768;
-// a cell's record: the carry, the member's constants for the cell, the
-// crossing value, the sums
-enum WideField { W_E, W_TG, W_X, W_SA, W_AW, W_KLO, W_KDI0, W_KUP, W_CROSS, W_ACC,
-                 N_WIDE_FIELDS = W_ACC + N_OUT };
+// a cell's record: the carry, the member's constants for the cell, the sums
+enum ClusterField { W_E, W_TG, W_X, W_SA, W_AW, W_KLO, W_KDI0, W_KUP, W_ACC,
+                    N_CLUSTER_FIELDS = W_ACC + N_OUT };
 
-__host__ __device__ inline size_t classic_wide_words(int nx) {
-  return wide_stride(wide_pcr_words(nx) + (size_t)N_WIDE_FIELDS * nx);
+// the most threads per block: one cell's step needs ~130 registers in
+// float32 and ~170 in float64, which 512 and 256 threads leave
+template <typename T>
+constexpr int classic_cluster_threads() {
+  return sizeof(T) == 8 ? 256 : 512;
+}
+
+// words of T of one block's records in the workspace (records in device
+// memory only), rounded up to 32 words so every block's part starts aligned
+__host__ __device__ inline size_t classic_cluster_words(int nx, int C) {
+  return wide_stride((size_t)cluster_slice_cells(nx, C) * N_CLUSTER_FIELDS);
+}
+
+// the block's dynamic shared memory, byte offsets: the PCR rows' two
+// buffers at 0, the records (if shared, a row of slice values per field,
+// Rec), the slots of the crossing sum, the
+// crossing values, the noise rows
+struct ClassicClusterLayout {
+  size_t records, cross, vals, noise, total;
+};
+
+template <typename T>
+__host__ __device__ inline ClassicClusterLayout classic_cluster_layout(int nx, int C,
+                                                                       bool records_shared,
+                                                                       size_t noise_bytes) {
+  const size_t slice = cluster_slice_cells(nx, C);
+  ClassicClusterLayout L;
+  L.records = 2 * slice * sizeof(PcrRow<T>);
+  L.cross = L.records + (records_shared ? align16(slice * N_CLUSTER_FIELDS * sizeof(T)) : 0);
+  L.vals = L.cross + align16(RED_SLOTS * sizeof(T));
+  L.noise = L.vals + align16(slice * sizeof(T));
+  L.total = L.noise + align16(noise_bytes);
+  return L;
 }
 
 template <typename T, bool NOISY>
-__global__ void __launch_bounds__(wide_year_threads<T>(), 1)
-    classic_wide_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
-                        const T* __restrict__ cols, const T* __restrict__ cosv,
-                        const T* __restrict__ fyear, T* __restrict__ cout,
-                        T* __restrict__ wint, T* __restrict__ summ, T* __restrict__ avg,
-                        T* __restrict__ raw, NoiseArgs<T> nz, T* ws, int K, int nx, int nt,
-                        int w0, int s0, int pcr_steps, T dt) {
+__global__ void __launch_bounds__(classic_cluster_threads<T>(), 1)
+    classic_cluster_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
+                           const T* __restrict__ cols, const T* __restrict__ cosv,
+                           const T* __restrict__ fyear, T* __restrict__ cout,
+                           T* __restrict__ wint, T* __restrict__ summ, T* __restrict__ avg,
+                           T* __restrict__ raw, NoiseArgs<T> nz, T* ws, int records_shared, int K,
+                           int nx, int nt, int w0, int s0, int pcr_steps, T dt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // the slots of the crossing sum, the noise rows
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  RedSmem<T> cross_red{sm, 0};
   __shared__ T p[N_ROWS];
-  T* w = ws + (size_t)blockIdx.x * classic_wide_words(nx);
-  const WidePcr<T> pcr = wide_pcr_begin(w, nx);
-  T* fld = w + wide_pcr_words(nx);  // the cells' records
+  const ClusterSlice cs = cluster_slice(nx);
+  const ClassicClusterLayout L = classic_cluster_layout<T>(
+      nx, cs.C, records_shared != 0, NOISY ? noise_shared_bytes<T>(nt, nz.ou_mode) : 0);
+  PcrRow<T>* rows = reinterpret_cast<PcrRow<T>*>(smem_raw);
+  ClusterPcr<T> pcr{{rows, rows + cs.slice}, 0};
+  T* fld = records_shared ? reinterpret_cast<T*>(smem_raw + L.records)
+                          : ws + (size_t)blockIdx.x * classic_cluster_words(nx, cs.C);
+  RedSmem<T> cross_red{reinterpret_cast<T*>(smem_raw + L.cross), 0};
+  T* xv = reinterpret_cast<T*>(smem_raw + L.vals);
+  T* noise_row = reinterpret_cast<T*>(smem_raw + L.noise);
   const size_t plane = (size_t)K * nx;
   const bool crossing = NOISY && nz.cross_out != nullptr;
+  const int clusters = gridDim.x / cs.C;
 
-  for (int m = blockIdx.x; m < K; m += gridDim.x) {
+  for (int m = blockIdx.x / cs.C; m < K; m += clusters) {
     __syncthreads();  // the last member's reads of p and of the noise row are done
     if (threadIdx.x < N_ROWS) p[threadIdx.x] = pars[(size_t)m * N_ROWS + threadIdx.x];
     __syncthreads();
@@ -296,8 +345,9 @@ __global__ void __launch_bounds__(wide_year_threads<T>(), 1)
             Fb = p[P_FB], cw = p[P_CW], Lf = p[P_LF], Foff = p[P_F], S0 = p[P_S0],
             S1 = p[P_S1], S2 = p[P_S2], a0 = p[P_A0], a2 = p[P_A2];
     const ClassicMember<T> mb{cg_tau, dt_tau, dc, M, kLf, ai, A, Fb, cw, Lf};
-    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-      T* c = fld + (size_t)i * N_WIDE_FIELDS;
+    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+      const Rec<T> c{fld + li, cs.slice};
+      const int i = cs.lo + li;
       c[W_X] = cols[i];
       const T x2 = cols[nx + i];
       c[W_SA] = S0 - S2 * x2;
@@ -311,15 +361,16 @@ __global__ void __launch_bounds__(wide_year_threads<T>(), 1)
     }
 
     NoiseState<T> ns;
-    if (NOISY) ns = noise_begin(nz, sm + RED_SLOTS, m, K, nt);
+    if (NOISY) ns = noise_begin(nz, noise_row, m, K, nt);
 
     for (int t = 0; t < nt; ++t) {
       const T s1c = S1 * cosv[t];
       const T s1n = S1 * cosv[t + 1];  // the wraparound row S_{i+1}
       T f = fyear[t] + Foff;
       if (NOISY) f = noise_forcing(nz, ns, f, t);
-      for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-        T* c = fld + (size_t)i * N_WIDE_FIELDS;
+      for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+        const Rec<T> c{fld + li, cs.slice};
+        const int i = cs.lo + li;
         const ClassicCell<T> r = classic_cell(mb, c[W_E], c[W_TG], c[W_X], c[W_SA], c[W_AW],
                                               c[W_KDI0], s1c, s1n, f, dt);
         c[W_E] = r.out[0];
@@ -338,26 +389,45 @@ __global__ void __launch_bounds__(wide_year_threads<T>(), 1)
           T* row = raw + (size_t)t * N_OUT * plane;
           for (int v = 0; v < N_OUT; ++v) row[v * plane + idx] = r.out[v];
         }
-        if (crossing) c[W_CROSS] = nz.wts[i] * (r.out[0] < T(0) ? T(1) : T(0));
-        wide_pcr_row(pcr, i, c[W_KLO], r.di, c[W_KUP], r.b);
+        if (crossing) xv[li] = nz.wts[i] * (r.out[0] < T(0) ? T(1) : T(0));
+        cluster_pcr_row(pcr, li, c[W_KLO], r.di, c[W_KUP], r.b);
       }
-      if (crossing) wide_noise_crossing(ns, fld + W_CROSS, N_WIDE_FIELDS, nx, cross_red, t);
-      const PcrRow<T>* solved = wide_pcr_solve(pcr, pcr_steps);
-      for (int i = threadIdx.x; i < nx; i += blockDim.x)
-        fld[(size_t)i * N_WIDE_FIELDS + W_TG] = wide_pcr_x(solved, i);
+      cluster_sync();  // every rank's rows (and crossing values) are written
+      if (crossing && cs.rank == 0) cluster_noise_crossing(ns, xv, cs, cross_red, t);
+      const PcrRow<T>* solved = cluster_pcr_solve(pcr, cs, pcr_steps);
+      for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x)
+        fld[W_TG * cs.slice + li] = cluster_pcr_x(solved, li);
     }
-    if (NOISY) noise_end(nz, ns, m, nt);
+    if (NOISY && cs.rank == 0) noise_end(nz, ns, m, nt);
 
     // same `sum / nt` arithmetic as the JAX kernel and storage path
     const T ntf = T(nt);
-    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-      const T* c = fld + (size_t)i * N_WIDE_FIELDS;
-      const size_t idx = (size_t)m * nx + i;
+    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+      const Rec<T> c{fld + li, cs.slice};
+      const size_t idx = (size_t)m * nx + cs.lo + li;
       cout[idx] = c[W_E];
       cout[plane + idx] = c[W_TG];
       for (int v = 0; v < N_OUT; ++v) avg[v * plane + idx] = c[W_ACC + v] / ntf;
     }
   }
+  cluster_sync();  // no block leaves while another rank can read its shared memory
+}
+
+// The C side's plan of the cluster build (cluster.cuh::choose_cluster): C,
+// the threads, the records in shared memory where they fit beside the rest,
+// and the clusters the card keeps resident; an error when it cannot launch.
+template <typename T, bool NOISY>
+cudaError_t classic_cluster_plan(int nx, int nt, int K, int ou_mode, int force_c,
+                                 ClusterPlan& plan) {
+  const size_t noise = NOISY ? noise_shared_bytes<T>(nt, ou_mode) : 0;
+  return choose_cluster(K, force_c, plan, [&](int C, ClusterPlan& p) {
+    p.C = C;
+    p.threads = cluster_threads(nx, C, classic_cluster_threads<T>());
+    p.records_shared = classic_cluster_layout<T>(nx, C, true, noise).total <= CLUSTER_SHARED_BUDGET;
+    p.shmem = classic_cluster_layout<T>(nx, C, p.records_shared != 0, noise).total;
+    if (p.shmem > CLUSTER_SHARED_BUDGET) return cudaErrorInvalidValue;
+    return cluster_occupancy(classic_cluster_kernel<T, NOISY>, p);
+  });
 }
 
 // ONE MEMBER PER WARP (nx <= 256): lane l holds cells l + 32 s, s < S, in
@@ -637,39 +707,39 @@ int launch_warp(cudaStream_t stream, const void* cin, const void* pars, const vo
   return (int)cudaGetLastError();
 }
 
-// the wide build on min(K, ws_blocks) blocks, each with its workspace of
-// classic_wide_words(nx) words at ws
+// the cluster build on min(K, resident) clusters; with the records in
+// device memory, each block's at ws + blockIdx.x * classic_cluster_words(nx, C)
 template <typename T, bool NOISY>
-int launch_wide(cudaStream_t stream, const void* cin, const void* pars, const void* cols,
-                const void* cosv, const void* f, void* cout, void* wint, void* summ, void* avg,
-                void* raw, const NoiseArgs<T>& nz, void* ws, int ws_words, int ws_blocks, int K,
-                int nx, int nt, int w0, int s0, int pcr_steps, double dt) {
-  const size_t shmem =
-      RED_SLOTS * sizeof(T) + (NOISY ? noise_shared_bytes<T>(nt, nz.ou_mode) : 0);
-  if (ws == nullptr || ws_blocks < 1 || (size_t)ws_words != classic_wide_words(nx) ||
-      shmem > MAX_SHARED_BYTES)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = classic_wide_kernel<T, NOISY>;
-  const cudaError_t err = allow_shared(kernel, shmem);
+int launch_cluster(cudaStream_t stream, const void* cin, const void* pars, const void* cols,
+                   const void* cosv, const void* f, void* cout, void* wint, void* summ, void* avg,
+                   void* raw, const NoiseArgs<T>& nz, void* ws, int ws_words, int ws_blocks,
+                   int force_c, int K, int nx, int nt, int w0, int s0, int pcr_steps, double dt) {
+  ClusterPlan plan;
+  const cudaError_t err = classic_cluster_plan<T, NOISY>(nx, nt, K, nz.ou_mode, force_c, plan);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<K < ws_blocks ? K : ws_blocks, wide_year_threads<T>(), shmem, stream>>>(
-      static_cast<const T*>(cin), static_cast<const T*>(pars),
-      static_cast<const T*>(cols), static_cast<const T*>(cosv),
+  const int clusters = K < plan.clusters ? K : plan.clusters;
+  if (!plan.records_shared &&
+      (ws == nullptr || (size_t)ws_words != classic_cluster_words(nx, plan.C) ||
+       ws_blocks < clusters * plan.C))
+    return (int)cudaErrorInvalidValue;
+  return (int)cluster_launch(
+      classic_cluster_kernel<T, NOISY>, plan, clusters, stream, static_cast<const T*>(cin),
+      static_cast<const T*>(pars), static_cast<const T*>(cols), static_cast<const T*>(cosv),
       static_cast<const T*>(f), static_cast<T*>(cout), static_cast<T*>(wint),
       static_cast<T*>(summ), static_cast<T*>(avg), static_cast<T*>(raw), nz,
-      static_cast<T*>(ws), K, nx, nt, w0, s0, pcr_steps, T(dt));
-  return (int)cudaGetLastError();
+      static_cast<T*>(ws), plan.records_shared, K, nx, nt, w0, s0, pcr_steps, T(dt));
 }
 
 template <typename T, bool NOISY>
 int launch_noise(cudaStream_t st, const void* cin, const void* pars, const void* cols,
                  const void* cosv, const void* f, void* cout, void* wint, void* summ,
                  void* avg, void* raw, const NoiseArgs<T>& nz, void* ws, int ws_words,
-                 int ws_blocks, int K, int nx, int nt, int w0, int s0, int pcr_steps, double dt,
-                 int warp_min_k) {
+                 int ws_blocks, int force_c, int K, int nx, int nt, int w0, int s0,
+                 int pcr_steps, double dt, int warp_min_k) {
   if (nx > 4096)
-    return launch_wide<T, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, nz,
-                                 ws, ws_words, ws_blocks, K, nx, nt, w0, s0, pcr_steps, dt);
+    return launch_cluster<T, NOISY>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
+                                    nz, ws, ws_words, ws_blocks, force_c, K, nx, nt, w0, s0,
+                                    pcr_steps, dt);
   // the associative OU scan (ou_mode 2) runs on the block build: its
   // nt-long work rows in shared memory left a warp build 12 members per SM,
   // six rounds of them at K = 8192, slower than the block build (PERF.md
@@ -699,18 +769,36 @@ int launch(const void* cin, const void* pars, const void* cols, const void* cosv
            const void* noise, const void* keys, const void* ou, void* eta_out,
            const void* cross, void* cross_out, const void* wts, void* ws, int K, int nx,
            int nt, int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll, int warp_min_k,
-           int ws_words, int ws_blocks, double dt, void* stream) {
+           int ws_words, int ws_blocks, int force_c, double dt, void* stream) {
   if (K < 1 || nx < 1 || nx > MAX_WIDE_NX || nt < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const NoiseArgs<T> nz = noise_args<T>(noise, keys, ou, eta_out, cross, cross_out, wts,
                                         ou_mode, ou_unroll);
   if (noise != nullptr || keys != nullptr)
     return launch_noise<T, true>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
-                                 nz, ws, ws_words, ws_blocks, K, nx, nt, w0, s0, pcr_steps, dt,
-                                 warp_min_k);
+                                 nz, ws, ws_words, ws_blocks, force_c, K, nx, nt, w0, s0,
+                                 pcr_steps, dt, warp_min_k);
   return launch_noise<T, false>(st, cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
-                                nz, ws, ws_words, ws_blocks, K, nx, nt, w0, s0, pcr_steps, dt,
-                                warp_min_k);
+                                nz, ws, ws_words, ws_blocks, force_c, K, nx, nt, w0, s0,
+                                pcr_steps, dt, warp_min_k);
+}
+
+// the plan of the cluster build for nx: out = {C, threads, records in shared
+// memory (1) or in the workspace (0), resident clusters, dynamic shared
+// bytes per block}
+template <typename T>
+int plan(int nx, int nt, int K, int noisy, int ou_mode, int force_c, int* out) {
+  if (nx <= 4096 || nx > MAX_WIDE_NX || nt < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  ClusterPlan p;
+  const cudaError_t err = noisy ? classic_cluster_plan<T, true>(nx, nt, K, ou_mode, force_c, p)
+                                : classic_cluster_plan<T, false>(nx, nt, K, ou_mode, force_c, p);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = p.C;
+  out[1] = p.threads;
+  out[2] = p.records_shared;
+  out[3] = p.clusters;
+  out[4] = (int)p.shmem;
+  return 0;
 }
 
 }  // namespace
@@ -723,10 +811,11 @@ int ebm_classic_year_f32(const void* cin, const void* pars, const void* cols,
                          const void* keys, const void* ou, void* eta_out, const void* cross,
                          void* cross_out, const void* wts, void* ws, int K, int nx, int nt,
                          int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll,
-                         int warp_min_k, int ws_words, int ws_blocks, double dt, void* stream) {
+                         int warp_min_k, int ws_words, int ws_blocks, int force_c, double dt,
+                         void* stream) {
   return launch<float>(cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, noise, keys, ou,
                        eta_out, cross, cross_out, wts, ws, K, nx, nt, w0, s0, pcr_steps,
-                       ou_mode, ou_unroll, warp_min_k, ws_words, ws_blocks, dt, stream);
+                       ou_mode, ou_unroll, warp_min_k, ws_words, ws_blocks, force_c, dt, stream);
 }
 
 int ebm_classic_year_f64(const void* cin, const void* pars, const void* cols,
@@ -735,10 +824,21 @@ int ebm_classic_year_f64(const void* cin, const void* pars, const void* cols,
                          const void* keys, const void* ou, void* eta_out, const void* cross,
                          void* cross_out, const void* wts, void* ws, int K, int nx, int nt,
                          int w0, int s0, int pcr_steps, int ou_mode, int ou_unroll,
-                         int warp_min_k, int ws_words, int ws_blocks, double dt, void* stream) {
+                         int warp_min_k, int ws_words, int ws_blocks, int force_c, double dt,
+                         void* stream) {
   return launch<double>(cin, pars, cols, cosv, f, cout, wint, summ, avg, raw, noise, keys, ou,
                         eta_out, cross, cross_out, wts, ws, K, nx, nt, w0, s0, pcr_steps,
-                        ou_mode, ou_unroll, warp_min_k, ws_words, ws_blocks, dt, stream);
+                        ou_mode, ou_unroll, warp_min_k, ws_words, ws_blocks, force_c, dt, stream);
+}
+
+int ebm_classic_year_plan_f32(int nx, int nt, int K, int noisy, int ou_mode, int force_c,
+                              int* out) {
+  return plan<float>(nx, nt, K, noisy, ou_mode, force_c, out);
+}
+
+int ebm_classic_year_plan_f64(int nx, int nt, int K, int noisy, int ou_mode, int force_c,
+                              int* out) {
+  return plan<double>(nx, nt, K, noisy, ou_mode, force_c, out);
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 // and the row-scaled parallel cyclic reduction of ops/tridiag.py::pcr_solve,
 // for one system per block in shared memory (pcr_solve), for one system per
 // warp in registers (warp_pcr_solve), and for one system per block in
-// device memory (wide_pcr_solve, the wide builds above 4096 rows).
+// device memory (wide_pcr_solve, K10's and K11's wide builds above 4096
+// rows; the year kernels' cluster builds have their own, cluster.cuh).
 //
 // Every helper performs the same operations in the same order as the plain
 // PyTorch code it stands for, so a kernel built with -fmad=false rounds where
@@ -384,18 +385,18 @@ __device__ __forceinline__ void warp_pcr_solve(T (&lo)[S], T (&di)[S], T (&up)[S
   for (int s = 0; s < S; ++s) b[s] = b[s] / di[s];
 }
 
-// -- THE WIDE BUILDS (the year kernels above their register builds' widths,
-// K10 and K11 above n = 4096): one block of WIDE_THREADS threads per member,
-// rows strided over them (row i at thread i % WIDE_THREADS), and every
-// per-row value in a workspace of device memory that the block owns (the
-// state of 32768 cells does not fit an SM's registers and shared memory).
-// 512 threads leave a thread 128 registers (1024 would leave 64, and one
-// cell's year step spilled there). A block loops over members m, m + gridDim.x, ...,
-// so the workspace scales with the blocks launched, not with K. The
-// workspace is read and written through plain pointers: a load through the
-// read-only path (const __restrict__, ld.global.nc) is not coherent with the
-// block's own writes. A __syncthreads() orders the block's global writes
-// before its reads as it orders shared ones.
+// -- THE WIDE BUILDS of K10 and K11 (pcr.cu, newton_t0.cu above n = 4096):
+// one block of WIDE_THREADS threads per system, rows strided over them (row
+// i at thread i % WIDE_THREADS), and every per-row value in a workspace of
+// device memory that the block owns (the state of 32768 rows does not fit
+// an SM's registers and shared memory). 512 threads leave a thread 128
+// registers. A block loops over systems m, m + gridDim.x, ..., so the
+// workspace scales with the blocks launched, not with K. The workspace is
+// read and written through plain pointers: a load through the read-only
+// path (const __restrict__, ld.global.nc) is not coherent with the block's
+// own writes. A __syncthreads() orders the block's global writes before its
+// reads as it orders shared ones. (The year kernels' wide grids run on
+// thread-block clusters instead, cluster.cuh.)
 //
 // The PCR of a wide block: two buffers of rows in the workspace, each with
 // one identity row on each side, written level by level in turn:
@@ -405,14 +406,6 @@ __device__ __forceinline__ void warp_pcr_solve(T (&lo)[S], T (&di)[S], T (&up)[S
 // branch, and of ops/tridiag.py::pcr_solve's fills), and writes the next
 // buffer: one barrier per level (write, ONE barrier, read, as above).
 constexpr int WIDE_THREADS = 512;
-
-// the threads of a wide year kernel's blocks (miz_year.cu, classic_year.cu):
-// in float64 one cell's step needs more registers than a block of
-// WIDE_THREADS leaves (128), so its blocks have half the threads (255)
-template <typename T>
-constexpr int wide_year_threads() {
-  return sizeof(T) == 8 ? WIDE_THREADS / 2 : WIDE_THREADS;
-}
 
 template <typename T>
 struct WidePcr {

@@ -8,9 +8,10 @@
 //     single-run 'kx' branch of pallas_miz_year).
 // On Hopper one layout serves both: ONE THREAD BLOCK PER MEMBER, one thread
 // per grid cell (blockDim = round_up(nx, 32)) up to nx = 1024; above it (up
-// to 16384, the JAX package's fused single-run reach) the WIDE build
-// (miz_wide_kernel, below) strides the cells over the block with each
-// cell's state, the neighbour exchange and the PCR rows in device memory.
+// to 16384, the JAX package's fused single-run reach) the CLUSTER build
+// (miz_cluster_kernel, below) runs a member on a thread-block cluster, each
+// block owning a slice of the cells, the PCR rows and the neighbour exchange
+// in the owners' shared memory (cluster.cuh).
 //
 // Each thread keeps its cell's carry (Ei, Ew, h, D, phi, T0) and its ten
 // annual sums in registers for all nt steps; it writes the winter/summer
@@ -82,6 +83,7 @@
 // deterministic year is the NOISY = false instantiation.
 #include <type_traits>
 
+#include "cluster.cuh"
 #include "newton.cuh"
 #include "noise.cuh"
 
@@ -130,7 +132,7 @@ __device__ __forceinline__ void miz_derive(T* p) {
 }
 
 // The step after the Newton solve (models/miz.py::step, its subnormal
-// flushes included), for one cell, shared by the block and the wide builds:
+// flushes included), for one cell, shared by the block and the cluster builds:
 // miz_head before the Tb exchange, miz_tail after it.
 template <typename T>
 struct MizStep {
@@ -373,76 +375,164 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
   if (COUNT && i == 0) iters[m] = n_updates;
 }
 
-// THE WIDE BUILD (1024 < nx <= MAX_WIDE_NX, common.cuh): one block of
-// wide_year_threads<T>() per member, each cell's record (enum WideField), the
-// neighbour exchange's two buffers and the PCR rows in the block's workspace
-// of device memory at ws + blockIdx.x * miz_wide_words(nx); the block loops
-// over members m, m + gridDim.x, ... A step is the block build's, loop by
-// loop over the thread's cells: the step inputs with the first residual's
-// exchange, the Jacobian rows into the PCR and the block max of |r| (over
-// all of the thread's cells), each Newton update (the solve, the clipped
-// update with the next exchange, the rows and the max), Tb's exchange, then
-// miz_tail with the sums and the stores; the crossing area is summed in the
-// block layout's order (noise.cuh::wide_noise_crossing). The values are
-// computed by the block build's functions (newton.cuh, miz_head, miz_tail),
-// so they are its bits.
+// THE CLUSTER BUILD (1024 < nx <= MAX_WIDE_NX, cluster.cuh): one cluster of
+// C blocks of miz_cluster_threads<T>() per member, rank r owning cells
+// [r slice, (r + 1) slice); the clusters loop over members m, m + clusters,
+// ... Each cell's record (enum ClusterField) lives in its rank's shared
+// memory, or, where the records and the rows would not fit there together
+// (the C side's plan), in the rank's part of a workspace of device memory;
+// the PCR rows, the neighbour exchange, the reduction slots and the crossing
+// values always live in the shared memory of the rank that owns the cell,
+// read by the other ranks through distributed shared memory. A step is the
+// block build's, loop by loop over the thread's cells: the step inputs with
+// the first residual's exchange (one cluster barrier), the Jacobian rows into
+// the PCR and the cluster max of |r| (one more), each Newton update (the
+// solve, ceil(log2 nx) - 1 barriers; the clipped update with the next
+// exchange; the rows and the max), Tb's exchange, then miz_tail with the sums
+// and the stores; the crossing area is summed by rank 0 in the block
+// layout's order. The values are computed by the block build's functions
+// (newton.cuh, miz_head, miz_tail), so they are its bits whatever C.
+//
+// What bounds it: a single run is one member, so its year is the latency of
+// its chain, ~24 Newton updates a step in float32 at high resolution, each
+// ceil(log2 nx) + 1 cluster barriers with distributed-shared-memory loads
+// between them. Nothing of the chain goes through device memory (a block
+// per member with the rows in device memory waited out an L2 round trip per
+// PCR level), and the cluster's C SMs share each level's rows.
 constexpr int MAX_WIDE_NX = 16384;
 // a cell's record: the solve's fields (newton.cuh, the carry's T0 and phi
-// among them), the rest of the carry, the step's Tw, the crossing value,
-// the sums
-enum WideField {
-  W_EI = N_NEWTON_FIELDS, W_EW, W_H, W_D, W_TW, W_CROSS, W_ACC,
-  N_WIDE_FIELDS = W_ACC + N_OUT
+// among them), the rest of the carry, the step's Tw, the sums
+enum ClusterField {
+  W_EI = N_NEWTON_FIELDS, W_EW, W_H, W_D, W_TW, W_ACC,
+  N_CLUSTER_FIELDS = W_ACC + N_OUT
 };
 
-__host__ __device__ inline size_t miz_wide_words(int nx) {
-  return wide_stride(wide_pcr_words(nx) + wide_halo_words(nx) + (size_t)N_WIDE_FIELDS * nx);
+// the most threads per block: one cell's step needs ~150 registers in
+// float32 and ~190 in float64, which 384 and 256 threads leave
+template <typename T>
+constexpr int miz_cluster_threads() {
+  return sizeof(T) == 8 ? 256 : 384;
+}
+
+// words of T of one block's records in the workspace (records in device
+// memory only), rounded up to 32 words so every block's part starts aligned
+__host__ __device__ inline size_t miz_cluster_words(int nx, int C) {
+  return wide_stride((size_t)cluster_slice_cells(nx, C) * N_CLUSTER_FIELDS);
+}
+
+// the block's dynamic shared memory, byte offsets: the PCR rows' two
+// buffers at 0, the exchange's two buffers, the records (if shared, a row of
+// slice values per field, Rec), the
+// slots of the cluster max and of the crossing sum, the crossing values, the
+// noise rows
+struct MizClusterLayout {
+  size_t halo, records, keys, cross, vals, noise, total;
+};
+
+template <typename T>
+__host__ __device__ inline MizClusterLayout miz_cluster_layout(int nx, int C, int threads,
+                                                               bool records_shared,
+                                                               size_t noise_bytes) {
+  const size_t slice = cluster_slice_cells(nx, C);
+  MizClusterLayout L;
+  L.halo = 2 * slice * sizeof(PcrRow<T>);
+  L.records = L.halo + align16(2 * slice * sizeof(Pair<T>));
+  L.keys = L.records + (records_shared ? align16(slice * N_CLUSTER_FIELDS * sizeof(T)) : 0);
+  L.cross = L.keys + cluster_red_bytes<T>(C, threads);
+  L.vals = L.cross + align16(RED_SLOTS * sizeof(T));
+  L.noise = L.vals + align16(slice * sizeof(T));
+  L.total = L.noise + align16(noise_bytes);
+  return L;
 }
 
 template <typename T, bool NOISY, bool COUNT>
-__global__ void __launch_bounds__(wide_year_threads<T>(), 1)
-    miz_wide_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
-                    const T* __restrict__ cols, const T* __restrict__ cosv,
-                    const T* __restrict__ fyear, T* __restrict__ cout,
-                    T* __restrict__ wint, T* __restrict__ summ, T* __restrict__ avg,
-                    T* __restrict__ conv, int* __restrict__ iters, T* __restrict__ raw,
-                    NoiseArgs<T> nz, T* ws, int K, int nx, int nt, int w0, int s0, int pcr_steps,
-                    int max_iter, T dt, T abstol, T reltol, T max_step) {
+__global__ void __launch_bounds__(miz_cluster_threads<T>(), 1)
+    miz_cluster_kernel(const T* __restrict__ cin, const T* __restrict__ pars,
+                       const T* __restrict__ cols, const T* __restrict__ cosv,
+                       const T* __restrict__ fyear, T* __restrict__ cout,
+                       T* __restrict__ wint, T* __restrict__ summ, T* __restrict__ avg,
+                       T* __restrict__ conv, int* __restrict__ iters, T* __restrict__ raw,
+                       NoiseArgs<T> nz, T* ws, int records_shared, int K, int nx, int nt, int w0,
+                       int s0, int pcr_steps, int max_iter, T dt, T abstol, T reltol,
+                       T max_step) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T p[N_SHARED];
   __shared__ int n_updates;  // COUNT: the member's Newton updates, by thread 0
-  // the slots of the two block reductions (Newton's max, the crossing sum),
-  // then the noise rows
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  RedSmem<T> red{sm, 0};
-  RedSmem<T> cross_red{sm + RED_SLOTS, 0};
-  T* w = ws + (size_t)blockIdx.x * miz_wide_words(nx);
-  const WidePcr<T> pcr = wide_pcr_begin(w, nx);
-  Halo<T> halo = wide_halo_begin<T, true>(w + wide_pcr_words(nx), nx);
-  T* fld = w + wide_pcr_words(nx) + wide_halo_words(nx);  // the cells' records
-  const WideCells<T, N_WIDE_FIELDS> wc{cols + 2 * nx, cols + 3 * nx, cols + 4 * nx, fld};
+  const ClusterSlice cs = cluster_slice(nx);
+  const MizClusterLayout L =
+      miz_cluster_layout<T>(nx, cs.C, blockDim.x, records_shared != 0,
+                            NOISY ? noise_shared_bytes<T>(nt, nz.ou_mode) : 0);
+  PcrRow<T>* rows = reinterpret_cast<PcrRow<T>*>(smem_raw);
+  ClusterPcr<T> pcr{{rows, rows + cs.slice}, 0};
+  Pair<T>* halo[2] = {reinterpret_cast<Pair<T>*>(smem_raw + L.halo),
+                      reinterpret_cast<Pair<T>*>(smem_raw + L.halo) + cs.slice};
+  int hturn = 0;  // the exchange buffer written next
+  T* fld = records_shared ? reinterpret_cast<T*>(smem_raw + L.records)
+                          : ws + (size_t)blockIdx.x * miz_cluster_words(nx, cs.C);
+  ClusterRed<T> red{reinterpret_cast<MagnitudeKey<T>*>(smem_raw + L.keys), 0};
+  RedSmem<T> cross_red{reinterpret_cast<T*>(smem_raw + L.cross), 0};
+  T* xv = reinterpret_cast<T*>(smem_raw + L.vals);
+  T* noise_row = reinterpret_cast<T*>(smem_raw + L.noise);
+  const T* glo = cols + 2 * nx;
+  const T* gdi = cols + 3 * nx;
+  const T* gup = cols + 4 * nx;
   // the carry's fields in CARRY_KEYS order
   constexpr int carry_field[N_CARRY] = {W_EI, W_EW, W_H, W_D, F_PHI, F_T0};
   const size_t plane = (size_t)K * nx;
   const bool crossing = NOISY && nz.cross_out != nullptr;
+  const int clusters = gridDim.x / cs.C;
 
-  for (int m = blockIdx.x; m < K; m += gridDim.x) {
+  // the record of local cell li, the frozen inputs of its residual, and its
+  // neighbours on the rolled grid
+  auto rec = [&](int li) { return Rec<T>{fld + li, cs.slice}; };
+  auto cell = [&](int li) {
+    const Rec<T> c = rec(li);
+    const int i = cs.lo + li;
+    return T0Cell<T>{glo[i], gdi[i], gup[i], c[F_PHI], c[F_WATER], c[F_SOLAR], c[F_KH]};
+  };
+  auto left = [&](int i) { return i == 0 ? nx - 1 : i - 1; };
+  auto right = [&](int i) { return i == nx - 1 ? 0 : i + 1; };
+  // the write half of the residual's exchange: cell li's (Tb, g) into cur
+  auto t0_put = [&](Pair<T>* cur, const T0Par<T>& tp, int li) {
+    const Pair<T> v = t0_tb_g(rec(li)[F_T0], cell(li), tp);
+    store_pair(cur + li, v.a, v.b);
+  };
+  // the read half, after the cluster barrier that follows every rank's puts:
+  // each of the thread's cells' residual and Jacobian row, written as the row
+  // of the Newton update's system (jlo, jdi, jup | -r); the largest
+  // magnitude key of their |r| (0 for a thread with none)
+  auto t0_rows = [&](Pair<T>* cur, const T0Par<T>& tp) {
+    MagnitudeKey<T> key = 0;
+    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+      const int i = cs.lo + li;
+      T r, jlo, jdi, jup;
+      t0_row<T, false>(rec(li)[F_T0], cell(li), tp, load_pair(cur + li),
+                       load_pair(cluster_at(cur, cs, left(i))),
+                       load_pair(cluster_at(cur, cs, right(i))), r, jlo, jdi, jup);
+      cluster_pcr_row(pcr, li, jlo, jdi, jup, -r);
+      const MagnitudeKey<T> k = magnitude_key(abs_val(r));
+      key = k > key ? k : key;
+    }
+    return key;
+  };
+
+  for (int m = blockIdx.x / cs.C; m < K; m += clusters) {
     __syncthreads();  // the last member's reads of p and of the noise row are done
     if (threadIdx.x < N_ROWS) p[threadIdx.x] = pars[(size_t)m * N_ROWS + threadIdx.x];
     if (COUNT && threadIdx.x == 0) n_updates = 0;
     __syncthreads();
     if (threadIdx.x == 0) miz_derive(p);
     __syncthreads();
-    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-      T* c = wc.at(i);
-      const size_t idx = (size_t)m * nx + i;
+    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+      const Rec<T> c = rec(li);
+      const size_t idx = (size_t)m * nx + cs.lo + li;
 #pragma unroll
       for (int j = 0; j < N_CARRY; ++j) c[carry_field[j]] = cin[j * plane + idx];
       for (int j = 0; j < N_OUT; ++j) c[W_ACC + j] = T(0);
     }
     T conv_m = T(1);
     NoiseState<T> ns;
-    if (NOISY) ns = noise_begin(nz, sm + 2 * RED_SLOTS, m, K, nt);
+    if (NOISY) ns = noise_begin(nz, noise_row, m, K, nt);
 
     for (int t = 0; t < nt; ++t) {
       const T Tm = p[P_TM], A = p[P_A], B = p[P_B], D = p[P_D], cw = p[P_CW];
@@ -451,9 +541,11 @@ __global__ void __launch_bounds__(wide_year_threads<T>(), 1)
       const T0Par<T> tp{p[P_K], Tm, A, B, D, f};
 
       // -- step inputs, and the first residual's exchange ------------------
-      Pair<T>* cur = halo_turn(halo);
-      for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-        T* c = wc.at(i);
+      Pair<T>* cur = halo[hturn];
+      hturn ^= 1;
+      for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+        const Rec<T> c = rec(li);
+        const int i = cs.lo + li;
         const T insol = (p[P_S0] - (p[P_S1] * cols[i]) * cosv[t]) - p[P_S2] * cols[nx + i];
         const T ph = c[F_PHI];
         const T den = (T(1) - ph) * cw;
@@ -463,25 +555,25 @@ __global__ void __launch_bounds__(wide_year_threads<T>(), 1)
         c[F_WATER] = (T(1) - ph) * tw;
         c[F_SOLAR] = p[P_AI] * insol;
         c[F_KH] = c[W_H] == T(0) ? p[P_HMIN] : c[W_H];
-        wide_t0_put<T, N_WIDE_FIELDS, true>(wc, tp, cur, i, nx);
+        t0_put(cur, tp, li);
       }
-      __syncthreads();
+      cluster_sync();
 
-      // -- Newton for T0 (per member) -------------------------------------
-      T rnorm = block_max_key<T>(
-          wide_t0_rows<T, N_WIDE_FIELDS, false>(wc, tp, cur, pcr, nx), red);
+      // -- Newton for T0 (per member); the max's cluster barrier also orders
+      // the rows before the solve's first level -----------------------------
+      T rnorm = cluster_max_key<T>(t0_rows(cur, tp), red, cs);
       const T tol = nan_max(abstol, reltol * rnorm);
       for (int it = 0; it < max_iter && rnorm > tol; ++it) {
-        const PcrRow<T>* solved = wide_pcr_solve(pcr, pcr_steps);
-        cur = halo_turn(halo);
-        for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-          T* c = wc.at(i);
-          c[F_T0] = c[F_T0] + clip_step(wide_pcr_x(solved, i), max_step);
-          wide_t0_put<T, N_WIDE_FIELDS, true>(wc, tp, cur, i, nx);
+        const PcrRow<T>* solved = cluster_pcr_solve(pcr, cs, pcr_steps);
+        cur = halo[hturn];
+        hturn ^= 1;
+        for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+          const Rec<T> c = rec(li);
+          c[F_T0] = c[F_T0] + clip_step(cluster_pcr_x(solved, li), max_step);
+          t0_put(cur, tp, li);
         }
-        __syncthreads();
-        rnorm = block_max_key<T>(
-            wide_t0_rows<T, N_WIDE_FIELDS, false>(wc, tp, cur, pcr, nx), red);
+        cluster_sync();
+        rnorm = cluster_max_key<T>(t0_rows(cur, tp), red, cs);
         if (COUNT && threadIdx.x == 0) ++n_updates;
       }
       conv_m = nan_min(conv_m, rnorm <= tol ? T(1) : T(0));
@@ -489,27 +581,26 @@ __global__ void __launch_bounds__(wide_year_threads<T>(), 1)
       // -- the rest of the step: Tb's exchange, then miz_tail --------------
       const T Lf = p[P_LF], alpha = p[P_ALPHA], Dmin = p[P_DMIN], hmin = p[P_HMIN];
       const MizStep<T> sp{Tm, A, B, D, f, dt, Lf, alpha, Dmin, hmin};
-      cur = halo_turn(halo);
-      for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-        const T* c = wc.at(i);
-        const T Tb = miz_head(sp, c[F_T0], c[W_H], c[W_D], c[F_PHI], c[F_WATER]).Tb;
-        cur[i].a = Tb;
-        if (i == 0) cur[nx].a = Tb;
-        if (i == nx - 1) cur[-1].a = Tb;
+      cur = halo[hturn];
+      hturn ^= 1;
+      for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+        const Rec<T> c = rec(li);
+        cur[li].a = miz_head(sp, c[F_T0], c[W_H], c[W_D], c[F_PHI], c[F_WATER]).Tb;
       }
-      __syncthreads();
+      cluster_sync();
       // one cell at a time: the step's tail holds the most values of any
       // loop here, and two cells' worth would spill
 #pragma unroll 1
-      for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-        T* c = wc.at(i);
+      for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+        const Rec<T> c = rec(li);
+        const int i = cs.lo + li;
         const MizHead<T> hd = miz_head(sp, c[F_T0], c[W_H], c[W_D], c[F_PHI], c[F_WATER]);
         const T x2 = cols[nx + i];
         const T insol = (p[P_S0] - (p[P_S1] * cols[i]) * cosv[t]) - p[P_S2] * x2;
         MizState<T> st{c[W_EI], c[W_EW], c[W_H], c[W_D], c[F_PHI]};
         T out[N_OUT];
-        miz_tail(p, sp, hd, st, c[W_TW], c[F_SOLAR], insol, x2, wc.glo[i], wc.gdi[i],
-                 wc.gup[i], cur[i - 1].a, cur[i + 1].a, out);
+        miz_tail(p, sp, hd, st, c[W_TW], c[F_SOLAR], insol, x2, glo[i], gdi[i], gup[i],
+                 cluster_at(cur, cs, left(i))->a, cluster_at(cur, cs, right(i))->a, out);
         c[W_EI] = st.Ei;
         c[W_EW] = st.Ew;
         c[W_H] = st.h;
@@ -531,46 +622,75 @@ __global__ void __launch_bounds__(wide_year_threads<T>(), 1)
           for (int j = 0; j < N_OUT; ++j) row[j * plane + idx] = out[j];
         }
         // the instantaneous ice area, phi with NaN counted as 0
-        if (crossing) c[W_CROSS] = nz.wts[i] * (is_nan(st.phi) ? T(0) : st.phi);
+        if (crossing) xv[li] = nz.wts[i] * (is_nan(st.phi) ? T(0) : st.phi);
       }
-      if (crossing) wide_noise_crossing(ns, fld + W_CROSS, N_WIDE_FIELDS, nx, cross_red, t);
+      if (crossing) {
+        cluster_sync();
+        if (cs.rank == 0) cluster_noise_crossing(ns, xv, cs, cross_red, t);
+      }
     }
-    if (NOISY) noise_end(nz, ns, m, nt);
+    if (NOISY && cs.rank == 0) noise_end(nz, ns, m, nt);
 
     // same `sum / nt` arithmetic as the JAX kernel and storage path
     const T ntf = T(nt);
-    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-      const T* c = wc.at(i);
-      const size_t idx = (size_t)m * nx + i;
+    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+      const Rec<T> c = rec(li);
+      const size_t idx = (size_t)m * nx + cs.lo + li;
 #pragma unroll
       for (int j = 0; j < N_CARRY; ++j) cout[j * plane + idx] = c[carry_field[j]];
       for (int j = 0; j < N_OUT; ++j) avg[j * plane + idx] = c[W_ACC + j] / ntf;
     }
-    if (threadIdx.x == 0) conv[m] = conv_m;
-    if (COUNT && threadIdx.x == 0) iters[m] = n_updates;
+    if (cs.rank == 0 && threadIdx.x == 0) {
+      conv[m] = conv_m;
+      if (COUNT) iters[m] = n_updates;
+    }
   }
+  cluster_sync();  // no block leaves while another rank can read its shared memory
 }
 
+// The C side's plan of the cluster build (cluster.cuh::choose_cluster): C,
+// the threads, the records in shared memory where they fit beside the rest,
+// and the clusters the card keeps resident; an error when it cannot launch.
 template <typename T, bool NOISY, bool COUNT>
-int launch_wide(int K, size_t shmem, cudaStream_t stream, const void* cin, const void* pars,
-                const void* cols, const void* cosv, const void* f, void* cout, void* wint,
-                void* summ, void* avg, void* conv, void* iters, void* raw,
-                const NoiseArgs<T>& nz, void* ws, int ws_words, int ws_blocks, int nx, int nt,
-                int w0, int s0, int pcr_steps, int max_iter, double dt, double abstol,
-                double reltol, double max_step) {
-  if (ws == nullptr || ws_blocks < 1 || (size_t)ws_words != miz_wide_words(nx))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = miz_wide_kernel<T, NOISY, COUNT>;
-  const cudaError_t err = allow_shared(kernel, shmem);
+cudaError_t miz_cluster_plan(int nx, int nt, int K, int ou_mode, int force_c, ClusterPlan& plan) {
+  const size_t noise = NOISY ? noise_shared_bytes<T>(nt, ou_mode) : 0;
+  return choose_cluster(K, force_c, plan, [&](int C, ClusterPlan& p) {
+    p.C = C;
+    p.threads = cluster_threads(nx, C, miz_cluster_threads<T>());
+    p.records_shared =
+        miz_cluster_layout<T>(nx, C, p.threads, true, noise).total <= CLUSTER_SHARED_BUDGET;
+    p.shmem = miz_cluster_layout<T>(nx, C, p.threads, p.records_shared != 0, noise).total;
+    if (p.shmem > CLUSTER_SHARED_BUDGET) return cudaErrorInvalidValue;
+    return cluster_occupancy(miz_cluster_kernel<T, NOISY, COUNT>, p);
+  });
+}
+
+// the cluster build on min(K, resident) clusters; with the records in device
+// memory, each block's at ws + blockIdx.x * miz_cluster_words(nx, C)
+template <typename T, bool NOISY, bool COUNT>
+int launch_cluster(int K, cudaStream_t stream, const void* cin, const void* pars,
+                   const void* cols, const void* cosv, const void* f, void* cout, void* wint,
+                   void* summ, void* avg, void* conv, void* iters, void* raw,
+                   const NoiseArgs<T>& nz, void* ws, int ws_words, int ws_blocks, int force_c,
+                   int nx, int nt, int w0, int s0, int pcr_steps, int max_iter, double dt,
+                   double abstol, double reltol, double max_step) {
+  ClusterPlan plan;
+  const cudaError_t err =
+      miz_cluster_plan<T, NOISY, COUNT>(nx, nt, K, nz.ou_mode, force_c, plan);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<K < ws_blocks ? K : ws_blocks, wide_year_threads<T>(), shmem, stream>>>(
-      static_cast<const T*>(cin), static_cast<const T*>(pars),
-      static_cast<const T*>(cols), static_cast<const T*>(cosv),
+  const int clusters = K < plan.clusters ? K : plan.clusters;
+  if (!plan.records_shared &&
+      (ws == nullptr || (size_t)ws_words != miz_cluster_words(nx, plan.C) ||
+       ws_blocks < clusters * plan.C))
+    return (int)cudaErrorInvalidValue;
+  return (int)cluster_launch(
+      miz_cluster_kernel<T, NOISY, COUNT>, plan, clusters, stream, static_cast<const T*>(cin),
+      static_cast<const T*>(pars), static_cast<const T*>(cols), static_cast<const T*>(cosv),
       static_cast<const T*>(f), static_cast<T*>(cout), static_cast<T*>(wint),
       static_cast<T*>(summ), static_cast<T*>(avg), static_cast<T*>(conv),
-      static_cast<int*>(iters), static_cast<T*>(raw), nz, static_cast<T*>(ws), K, nx, nt, w0,
-      s0, pcr_steps, max_iter, T(dt), T(abstol), T(reltol), T(max_step));
-  return (int)cudaGetLastError();
+      static_cast<int*>(iters), static_cast<T*>(raw), nz, static_cast<T*>(ws),
+      plan.records_shared, K, nx, nt, w0, s0, pcr_steps, max_iter, T(dt), T(abstol), T(reltol),
+      T(max_step));
 }
 
 template <typename T, int MAX_THREADS, int MIN_BLOCKS, bool NOISY, bool COUNT>
@@ -631,29 +751,26 @@ int launch(const void* cin, const void* pars, const void* cols, const void* cosv
            void* iters, void* raw, const void* noise, const void* keys, const void* ou,
            void* eta_out, const void* cross, void* cross_out, const void* wts, void* ws, int K,
            int nx, int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
-           int ou_unroll, int ws_words, int ws_blocks, double dt, double abstol, double reltol,
-           double max_step, void* stream) {
+           int ou_unroll, int ws_words, int ws_blocks, int force_c, double dt, double abstol,
+           double reltol, double max_step, void* stream) {
   if (K < 1 || nx < 1 || nx > MAX_WIDE_NX || nt < 1) return (int)cudaErrorInvalidValue;
   const bool wide = nx > 1024;
   const int threads = ((nx + 31) / 32) * 32;
   const NoiseArgs<T> nz = noise_args<T>(noise, keys, ou, eta_out, cross, cross_out, wts,
                                         ou_mode, ou_unroll);
   const bool noisy = noise != nullptr || keys != nullptr;
-  // the wide build keeps its rows and exchange in the workspace: shared
-  // memory holds the reductions' slots and the noise rows
-  const size_t shmem = (wide ? sizeof(T) * (size_t)(2 * RED_SLOTS)
-                             : base_shared_bytes<T>(nx, pcr_steps)) +
-                       (noisy ? noise_shared_bytes<T>(nt, ou_mode) : 0);
-  if (shmem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
+  const size_t shmem =
+      base_shared_bytes<T>(nx, pcr_steps) + (noisy ? noise_shared_bytes<T>(nt, ou_mode) : 0);
+  if (!wide && shmem > MAX_SHARED_BYTES) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the builds: NOISY by the noise inputs, COUNT by the count output
   auto run = [&](auto noisy_c, auto count_c) {
     constexpr bool NOISY = decltype(noisy_c)::value, COUNT = decltype(count_c)::value;
     if (wide)
-      return launch_wide<T, NOISY, COUNT>(K, shmem, st, cin, pars, cols, cosv, f, cout, wint,
-                                          summ, avg, conv, iters, raw, nz, ws, ws_words,
-                                          ws_blocks, nx, nt, w0, s0, pcr_steps, max_iter, dt,
-                                          abstol, reltol, max_step);
+      return launch_cluster<T, NOISY, COUNT>(K, st, cin, pars, cols, cosv, f, cout, wint, summ,
+                                             avg, conv, iters, raw, nz, ws, ws_words, ws_blocks,
+                                             force_c, nx, nt, w0, s0, pcr_steps, max_iter, dt,
+                                             abstol, reltol, max_step);
     return launch_threads<T, NOISY, COUNT>(
         K, threads, shmem, st, cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters,
         raw, nz, nx, nt, w0, s0, pcr_steps, max_iter, dt, abstol, reltol, max_step);
@@ -662,6 +779,29 @@ int launch(const void* cin, const void* pars, const void* cols, const void* cosv
   const std::false_type no;
   if (noisy) return iters != nullptr ? run(yes, yes) : run(yes, no);
   return iters != nullptr ? run(no, yes) : run(no, no);
+}
+
+// the plan of the cluster build for nx, by the builds' flags: out = {C,
+// threads, records in shared memory (1) or in the workspace (0), resident
+// clusters, dynamic shared bytes per block}
+template <typename T>
+int plan(int nx, int nt, int K, int noisy, int ou_mode, int count, int force_c, int* out) {
+  if (nx <= 1024 || nx > MAX_WIDE_NX || nt < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  ClusterPlan p;
+  cudaError_t err;
+  if (noisy)
+    err = count ? miz_cluster_plan<T, true, true>(nx, nt, K, ou_mode, force_c, p)
+                : miz_cluster_plan<T, true, false>(nx, nt, K, ou_mode, force_c, p);
+  else
+    err = count ? miz_cluster_plan<T, false, true>(nx, nt, K, ou_mode, force_c, p)
+                : miz_cluster_plan<T, false, false>(nx, nt, K, ou_mode, force_c, p);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = p.C;
+  out[1] = p.threads;
+  out[2] = p.records_shared;
+  out[3] = p.clusters;
+  out[4] = (int)p.shmem;
+  return 0;
 }
 
 }  // namespace
@@ -674,12 +814,12 @@ int ebm_miz_year_f32(const void* cin, const void* pars, const void* cols,
                      const void* noise, const void* keys, const void* ou, void* eta_out,
                      const void* cross, void* cross_out, const void* wts, void* ws, int K,
                      int nx, int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
-                     int ou_unroll, int ws_words, int ws_blocks, double dt, double abstol,
-                     double reltol, double max_step, void* stream) {
+                     int ou_unroll, int ws_words, int ws_blocks, int force_c, double dt,
+                     double abstol, double reltol, double max_step, void* stream) {
   return launch<float>(cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
                        noise, keys, ou, eta_out, cross, cross_out, wts, ws, K, nx, nt, w0,
-                       s0, pcr_steps, max_iter, ou_mode, ou_unroll, ws_words, ws_blocks, dt,
-                       abstol, reltol, max_step, stream);
+                       s0, pcr_steps, max_iter, ou_mode, ou_unroll, ws_words, ws_blocks, force_c,
+                       dt, abstol, reltol, max_step, stream);
 }
 
 int ebm_miz_year_f64(const void* cin, const void* pars, const void* cols,
@@ -688,12 +828,22 @@ int ebm_miz_year_f64(const void* cin, const void* pars, const void* cols,
                      const void* noise, const void* keys, const void* ou, void* eta_out,
                      const void* cross, void* cross_out, const void* wts, void* ws, int K,
                      int nx, int nt, int w0, int s0, int pcr_steps, int max_iter, int ou_mode,
-                     int ou_unroll, int ws_words, int ws_blocks, double dt, double abstol,
-                     double reltol, double max_step, void* stream) {
+                     int ou_unroll, int ws_words, int ws_blocks, int force_c, double dt,
+                     double abstol, double reltol, double max_step, void* stream) {
   return launch<double>(cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
                         noise, keys, ou, eta_out, cross, cross_out, wts, ws, K, nx, nt, w0,
-                        s0, pcr_steps, max_iter, ou_mode, ou_unroll, ws_words, ws_blocks, dt,
-                        abstol, reltol, max_step, stream);
+                        s0, pcr_steps, max_iter, ou_mode, ou_unroll, ws_words, ws_blocks, force_c,
+                        dt, abstol, reltol, max_step, stream);
+}
+
+int ebm_miz_year_plan_f32(int nx, int nt, int K, int noisy, int ou_mode, int count,
+                          int force_c, int* out) {
+  return plan<float>(nx, nt, K, noisy, ou_mode, count, force_c, out);
+}
+
+int ebm_miz_year_plan_f64(int nx, int nt, int K, int noisy, int ou_mode, int count,
+                          int force_c, int* out) {
+  return plan<double>(nx, nt, K, noisy, ou_mode, count, force_c, out);
 }
 
 const char* ebm_cuda_error_string(int err) {

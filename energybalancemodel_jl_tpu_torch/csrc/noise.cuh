@@ -54,7 +54,7 @@ NoiseArgs<T> noise_args(const void* noise, const void* keys, const void* ou, voi
 
 // the noise row, plus the scan's three work rows in assoc mode
 template <typename T>
-size_t noise_shared_bytes(int nt, int ou_mode) {
+__host__ __device__ inline size_t noise_shared_bytes(int nt, int ou_mode) {
   return (size_t)nt * sizeof(T) * (ou_mode == 2 ? 4 : 1);
 }
 
@@ -144,41 +144,6 @@ __device__ __forceinline__ void noise_crossing(NoiseState<T>& ns, T part, RedSme
   if (threadIdx.x == 0) {
     T area = slots[0];
     for (int w = 1; w < (int)(blockDim.x >> 5); ++w) area = area + slots[w];
-    if (ns.first < T(0) && ns.sign * (area - ns.thr) > T(0)) ns.first = T(t);
-  }
-}
-
-// The crossing area of step t in a wide block (common.cuh), in the order of
-// the block layout whatever the block's own threads: `vals` holds every
-// cell's w_i * field_i (written by the block before the call); virtual
-// thread v of the layout's vt threads adds cells v + c * vt, c < cpt, in
-// order (0 beyond the grid), the lanes of a virtual warp add in
-// noise_crossing's halving tree, thread 0 adds the virtual warps' sums in
-// order and records a first crossing: ops/_year.py::block_sum. A block of
-// whole warps runs the virtual threads in rounds, so a virtual warp is one
-// real warp. Cell i's value is vals[i * stride]. Two barriers.
-template <typename T>
-__device__ void wide_noise_crossing(NoiseState<T>& ns, const T* vals, int stride, int n,
-                                    RedSmem<T>& red, int t) {
-  const int cpt = rows_per_thread(n);
-  const int vt = round_up_32((n + cpt - 1) / cpt);
-  T* slots = red_turn(red);
-  __syncthreads();  // every cell's value is in vals
-  for (int base = 0; base < vt; base += blockDim.x) {
-    const int v = base + threadIdx.x;
-    T part = T(0);
-    for (int c = 0; c < cpt; ++c) {
-      const int i = v + c * vt;
-      const T x = v < vt && i < n ? vals[(size_t)i * stride] : T(0);
-      part = c == 0 ? x : part + x;
-    }
-    for (int o = 16; o > 0; o >>= 1) part = part + __shfl_xor_sync(0xffffffffu, part, o);
-    if ((threadIdx.x & 31) == 0 && v < vt) slots[v >> 5] = part;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T area = slots[0];
-    for (int w = 1; w < vt >> 5; ++w) area = area + slots[w];
     if (ns.first < T(0) && ns.sign * (area - ns.thr) > T(0)) ns.first = T(t);
   }
 }

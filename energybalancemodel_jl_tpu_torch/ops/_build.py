@@ -44,15 +44,21 @@ _SIGNATURES = {
     # (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv, iters, raw,
     #  noise, keys, ou, eta_out, cross, cross_out, wts, ws,
     #  K, nx, nt, w0, s0, pcr_steps, max_iter, ou_mode, ou_unroll, ws_words, ws_blocks,
-    #  dt, abstol, reltol, max_step, stream)
-    "ebm_miz_year_f32": ([_P] * 20 + [_I] * 11 + [_D] * 4 + [_P], _I),
-    "ebm_miz_year_f64": ([_P] * 20 + [_I] * 11 + [_D] * 4 + [_P], _I),
+    #  force_c, dt, abstol, reltol, max_step, stream)
+    "ebm_miz_year_f32": ([_P] * 20 + [_I] * 12 + [_D] * 4 + [_P], _I),
+    "ebm_miz_year_f64": ([_P] * 20 + [_I] * 12 + [_D] * 4 + [_P], _I),
+    # the cluster build's plan: (nx, nt, K, noisy, ou_mode, count, force_c, out[5])
+    "ebm_miz_year_plan_f32": ([_I] * 7 + [_P], _I),
+    "ebm_miz_year_plan_f64": ([_I] * 7 + [_P], _I),
     # (cin, pars, cols, cosv, f, cout, wint, summ, avg, raw,
     #  noise, keys, ou, eta_out, cross, cross_out, wts, ws,
     #  K, nx, nt, w0, s0, pcr_steps, ou_mode, ou_unroll, warp_min_k, ws_words, ws_blocks,
-    #  dt, stream)
-    "ebm_classic_year_f32": ([_P] * 18 + [_I] * 11 + [_D] + [_P], _I),
-    "ebm_classic_year_f64": ([_P] * 18 + [_I] * 11 + [_D] + [_P], _I),
+    #  force_c, dt, stream)
+    "ebm_classic_year_f32": ([_P] * 18 + [_I] * 12 + [_D] + [_P], _I),
+    "ebm_classic_year_f64": ([_P] * 18 + [_I] * 12 + [_D] + [_P], _I),
+    # the cluster build's plan: (nx, nt, K, noisy, ou_mode, force_c, out[5])
+    "ebm_classic_year_plan_f32": ([_I] * 6 + [_P], _I),
+    "ebm_classic_year_plan_f64": ([_I] * 6 + [_P], _I),
     # (keys, out, K, nt, stream) and (bits, out, n, stream)
     "ebm_normal_table": ([_P] * 2 + [_I] * 2 + [_P], _I),
     "ebm_normal_bits": ([_P] * 2 + [_I] + [_P], _I),

@@ -12,7 +12,9 @@ the JAX module have no counterpart: a block per member pads nothing.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,7 +26,8 @@ __all__ = ["member_columns", "check_year_args", "check_width", "check_noise_args
            "classic_ou_unroll", "noise_offsets", "member_rows", "keys_tensor",
            "block_sum", "block_layout", "pcr_shared_bytes", "CrossingTracker", "NoiseLaunch",
            "year_result", "MAX_SHARED_BYTES", "refuse_grad", "WIDE", "WIDE_BLOCKS_PER_SM",
-           "wide_workspace", "wide_words", "workspace", "sm_count", "check_raw_fits"]
+           "FORCE_CLUSTER", "ClusterPlan", "cluster_plan", "wide_workspace", "wide_words",
+           "workspace", "sm_count", "check_raw_fits"]
 
 
 def refuse_grad(kernel: str, *values) -> None:
@@ -110,9 +113,8 @@ def check_width(kernel: str, nx: int) -> None:
     top = WIDE[kernel]["max"]
     if nx > top:
         raise ValueError(
-            f"the {kernel} kernel runs nx <= {top}: its wide build (one block per member, "
-            f"each cell's state in device memory) is built and held against its plain "
-            f"version up to that width; nx={nx} is wider"
+            f"the {kernel} kernel runs nx <= {top}: its wide build is built and held "
+            f"against its plain version up to that width; nx={nx} is wider"
         )
 
 
@@ -277,54 +279,90 @@ def block_layout(n: int):
     member in the register builds: rows strided over at most 1024 threads,
     whole warps, the least power of two of rows per thread that is enough
     (1, 2 or 4 up to n = 4096; ``csrc/common.cuh::rows_per_thread``). Above
-    that (8 to 32) it is the order in which the wide builds, whatever their
-    own threads, sum a crossing area (:func:`block_sum`)."""
+    that (8 to 32) it is the order in which the cluster builds, whatever
+    their clusters and threads, sum a crossing area (:func:`block_sum`)."""
     cpt = 1
     while cpt * 1024 < n:
         cpt *= 2
     return cpt, -(-(-(-n // cpt)) // 32) * 32
 
 
-# The kernels' builds by width (csrc/common.cuh): up to "narrow" cells the
-# register builds (a warp or a block per member, every per-cell value in
-# registers and shared memory), above it up to "max" the WIDE build: one
-# block per member (its threads chosen by the C side), each cell's record of
-# "fields" values, the PCR rows and (with "halo") the neighbour exchange in
-# a workspace of device memory, each block looping over members. A wide
-# build sums a crossing area in the order of block_layout, whatever its own
-# threads.
+# The kernels' builds by width: up to "narrow" cells the register builds (a
+# warp or a block per member, every per-cell value in registers and shared
+# memory), above it up to "max" the wide builds. The year kernels' are
+# CLUSTER builds (csrc/cluster.cuh): one thread-block cluster of C blocks per
+# member, each block owning ceil(n / C) cells, the PCR rows and the
+# neighbour exchange in the owners' shared memory, each cell's record of
+# "fields" values there too or, where the C side's plan says they do not
+# fit, in a workspace of device memory; the C side picks C (ClusterPlan). K10
+# and K11 keep one block per system with its PCR rows, exchange ("halo") and
+# records in a workspace of device memory. Each block or cluster loops over
+# members. A wide build sums a crossing area in the order of block_layout,
+# whatever its own threads.
 WIDE = {
-    "classic_year": dict(narrow=4096, max=32768, fields=12, halo=False),
-    "miz_year": dict(narrow=1024, max=16384, fields=21, halo=True),
-    "pcr_fused": dict(narrow=4096, max=32768, fields=0, halo=False),
-    "newton_t0": dict(narrow=4096, max=16384, fields=5, halo=True),
+    "classic_year": dict(narrow=4096, max=32768, fields=11, cluster=True),
+    "miz_year": dict(narrow=1024, max=16384, fields=20, cluster=True),
+    "pcr_fused": dict(narrow=4096, max=32768, fields=0, halo=False, cluster=False),
+    "newton_t0": dict(narrow=4096, max=16384, fields=5, halo=True, cluster=False),
 }
-# blocks of a wide build that one SM holds: its __launch_bounds__(..., 1)
+# blocks of K10's and K11's wide builds that one SM holds: their
+# __launch_bounds__(..., 1)
 WIDE_BLOCKS_PER_SM = 1
+# the cluster size a year kernel's cluster build is launched with: 0 lets the
+# C side choose (csrc/cluster.cuh::choose_cluster); 2, 4, 8 or 16 forces it
+# (tools/kernel_times.py clusters measures each)
+FORCE_CLUSTER = {"classic_year": 0, "miz_year": 0}
 
 
-def wide_words(kernel: str, n: int) -> int:
-    """Words of the run's dtype in one wide block's workspace
-    (``csrc/*.cu::*_wide_words``): the PCR's two buffers of four-value rows
+class ClusterPlan(NamedTuple):
+    """What the C side chose for a cluster build (``csrc/*_year.cu::*_cluster_plan``):
+    blocks per cluster ``C``, ``threads`` per block, whether each cell's
+    record lives in shared memory (else in the workspace), the clusters the
+    card keeps resident, and the dynamic shared bytes per block."""
+    C: int
+    threads: int
+    records_shared: bool
+    clusters: int
+    shared_bytes: int
+
+
+def wide_words(kernel: str, n: int, C: int = 1) -> int:
+    """Words of the run's dtype in one wide block's workspace: for a year
+    kernel's cluster build of ``C`` blocks (``csrc/*_year.cu::*_cluster_words``),
+    the records of its ``ceil(n / C)`` cells; for K10 and K11
+    (``csrc/*.cu::*_wide_words``), the PCR's two buffers of four-value rows
     with an identity row on each side, the exchange's two buffers of
-    two-value cells with one beyond each end, the per-cell fields; rounded
+    two-value cells with one beyond each end, the per-cell fields. Rounded
     up to 32 words so every block's part starts aligned."""
     spec = WIDE[kernel]
-    words = 8 * (n + 2) + (4 * (n + 2) if spec["halo"] else 0) + spec["fields"] * n
+    if spec["cluster"]:
+        words = spec["fields"] * -(-n // C)
+    else:
+        words = 8 * (n + 2) + (4 * (n + 2) if spec["halo"] else 0) + spec["fields"] * n
     return -(-words // 32) * 32
 
 
-def wide_workspace(kernel: str, n: int, K: int, sms: int):
+def wide_workspace(kernel: str, n: int, K: int, sms: int, plan: ClusterPlan | None = None):
     """``(blocks, words per block)`` of the workspace that ``kernel`` takes
-    for ``K`` members (systems) of ``n`` cells (rows) on a card of ``sms``
-    SMs: ``(0, 0)`` up to the register builds' width, which take none, and
-    above it the wide build's, at most the blocks that stay resident, each
-    looping over members, so it scales with the card and not with ``K``.
-    The C side checks the words against its own count. Raises past the wide
-    build's width."""
+    for ``K`` members (systems) of ``n`` cells (rows): ``(0, 0)`` up to the
+    register builds' width, which take none. Above it, a year kernel's
+    cluster build takes one only where its ``plan`` keeps the records in
+    device memory: a part for each block of the clusters launched (at most
+    the resident ones, each looping over members), clusters x C blocks; K10
+    and K11 take one part per block, at most the blocks that stay resident
+    on a card of ``sms`` SMs. Either way it scales with the card, not with
+    ``K``. The C side checks the words against its own count. Raises past
+    the wide build's width."""
     check_width(kernel, n)
-    if n <= WIDE[kernel]["narrow"]:
+    spec = WIDE[kernel]
+    if n <= spec["narrow"]:
         return 0, 0
+    if spec["cluster"]:
+        if plan is None:
+            raise ValueError(f"the {kernel} cluster build is sized from the C side's plan")
+        if plan.records_shared:
+            return 0, 0
+        return min(K, plan.clusters) * plan.C, wide_words(kernel, n, plan.C)
     return min(K, sms * WIDE_BLOCKS_PER_SM), wide_words(kernel, n)
 
 
@@ -339,12 +377,46 @@ def sm_count(device) -> int:
     return _sms(device.index if device.index is not None else torch.cuda.current_device())
 
 
-def workspace(kernel: str, n: int, K: int, dtype, device):
+@functools.lru_cache(maxsize=None)
+def _plan(kernel, n, nt, K, itemsize, index, noisy, ou_mode, count, force_c):
+    from . import _build
+
+    lib = _build.load_library()
+    suffix = {4: "f32", 8: "f64"}[itemsize]
+    out = (ctypes.c_int * 5)()
+    flags = (int(noisy), ou_mode) + ((int(count),) if kernel == "miz_year" else ())
+    with torch.cuda.device(index):
+        err = getattr(lib, f"ebm_{kernel}_plan_{suffix}")(n, nt, K, *flags, force_c,
+                                                          ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        msg = lib.ebm_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"the {kernel} cluster build cannot launch at n={n}"
+            f"{f' with C={force_c}' if force_c else ''} (float{8 * itemsize}"
+            f"{', noisy' if noisy else ''}): CUDA error {err} ({msg})")
+    return ClusterPlan(out[0], out[1], bool(out[2]), out[3], out[4])
+
+
+def cluster_plan(kernel: str, n: int, nt: int, K: int, dtype, device, noisy: bool = False,
+                 ou_mode: int = 0, count: bool = False) -> ClusterPlan:
+    """The C side's plan of ``kernel``'s cluster build for ``K`` members of
+    an ``n``-cell year of ``nt`` steps on ``device`` (the build by its noise
+    and count flags; C as :data:`FORCE_CLUSTER` says, else the widest
+    cluster whose resident clusters run all ``K`` members at once); raises
+    ``RuntimeError`` when the build cannot launch (too much shared memory,
+    or no cluster resident)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _plan(kernel, n, nt if noisy else 1, K, torch.empty((), dtype=dtype).element_size(),
+                 index, noisy, ou_mode, count, FORCE_CLUSTER.get(kernel, 0))
+
+
+def workspace(kernel: str, n: int, K: int, dtype, device, plan: ClusterPlan | None = None):
     """``(tensor or None, pointer or None, words per block, blocks)``: the
     workspace of :func:`wide_workspace`, uninitialised (each kernel writes
     every word before it reads it). The caller holds the tensor until its
     launch is queued; the allocator hands the memory on in stream order."""
-    blocks, words = wide_workspace(kernel, n, K, sm_count(device))
+    blocks, words = wide_workspace(kernel, n, K, sm_count(device), plan)
     if words == 0:
         return None, None, 0, 0
     ws = torch.empty(blocks * words, dtype=dtype, device=device)

@@ -42,10 +42,10 @@ from ..models.classic import cos_table, member_scalars, uniform_bands
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from . import _build
-from ._year import (WIDE, CrossingTracker, NoiseLaunch, check_crossing_args, check_noise_args,
-                    check_raw_fits, check_width, check_year_args, classic_ou_unroll,
-                    member_columns, noise_offsets, pcr_shared_bytes, refuse_grad, workspace,
-                    year_result)
+from ._year import (FORCE_CLUSTER, WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
+                    check_noise_args, check_raw_fits, check_width, check_year_args,
+                    classic_ou_unroll, cluster_plan, member_columns, noise_offsets,
+                    pcr_shared_bytes, refuse_grad, workspace, year_result)
 from .tridiag import pcr_steps
 
 __all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
@@ -63,7 +63,7 @@ PAR_NAMES = ("cg", "tau", "B", "k", "Lf", "D", "ai", "A", "Fb", "cw",
 ROW_NAMES = ("cg_tau", "dt_tau", "dc", "M", "kLf", "dtD", "cg", "ai", "A", "Fb", "cw",
              "Lf", "F", "S0", "S1", "S2", "a0", "a2")
 # up to 4096 cells in registers (at most 4 per thread of 1024), above that
-# the wide build (each cell's state in device memory)
+# the cluster build (a thread-block cluster per member)
 MAX_NX = WIDE["classic_year"]["max"]
 # the least K that runs a grid of nx <= 256 on the kernel's warp builds (one
 # member per warp, csrc/classic_year.cu); a smaller K runs the block build,
@@ -103,8 +103,9 @@ def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = Fal
     modes return as :func:`.miz_year.miz_year`'s do.
 
     On a CUDA device this launches the kernel (counted in
-    ``classic_year.launches``; above nx = 4096 its wide build) and raises if
-    it cannot (``nx > MAX_NX``); on the CPU it runs
+    ``classic_year.launches``; above nx = 4096 its cluster build) and raises
+    if it cannot (``nx > MAX_NX``, or a cluster build the card cannot
+    launch); on the CPU it runs
     :func:`classic_year_reference`.
     """
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "classic_year")
@@ -161,8 +162,8 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the classic_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
-    # the PCR buffers (but on the wide build, whose rows are in its
-    # workspace) and the crossing sum's slots (csrc/classic_year.cu)
+    # the PCR buffers and the crossing sum's slots (csrc/classic_year.cu; the
+    # cluster build's plan counts its own: a slice of the rows per block)
     size = torch.empty((), dtype=dtype).element_size()
     rows = 0 if nx > WIDE["classic_year"]["narrow"] else pcr_shared_bytes(nx, pcr_steps(nx),
                                                                           size)
@@ -187,12 +188,17 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     # every step's outputs, (nt, 3, K, nx), or a null pointer
     raw = (torch.empty((st.nt, len(OUT_VARS), K, nx), dtype=dtype, device=device)
            if collect_raw else None)
-    ws, ws_ptr, ws_words, ws_blocks = workspace("classic_year", nx, K, dtype, device)
+    # above the register builds' width, the cluster build as the C side
+    # plans it (it launches with the same plan), with a workspace only where
+    # its records stay in device memory
+    plan = (cluster_plan("classic_year", nx, st.nt, K, dtype, device, nz.noisy, nz.ou_mode)
+            if nx > WIDE["classic_year"]["narrow"] else None)
+    ws, ws_ptr, ws_words, ws_blocks = workspace("classic_year", nx, K, dtype, device, plan)
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg)]
     ptrs.append(raw.data_ptr() if raw is not None else None)
     _build.launch("ebm_classic_year", dtype, device, *ptrs, *nz.ptrs, ws_ptr, K, nx, st.nt,
                   st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), nz.ou_mode, nz.unroll,
-                  WARP_MIN_K, ws_words, ws_blocks, st.dt)
+                  WARP_MIN_K, ws_words, ws_blocks, FORCE_CLUSTER["classic_year"], st.dt)
     classic_year.launches += 1
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(

@@ -37,10 +37,10 @@ from ..models.base import StepConfig
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from . import _build
-from ._year import (WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
+from ._year import (FORCE_CLUSTER, WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
                     check_noise_args, check_raw_fits, check_width, check_year_args,
-                    member_columns, noise_offsets, pcr_shared_bytes, refuse_grad, workspace,
-                    year_result)
+                    cluster_plan, member_columns, noise_offsets, pcr_shared_bytes, refuse_grad,
+                    workspace, year_result)
 from .diffusion import diffusion_bands
 from .tridiag import pcr_steps
 
@@ -62,8 +62,8 @@ XK_TABLE_ROWS = ("S0", "S1", "S2", "a0", "a2")
 # the (K, 23) stack: PAR_NAMES, the hoisted Tm^m2, the virtual "F" forcing
 # offset, then the table parameters (JAX pallas_year.py:102-119, :901-908)
 ROW_NAMES = PAR_NAMES + ("Tm_pow_m2", "F") + XK_TABLE_ROWS
-# up to 1024 cells in registers (one per thread), above that the wide
-# build (each cell's state in device memory)
+# up to 1024 cells in registers (one per thread), above that the cluster
+# build (a thread-block cluster per member)
 MAX_NX = WIDE["miz_year"]["max"]
 
 
@@ -116,8 +116,9 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
     members and has no such count, so it raises.
 
     On a CUDA device this launches the kernel (counted in
-    ``miz_year.launches``; above nx = 1024 its wide build) and raises if it
-    cannot (``nx > MAX_NX``); on the CPU it runs :func:`miz_year_reference`.
+    ``miz_year.launches``; above nx = 1024 its cluster build) and raises if
+    it cannot (``nx > MAX_NX``, or a cluster build the card cannot launch);
+    on the CPU it runs :func:`miz_year_reference`.
     """
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "miz_year")
     noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,
@@ -187,8 +188,8 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys
         raise ValueError(f"the miz_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
     # csrc/miz_year.cu::base_shared_bytes: the PCR buffers, the neighbour
-    # exchange (but on the wide build, which keeps both in its workspace),
-    # two sets of reduction slots
+    # exchange, two sets of reduction slots (the cluster build's plan counts
+    # its own: a slice of each per block)
     size = pars.element_size()
     rows = (0 if nx > WIDE["miz_year"]["narrow"]
             else pcr_shared_bytes(nx, pcr_steps(nx), size) + 4 * size * (nx + 2))
@@ -208,13 +209,19 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys
     # every step's outputs, (nt, 10, K, nx), or a null pointer
     raw = (torch.empty((st.nt, len(OUT_VARS), K, nx), dtype=dtype, device=device)
            if collect_raw else None)
-    ws, ws_ptr, ws_words, ws_blocks = workspace("miz_year", nx, K, dtype, device)
+    # above the register builds' width, the cluster build as the C side
+    # plans it (it launches with the same plan), with a workspace only where
+    # its records stay in device memory
+    plan = (cluster_plan("miz_year", nx, st.nt, K, dtype, device, nz.noisy, nz.ou_mode,
+                         newton_iters is not None)
+            if nx > WIDE["miz_year"]["narrow"] else None)
+    ws, ws_ptr, ws_words, ws_blocks = workspace("miz_year", nx, K, dtype, device, plan)
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg, conv)]
     ptrs += [v.data_ptr() if v is not None else None for v in (newton_iters, raw)]
     max_step = cfg.newton_max_step if cfg.newton_max_step is not None else math.inf
     _build.launch("ebm_miz_year", dtype, device, *ptrs, *nz.ptrs, ws_ptr, K, nx, st.nt,
                   st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), cfg.newton_max_iter,
-                  nz.ou_mode, nz.unroll, ws_words, ws_blocks, st.dt,
+                  nz.ou_mode, nz.unroll, ws_words, ws_blocks, FORCE_CLUSTER["miz_year"], st.dt,
                   cfg.newton_abstol, cfg.newton_reltol, max_step)
     miz_year.launches += 1
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})

@@ -1,7 +1,7 @@
 """Time the port's kernels at the main paths' shapes, and compare two
 checkouts of the package on one card in one session.
 
-Three commands, run from the root of a checkout on a machine with a CUDA
+Five commands, run from the root of a checkout on a machine with a CUDA
 device and nvcc::
 
     python energybalancemodel_jl_tpu_torch/tools/kernel_times.py measure
@@ -9,6 +9,9 @@ device and nvcc::
         --parent _checkout/parent --out kernel_times.json
     python energybalancemodel_jl_tpu_torch/tools/kernel_times.py highres \\
         --out highres_times.json
+    python energybalancemodel_jl_tpu_torch/tools/kernel_times.py clusters \\
+        --out clusters.json
+    python energybalancemodel_jl_tpu_torch/tools/kernel_times.py barriers
 
 (as a script, not with ``-m``: the package it measures is the one under
 ``--root``, imported after the arguments are read)
@@ -39,6 +42,11 @@ kernels round alike print equal hashes. ``compare`` runs ``measure`` in a
 process of its own for the parent, this checkout, this checkout, the parent,
 in that order, and prints the rows side by side with the card's name and
 power limit.
+
+``barriers`` builds and runs ``tools/cluster_sync_bench.cu``: the
+nanoseconds of one barrier phase of a thread-block cluster against a block's.
+``clusters`` times the year kernels' cluster builds at every cluster size
+and as the C side picks it, at the main paths' widths (see its docstring).
 
 ``highres`` times the high-resolution MIZ years on the wide build: for each
 grid of ``--miz`` (``nx:nt``; default the two of ``chip_smoke.py`` phase 22,
@@ -93,7 +101,7 @@ def ptxas_rows(log):
     for line in log.splitlines():
         m = re.search(r"(miz_year_kernel|classic_year_kernel|classic_warp_kernel|pcr_kernel|"
                       r"pcr_warp_kernel|newton_t0_kernel|normal_table_kernel|normal_bits_kernel|"
-                      r"classic_wide_kernel|miz_wide_kernel|pcr_wide_kernel|"
+                      r"classic_cluster_kernel|miz_cluster_kernel|pcr_wide_kernel|"
                       r"newton_t0_wide_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
                       line)
         if m and "entry function" in line:
@@ -310,6 +318,33 @@ def measure(root, flags, rows_wanted):
     row("K10 newton_t0 f32, scalars on the device",
         lambda: newton_t0(*dargs, max_step=step, iters=6), n=20, kernel="newton_t0_kernel")
 
+    # the wide year kernels at their main paths' shapes (chip_smoke.py phase
+    # 22), K=1 float32: the Classic year at nx=32768, nt=1000 from the warm
+    # init, and the MIZ high-resolution year SpaceTime.sin(1536, 147456)
+    # from zero init with the default Newton tolerances (a short year at the
+    # same width warms the build; one year is timed and hashed, ~40-60 s)
+    hst = ebt.SpaceTime.sin(32768, 1000, 1)
+    hE = torch.full((1, hst.nx), 30.0, dtype=torch.float32, device=dev)
+    hargs = (ebt.Collection(E=hE, Tg=hE / cpar["cw"]), cpar,
+             torch.zeros(hst.nt, dtype=torch.float32, device=dev), hst)
+    row("classic wide f32 K=1 nx=32768 nt=1000", lambda: classic_year(*hargs, cfg32))
+    mname = "miz wide f32 K=1 SpaceTime.sin(1536, 147456)"
+    if not rows_wanted or any(mname.startswith(w) for w in rows_wanted):
+        mst = ebt.SpaceTime.sin(1536, 147456, 1)
+        mcarry = ebt.Collection(
+            {k: torch.zeros((1, mst.nx), dtype=torch.float32, device=dev) for k in CARRY_KEYS})
+        mf = torch.zeros(mst.nt, dtype=torch.float32, device=dev)
+        warm = ebt.SpaceTime.sin(1536, 16, 1)
+        miz_year(ebt.Collection({k: v for k, v in mcarry.items()}), mpar,
+                 torch.zeros(warm.nt, dtype=torch.float32, device=dev), warm, cfg32)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = miz_year(mcarry, mpar, mf, mst, cfg32)
+        stop.record()
+        torch.cuda.synchronize()
+        result["rows"][mname] = entry = {"ms": start.elapsed_time(stop), "sha": digest(out)}
+        print(f"  {mname}: {json.dumps(entry)}", flush=True)
+
     # the transitions main path: wall time, kernels and host
     if not rows_wanted or "transitions" in rows_wanted:
         for _ in range(2):  # the first call warms the allocator
@@ -389,6 +424,106 @@ def highres(grids, out):
     print(json.dumps(result))
 
 
+def barriers(out):
+    """Build ``tools/cluster_sync_bench.cu`` with nvcc and run it: the
+    nanoseconds of one barrier phase of a thread-block cluster (and of a
+    block), for cluster sizes 1-16 and 96 or 384 threads per block."""
+    import tempfile
+
+    sys.path.insert(0, os.path.abspath("."))
+    from energybalancemodel_jl_tpu_torch.ops import _build
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cluster_sync_bench.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "cluster_sync_bench")
+        subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                        "-std=c++17", "-o", exe, src], check=True)
+        proc = subprocess.run([exe], capture_output=True, text=True, check=True)
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    result = {"gpu": nvidia_smi(), "phases": rows}
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    if out:
+        with open(out, "w") as fh:
+            json.dump(result, fh, indent=1)
+
+
+def clusters(out):
+    """The cluster builds of the year kernels at C = 2, 4, 8 and 16 (as
+    ``ops._year.FORCE_CLUSTER`` forces it) and as the C side picks, K=1, at
+    the main paths' widths: the Classic year at nx=32768, nt=1000 (float32,
+    float64; CUDA events per year), and the MIZ year at nx=1536 (float32,
+    float64) and nx=16384 (float32) over nt=256 steps with D scaled to the
+    canonical coupling, once with 0 and once with 8 fixed Newton updates a
+    step: the step's cost without updates and the cost of one update (the
+    high-resolution year is nt x (base + u x update), u the updates a step
+    that ``highres`` counts)."""
+    sys.path.insert(0, os.path.abspath("."))
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.models.base import StepConfig, default_step_config
+    from energybalancemodel_jl_tpu_torch.ops import _build, _year
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import CARRY_KEYS, miz_year
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    _build.load_library()
+    result = {"gpu": nvidia_smi(), "classic": [], "miz": []}
+    cfg = default_step_config("float32")
+    fixed = lambda n: StepConfig(solver="pcr", newton_abstol=0.0, newton_reltol=0.0,
+                                 newton_max_step=50.0, newton_max_iter=n)
+
+    def planned(kernel, nx, nt, dtype, C):
+        _year.FORCE_CLUSTER[kernel] = C
+        try:
+            return _year.cluster_plan(kernel, nx, nt, 1, dtype, dev)._asdict()
+        except RuntimeError as e:
+            return {"error": str(e)}
+
+    for dtype in (torch.float32, torch.float64):
+        st = ebt.SpaceTime.sin(32768, 1000, 1)
+        par = ebt.default_parameters("Classic")
+        E = torch.full((1, st.nx), 30.0, dtype=dtype, device=dev)
+        args = (ebt.Collection(E=E, Tg=E / par["cw"]), par,
+                torch.zeros(st.nt, dtype=dtype, device=dev), st)
+        for C in (2, 4, 8, 16, 0):
+            row = dict(nx=st.nx, nt=st.nt, dtype=str(dtype), C=C or "chosen",
+                       plan=planned("classic_year", st.nx, st.nt, dtype, C))
+            if "error" not in row["plan"]:
+                classic_year(*args, cfg)
+                row["ms_per_year"] = event_ms(lambda: classic_year(*args, cfg), 3)
+            result["classic"].append(row)
+            print(json.dumps(row), flush=True)
+    _year.FORCE_CLUSTER["classic_year"] = 0
+    nt = 256
+    for nx, dtype in ((1536, torch.float32), (1536, torch.float64), (16384, torch.float32)):
+        st = ebt.SpaceTime.sin(nx, nt, 1)
+        par = ebt.default_parameters("MIZ")
+        par["D"] = par["D"] * (180 ** 2 / 2000) * nt / nx ** 2
+        carry = ebt.Collection(
+            {k: torch.zeros((1, nx), dtype=dtype, device=dev) for k in CARRY_KEYS})
+        f = torch.zeros(nt, dtype=dtype, device=dev)
+        for C in (2, 4, 8, 16, 0):
+            row = dict(nx=nx, nt=nt, dtype=str(dtype), C=C or "chosen",
+                       plan=planned("miz_year", nx, nt, dtype, C))
+            if "error" not in row["plan"]:
+                t = {}
+                for n in (0, 8):
+                    miz_year(carry, par, f, st, fixed(n))
+                    t[n] = event_ms(lambda: miz_year(carry, par, f, st, fixed(n)), 2)
+                row["us_per_step_no_update"] = t[0] * 1e3 / nt
+                row["us_per_update"] = (t[8] - t[0]) * 1e3 / nt / 8
+            result["miz"].append(row)
+            print(json.dumps(row), flush=True)
+    _year.FORCE_CLUSTER["miz_year"] = 0
+    if out:
+        with open(out, "w") as fh:
+            json.dump(result, fh, indent=1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -405,6 +540,10 @@ def main(argv=None):
     h.add_argument("--miz", nargs="*", type=lambda v: tuple(map(int, v.split(":"))),
                    default=[(2048, 262144), (1536, 147456)])
     h.add_argument("--out", default="")
+    b = sub.add_parser("barriers")
+    b.add_argument("--out", default="")
+    cl = sub.add_parser("clusters")
+    cl.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if args.cmd == "measure":
         res = measure(args.root, args.nvcc_flag, args.rows)
@@ -415,6 +554,10 @@ def main(argv=None):
             print(json.dumps(res))
     elif args.cmd == "highres":
         highres(args.miz, args.out)
+    elif args.cmd == "barriers":
+        barriers(args.out)
+    elif args.cmd == "clusters":
+        clusters(args.out)
     else:
         compare(args.parent, args.out, args.rows)
     return 0

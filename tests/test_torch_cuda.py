@@ -31,10 +31,11 @@ Bars:
 - the batched PCR and the fixed-iteration Newton for T0: bitwise equal, with
   shared and per-system bands, 1 to 4 rows per thread, and K11's warp
   layout (a system per warp up to n = 256);
-- the wide builds (above the register builds' widths, every cell's state in
-  device memory): Classic at nx 8192 and 32768, MIZ at 1025, 1536, 2048
-  and 16384 (D scaled so D nx^2/nt is the canonical grid's, 2 fixed Newton
-  iterations), every noise mode, K11 up to 32768 rows and K10 up to 16384:
+- the wide builds (above the register builds' widths; the year kernels'
+  cluster builds, a thread-block cluster per member): Classic at nx 8192
+  and 32768, MIZ at 1025, 1536, 2048 and 16384 (D scaled so D nx^2/nt is
+  the canonical grid's, 2 fixed Newton iterations), every noise mode, K11
+  up to 32768 rows and K10 up to 16384:
   bitwise equal; MIZ with the adaptive Newton: float64 to 1e-8 at K=2, and
   at K=1 (nx=1536, f32 and f64) bitwise with the plain version's Newton
   updates; more members than the card keeps resident, each bitwise its solo run; the entry points
@@ -542,6 +543,8 @@ def test_miz_wide_build_adaptive_newton_single_run_bitwise(cuda, monkeypatch, dt
 def test_wide_build_loops_over_members_beyond_the_resident_blocks(cuda):
     K = _year.sm_count(cuda) * _year.WIDE_BLOCKS_PER_SM + 4
     st, par, carry, f = classic_setup(cuda, torch.float32, nx=8192, nt=1000, K=K)
+    # more members than clusters resident: each cluster loops over members
+    assert K > _year.cluster_plan("classic_year", st.nx, st.nt, K, torch.float32, cuda).clusters
     cfg = default_step_config("float32")
     ens = classic_year(carry, par, f, st, cfg)
     assert_same_years(ens, classic_year_reference(carry, par, f, st, cfg))
@@ -608,12 +611,25 @@ def test_entry_points_launch_the_wide_builds(cuda):
 
 
 def test_wide_build_workspace_scales_with_resident_blocks(cuda):
-    """The workspace of a wide call: at most one block per SM, whatever K,
-    and a raw year that would not fit raises naming its size."""
+    """The workspace of a wide call: K11's at most one block per SM and a
+    year kernel's cluster build's at most its resident clusters' blocks (none
+    where its records fit in shared memory), whatever K; a cluster build
+    that cannot launch raises; a raw year that would not fit raises naming
+    its size."""
     sms = _year.sm_count(cuda)
-    blocks, words = _year.wide_workspace("classic_year", 32768, 8192, sms)
+    blocks, words = _year.wide_workspace("pcr_fused", 32768, 8192, sms)
     assert (blocks, words) == (sms * _year.WIDE_BLOCKS_PER_SM,
-                               _year.wide_words("classic_year", 32768))
+                               _year.wide_words("pcr_fused", 32768))
+    for dtype in (torch.float32, torch.float64):
+        plan = _year.cluster_plan("classic_year", 32768, 1000, 8192, dtype, cuda)
+        blocks, words = _year.wide_workspace("classic_year", 32768, 8192, sms, plan)
+        assert plan.C * plan.clusters <= sms and plan.shared_bytes <= _year.MAX_SHARED_BYTES
+        assert (blocks, words) == ((0, 0) if plan.records_shared else (
+            plan.clusters * plan.C, _year.wide_words("classic_year", 32768, plan.C)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(_year.FORCE_CLUSTER, "classic_year", 2)  # 16384 cells a block
+        with pytest.raises(RuntimeError, match="cannot launch"):
+            _year.cluster_plan("classic_year", 32768, 1000, 1, torch.float32, cuda)
     st = ebt.SpaceTime.sin(16384, 262144, 1)
     carry = ebt.Collection({k: torch.zeros((64, st.nx), device=cuda) for k in CARRY_KEYS})
     with pytest.raises(ValueError, match="raw-collected year stores"):

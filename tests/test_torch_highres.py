@@ -25,23 +25,15 @@ Bars (float64):
   ``csrc/noise.cuh::wide_noise_crossing`` runs it (the block layout's
   virtual threads in rounds of the block's own): bitwise ``block_sum``.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax import lax
 
-import energybalancemodel_jl_tpu as ebm
 import energybalancemodel_jl_tpu_torch as ebt
-from energybalancemodel_jl_tpu.models import miz as jmiz
-from energybalancemodel_jl_tpu.models.base import default_step_config as jcfg
-from energybalancemodel_jl_tpu.ops.diffusion import diffusion as jax_diffusion
-from energybalancemodel_jl_tpu.ops.tridiag import tridiag_matvec as jax_matvec
 from energybalancemodel_jl_tpu_torch import ops
 from energybalancemodel_jl_tpu_torch.integrate import check_fused, resolve_engine
 from energybalancemodel_jl_tpu_torch.models import miz as tmiz
-from energybalancemodel_jl_tpu_torch.models.base import default_step_config
+from energybalancemodel_jl_tpu_torch.models.base import StepConfig, default_step_config
 from energybalancemodel_jl_tpu_torch.ops import _year
 from energybalancemodel_jl_tpu_torch.ops import classic_year as tcy
 from energybalancemodel_jl_tpu_torch.ops import miz_year as tmy
@@ -54,12 +46,27 @@ GPU = torch.device("cuda")  # a device object only: nothing here runs on it
 COUPLING = 180 ** 2 / 2000  # the canonical MIZ grid's nx^2 / nt
 
 
+def jax_side():
+    """The JAX package and jax, imported by the tests that compare with
+    them: the card tests of this file run where jax is not installed."""
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+
+    import energybalancemodel_jl_tpu as ebm
+    from energybalancemodel_jl_tpu.models import miz as jmiz
+    from energybalancemodel_jl_tpu.models.base import default_step_config as jcfg
+
+    return jax, jnp, lax, ebm, jmiz, jcfg
+
+
 def relative(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.linalg.norm(a - b) / np.linalg.norm(b)
 
 
 def test_classic_year_at_nx_8192_matches_jax():
+    ebm = jax_side()[3]
     st = ebt.SpaceTime.sin(8192, 1000, 1)
     par = ebt.default_parameters("Classic")
     E0 = np.full(st.nx, 30.0)
@@ -80,6 +87,7 @@ def test_classic_year_at_nx_8192_matches_jax():
 
 
 def test_miz_first_20_steps_at_nx_2048_match_jax():
+    jax, jnp, lax, ebm, jmiz, jcfg = jax_side()
     n_steps, nx, nt = 20, 2048, 400
     st = ebt.SpaceTime.sin(nx, nt, 1)
     par = ebt.default_parameters("MIZ")
@@ -119,6 +127,10 @@ def test_miz_first_20_steps_at_nx_2048_match_jax():
 
 @pytest.mark.parametrize("shape", [(50,), (3, 50)])
 def test_tridiag_matvec_matches_jax(shape):
+    import jax.numpy as jnp
+
+    from energybalancemodel_jl_tpu.ops.tridiag import tridiag_matvec as jax_matvec
+
     rng = np.random.default_rng(1)
     lo, di, up, x = (rng.normal(size=shape) for _ in range(4))
     lo[..., 0] = up[..., -1] = 0.0
@@ -133,6 +145,9 @@ def test_tridiag_matvec_matches_jax(shape):
 
 @pytest.mark.parametrize("grid", ["identity", "sin"])
 def test_diffusion_matches_jax(grid):
+    from energybalancemodel_jl_tpu.ops.diffusion import diffusion as jax_diffusion
+
+    ebm = jax_side()[3]
     st = getattr(ebt.SpaceTime, grid)(64, 100, 1)
     T = np.random.default_rng(2).normal(0.0, 10.0, (2, st.nx))
     par = ebt.default_parameters("MIZ")
@@ -171,34 +186,63 @@ BUILDS = [
 ]
 
 
+def plan(C, clusters, records_shared):
+    """A C-side plan as the card reports it (csrc/*_year.cu::*_cluster_plan);
+    the host sizes the workspace from it and guesses nothing."""
+    return _year.ClusterPlan(C=C, threads=256, records_shared=records_shared,
+                             clusters=clusters, shared_bytes=100000)
+
+
 @pytest.mark.parametrize("kernel,n,wide", BUILDS)
 def test_kernel_build_picks_the_build_and_sizes_the_workspace(kernel, n, wide):
+    cluster = _year.WIDE[kernel]["cluster"]
     for K in (1, 64, 8192):
-        blocks, words = _year.wide_workspace(kernel, n, K, 132)
-        if wide:
-            # one block per SM at most: the workspace scales with the card
-            assert (blocks, words) == (min(K, 132 * _year.WIDE_BLOCKS_PER_SM),
-                                       _year.wide_words(kernel, n))
+        if not wide:
+            assert _year.wide_workspace(kernel, n, K, 132) == (0, 0)
+        elif cluster:
+            # records in shared memory: no workspace; in device memory: one
+            # part per block of the clusters launched, at most the resident
+            # ones, each looping over members
+            assert _year.wide_workspace(kernel, n, K, 132, plan(16, 7, True)) == (0, 0)
+            for C, clusters in ((16, 7), (4, 30)):
+                assert _year.wide_workspace(kernel, n, K, 132, plan(C, clusters, False)) == (
+                    min(K, clusters) * C, _year.wide_words(kernel, n, C))
         else:
-            assert (blocks, words) == (0, 0)
+            # one block per SM at most: the workspace scales with the card
+            assert _year.wide_workspace(kernel, n, K, 132) == (
+                min(K, 132 * _year.WIDE_BLOCKS_PER_SM), _year.wide_words(kernel, n))
+    if wide and cluster:
+        with pytest.raises(ValueError, match="C side's plan"):
+            _year.wide_workspace(kernel, n, 1, 132)
     with pytest.raises(ValueError, match="wide build"):
-        _year.wide_workspace(kernel, _year.WIDE[kernel]["max"] + 1, 1, 132)
+        _year.wide_workspace(kernel, _year.WIDE[kernel]["max"] + 1, 1, 132, plan(16, 7, False))
 
 
 def test_wide_words_count_the_rows_the_exchange_and_the_records():
-    # csrc: 8 (n + 2) PCR words, 4 (n + 2) exchange words, then a record of
-    # 12 (Classic), 21 (MIZ), 5 (K10) values per cell, rounded up to 32
+    # K11 and K10 (csrc): 8 (n + 2) PCR words, 4 (n + 2) exchange words, then
+    # a record of 5 (K10) values per cell, rounded up to 32; the year
+    # kernels' cluster builds: a rank's records alone, 11 (Classic) and 20
+    # (MIZ) values for each of its ceil(n / C) cells, rounded up to 32 (the
+    # rows and the exchange live in shared memory)
     n = 8192
     assert _year.wide_words("pcr_fused", n) == 65568
-    assert _year.wide_words("classic_year", n) == -(-(8 * (n + 2) + 12 * n) // 32) * 32
-    assert _year.wide_words("miz_year", n) == -(-(12 * (n + 2) + 21 * n) // 32) * 32
     assert _year.wide_words("newton_t0", n) == -(-(12 * (n + 2) + 5 * n) // 32) * 32
+    for C in (1, 2, 4, 8, 16):
+        assert _year.wide_words("classic_year", n, C) == -(-(11 * -(-n // C)) // 32) * 32
+        assert _year.wide_words("miz_year", 1536, C) == -(-(20 * -(-1536 // C)) // 32) * 32
     for k in _year.WIDE:
-        assert _year.wide_words(k, 1025) % 32 == 0
-    # at Classic nx = 32768 in float64 the 132 blocks' workspace is 0.69 GB,
-    # whatever K; a workspace per member would be 40 GB at K = 8192
-    blocks, words = _year.wide_workspace("classic_year", 32768, 8192, 132)
-    assert blocks * words * 8 < 0.7e9 < 8192 * words * 8 / 50
+        for C in (1, 3, 16):
+            assert _year.wide_words(k, 1025, C) % 32 == 0
+    # at Classic nx = 32768 in float64 with the records in device memory, the
+    # 7 resident clusters of 16 take 20 MB whatever K; a part for every
+    # member's 16 blocks would take 23.6 GB at K = 8192
+    blocks, words = _year.wide_workspace("classic_year", 32768, 8192, 132, plan(16, 7, False))
+    assert blocks * words * 8 < 2.1e7 < 2e10 < 8192 * 16 * words * 8
+
+
+def test_cluster_size_can_be_forced_and_defaults_to_the_c_side():
+    assert _year.FORCE_CLUSTER == {"classic_year": 0, "miz_year": 0}
+    assert set(_year.FORCE_CLUSTER) == {k for k, v in _year.WIDE.items() if v["cluster"]}
 
 
 # the layout of the register builds, as tests/test_torch_block_sum.py pins
@@ -213,14 +257,19 @@ def test_block_layout_below_and_above_4096(n):
     assert _year.block_layout(n) == LAYOUTS[n]
 
 
-def emulate_wide_crossing(v, block_threads):
-    """One member's area as a wide block sums it
-    (``csrc/noise.cuh::wide_noise_crossing``), in scalar arithmetic of
-    ``v``'s dtype: the layout's vt virtual threads run in rounds of the
-    block's threads, each adds its cells v + c * vt in order (0 beyond the
-    grid), a virtual warp's lanes add in the halving tree, thread 0 adds the
-    virtual warps in order."""
+def emulate_cluster_crossing(v, C, block_threads):
+    """One member's area as a cluster build sums it
+    (``csrc/cluster.cuh::cluster_noise_crossing``), in scalar arithmetic of
+    ``v``'s dtype: each of the C ranks holds the values of its slice of
+    ceil(n / C) cells; rank 0's threads run the layout's vt virtual threads
+    in rounds, each adds its cells v + c * vt in order (0 beyond the grid),
+    reading each from the rank that holds it (owner j // slice, by the
+    kernel's multiply-high), a virtual warp's lanes add in the halving tree,
+    thread 0 adds the virtual warps in order."""
     n = v.shape[0]
+    slice_ = -(-n // C)
+    magic = ((1 << 32) + slice_ - 1) // slice_
+    ranks = [v[r * slice_:(r + 1) * slice_] for r in range(C)]
     cpt, vt = _year.block_layout(n)
     zero = v.dtype.type(0)
     slots = {}
@@ -232,7 +281,12 @@ def emulate_wide_crossing(v, block_threads):
                 part = zero
                 for c in range(cpt):
                     i = u + c * vt
-                    x = v[i] if u < vt and i < n else zero
+                    if u < vt and i < n:
+                        owner = (i * magic) >> 32
+                        assert owner == i // slice_
+                        x = ranks[owner][i - owner * slice_]
+                    else:
+                        x = zero
                     part = x if c == 0 else part + x
                 lanes.append(part)
             for half in (16, 8, 4, 2, 1):
@@ -245,10 +299,135 @@ def emulate_wide_crossing(v, block_threads):
     return total
 
 
-@pytest.mark.parametrize("threads", [256, 512])
-@pytest.mark.parametrize("n", [1025, 2049, 4097, 8192, 16383, 32768])
-def test_wide_crossing_sum_is_block_sum_bitwise(n, threads):
+@pytest.mark.parametrize("C", [2, 4, 8, 16])
+@pytest.mark.parametrize("threads", [96, 512])
+@pytest.mark.parametrize("n", [1025, 1536, 2049, 4097, 8192, 16383, 32768])
+def test_wide_crossing_sum_is_block_sum_bitwise(n, threads, C):
     v = (np.random.default_rng(n).uniform(0.0, 1.0, n) ** 3).astype(np.float32)
-    got = emulate_wide_crossing(v, threads)
+    got = emulate_cluster_crossing(v, C, threads)
     want = _year.block_sum(torch.as_tensor(v)[None])[0].numpy()
     assert got.tobytes() == want.tobytes()
+
+
+def test_float32_newton_updates_per_step_jax_against_the_port():
+    """The high-resolution year of chip_smoke.py phase 22, SpaceTime.sin(1536,
+    147456) in float32 from zero init at F = 0 with the default Newton
+    tolerances: the JAX package's Newton (ops/newton.py::newton_tridiag, its
+    iteration count) and the port's plain step (models/miz.py::_newton_root)
+    over the first 120 steps. Measured: both make 1 update a step through
+    step 93, differ from step 94 (JAX 1, the port 2: the two round float32
+    differently, XLA's fused loops against PyTorch's kernels), and both run
+    into the 30-update cap from step ~110 (ROADMAP Queue 3)."""
+    jax, jnp, lax, ebm, jmiz, jcfg = jax_side()
+    n_steps, nx, nt = 120, 1536, 147456
+    st = ebt.SpaceTime.sin(nx, nt, 1)
+    par = ebt.default_parameters("MIZ")
+    init = ebt.zeros_init(st)
+    jst = ebm.SpaceTime.sin(nx, nt, 1)
+    jpar = ebm.Collection({k: jnp.asarray(v, jnp.float32) for k, v in par.items()})
+    js = jmiz.statics(jst, jpar, jnp.float32)
+    jax_counts, port_counts = [], []
+    inner = jmiz._newton_root.fun  # newton_tridiag's (x, converged, iterations)
+
+    def counted(T0_warm, args, cfg):
+        out = inner(T0_warm, args, cfg)
+        jax.debug.callback(lambda it: jax_counts.append(int(it)), out[2], ordered=True)
+        return out
+
+    jcfg32 = jcfg("float32")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmiz, "_newton_root", counted)
+
+        @jax.jit
+        def jax_steps(carry):
+            xs = dict(insol=js.insol[:n_steps], f=jnp.zeros(n_steps, jnp.float32))
+            return lax.scan(lambda c, x: jmiz.step(c, x, js, jpar, jcfg32), carry, xs)
+
+        jax.block_until_ready(jax_steps(jmiz.init_carry(init, jst, jnp.float32)))
+    port_inner = tmiz._newton_root
+
+    def port_counted(T0_warm, args, cfg):
+        T0, converged, it = port_inner(T0_warm, args, cfg)
+        port_counts.append(int(it))
+        return T0, converged, it
+
+    tpar = ebt.from_numpy(par)
+    ts = tmiz.statics(st, tpar, torch.float32, CPU)
+    carry = tmiz.init_carry(init, st, torch.float32, CPU)
+    cfg = default_step_config("float32")
+    zero = torch.zeros((), dtype=torch.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmiz, "_newton_root", port_counted)
+        for i in range(n_steps):
+            carry, _ = tmiz.step(carry, tmiz.step_inputs(ts, zero.expand(nt), i), ts, tpar, cfg)
+    assert len(jax_counts) == len(port_counts) == n_steps
+    assert cfg.newton_max_iter == jcfg32.newton_max_iter == 30
+    # the first ~8 steps, and every step before ice forms: the same updates
+    assert jax_counts[:93] == port_counts[:93] == [1] * 93
+    first = next(i for i, (a, b) in enumerate(zip(jax_counts, port_counts)) if a != b)
+    assert first == 93, (first, jax_counts[90:], port_counts[90:])
+    # the high counts are the model's own: both iterate to the cap
+    for counts in (jax_counts, port_counts):
+        assert sum(c == 30 for c in counts[110:]) >= 7
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the cluster builds have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model", ["Classic", "MIZ"])
+def test_cluster_builds_match_plain_bitwise(cuda, model, dtype):
+    """Each cluster build at a small wide width, as the C side plans it and
+    with C forced to 2 and 16, against its plain version: bitwise (MIZ with
+    2 fixed Newton iterations); C = 1 is refused."""
+    if model == "Classic":
+        nx, nt = 4352, 1000
+        st = ebt.SpaceTime.sin(nx, nt, 1)
+        par = ebt.default_parameters("Classic")
+        par["D"] = np.array([0.55, 0.65])
+        E = torch.full((2, nx), 30.0, dtype=dtype, device=cuda)
+        carry = ebt.Collection(E=E, Tg=E / par["cw"])
+        year, plain = tcy.classic_year, tcy.classic_year_reference
+        cfg = default_step_config("float32")
+    else:
+        nx, nt = 1088, 32
+        st = ebt.SpaceTime.sin(nx, nt, 1)
+        par = ebt.default_parameters("MIZ")
+        par["D"] = par["D"] * COUPLING * nt / nx ** 2 * np.array([1.0, 1.1])
+        carry = ebt.Collection({k: torch.zeros((2, nx), dtype=dtype, device=cuda)
+                                for k in tmy.CARRY_KEYS})
+        year, plain = tmy.miz_year, tmy.miz_year_reference
+        cfg = StepConfig(solver="pcr", newton_abstol=0.0, newton_reltol=0.0,
+                         newton_max_step=50.0, newton_max_iter=2)
+    f = torch.as_tensor(np.random.default_rng(7).normal(0.0, 0.5, nt), dtype=dtype,
+                        device=cuda)
+    want = plain(carry, par, f, st, cfg, collect_raw=True)
+    kernel = "classic_year" if model == "Classic" else "miz_year"
+    with pytest.MonkeyPatch.context() as mp:
+        for C in (0, 2, 16):
+            mp.setitem(_year.FORCE_CLUSTER, kernel, C)
+            before = year.launches
+            got = year(carry, par, f, st, cfg, collect_raw=True)
+            assert year.launches == before + 1
+            for (a, b) in zip(tensors(got), tensors(want)):
+                assert torch.equal(torch.isnan(a), torch.isnan(b))
+                assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)), C
+        mp.setitem(_year.FORCE_CLUSTER, kernel, 1)
+        with pytest.raises(RuntimeError, match="cannot launch"):
+            year(carry, par, f, st, cfg)
+
+
+def tensors(v):
+    if torch.is_tensor(v):
+        yield v
+    elif isinstance(v, dict):
+        for k in v:
+            yield from tensors(v[k])
+    elif v is not None:
+        for x in v:
+            yield from tensors(x)

@@ -196,7 +196,7 @@ def test_kernel_build_is_keyed_by_headers_too(tmp_path):
     before = _build._library_path(csrc)
     assert before == _build._library_path()  # the copy hashes as the package
     headers = sorted(h.name for h in csrc.glob("*.cuh"))
-    assert headers == ["common.cuh", "newton.cuh", "noise.cuh", "prng.cuh"]
+    assert headers == ["cluster.cuh", "common.cuh", "newton.cuh", "noise.cuh", "prng.cuh"]
     for name in headers:
         header = csrc / name
         header.write_bytes(header.read_bytes() + b"// edited\n")
@@ -208,7 +208,8 @@ def test_kernel_build_is_keyed_by_headers_too(tmp_path):
         text = (csrc / user).read_text()
         assert '#include "newton.cuh"' in text and "t0_residual_bands<" in text, user
     exported = {"ebm_cuda_error_string", "ebm_normal_table", "ebm_normal_bits"} | {
-        f"ebm_{k}_{d}" for k in ("miz_year", "classic_year", "pcr", "newton_t0")
+        f"ebm_{k}_{d}" for k in ("miz_year", "classic_year", "pcr", "newton_t0",
+                                 "miz_year_plan", "classic_year_plan")
         for d in ("f32", "f64")}
     assert set(_build._SIGNATURES) == exported
     for src in _build._sources():
