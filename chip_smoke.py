@@ -26,7 +26,7 @@ failure):
    every year (the raw-collected last one too) through the kernel;
 6. the MIZ kernel timed per model year on the canonical grid at K=1 and
    K=8192, f32 and f64 (each member's Newton updates counted, and held to
-   the counts recorded before the kernel's exchange layer was redesigned),
+   the counts pinned in ``NEWTON_UPDATES``),
    the kernel's raw-collected year at K=1, and the plain version at K=8192
    f32;
 7. the Classic kernel against its plain version, bitwise: nx=40/nt=1000
@@ -126,10 +126,10 @@ failure):
     ``equilibrate``'s results (every array bitwise), and ``plot_avg`` and
     ``plot_seasonal`` of the Classic run to PNG under Agg where matplotlib
     is installed; each checkpoint write's seconds and file size;
-22. the high-resolution runs on the kernels' wide builds (the year
-    kernels' cluster builds: a thread-block cluster per member, the PCR rows
-    and the neighbour exchange in the blocks' shared memory; K11's and K10's
-    rows in device memory): the Classic year against its plain version,
+22. the high-resolution runs on the kernels' wide builds (every one a
+    cluster build: a thread-block cluster per member or system, the PCR rows
+    and the neighbour exchange in the blocks' shared memory): the Classic
+    year against its plain version,
     bitwise, at nx 8192 and 32768 (K=1, nt=1000, raw-collected, f32 and
     f64) and with more members than the card keeps clusters resident (each
     cluster loops over members; three members bitwise their solo runs), the
@@ -138,8 +138,10 @@ failure):
     main path's nx 1536 also with the default Newton tolerances (the
     kernel's Newton updates equal the plain version's) and with more members
     than clusters resident, every noise mode of both at nx 8192 / 2048, K11
-    at (64, 32768) and K10 at (64, 16384) (with ``tridiag_matvec``'s
-    residual), each wide build held to no spill stores in phase 2; each
+    at (64, 32768) and K10 at (64, 16384) at every C that fits and as the C
+    side chooses, f32 and f64, with more systems than clusters resident
+    (with ``tridiag_matvec``'s residual), each wide build held to no spill
+    stores in phase 2; each
     cluster build's plan (C, threads, shared bytes, resident clusters,
     registers); then the main paths:
     ``integrate('Classic', SpaceTime.sin(32768, 1000, 2))`` under a ramp
@@ -223,14 +225,14 @@ MIZ_BLOCKS_PER_SM = {("f32", "det"): 6, ("f32", "noisy"): 5, ("f64", "det"): 2,
 
 
 # Newton updates of all members over one canonical year, as the kernel counted
-# them before its communication layer was redesigned (NVIDIA H100, the run
-# that compared both; the arithmetic is deterministic): the redesign moves
-# values between threads and must change no iterate, so every count is held
-# exactly. Keys: phase 6 (dtype, K) from zero init; phase 14 by mode, from
-# the ice-free state of 40 years at F=+15
-NEWTON_UPDATES = {("float32", 8192): 18761277, ("float32", 1): 2304,
-                  ("float64", 8192): 18740968, "det": 6471680, "sigma0": 6471680,
-                  "keys/serial": 11234003, "keys/crossing": 11234003}
+# them with XLA:CPU's fused multiply-adds at their sites (NVIDIA H100; the
+# arithmetic is deterministic, so a change to how values move between
+# threads must change no iterate, and every count is held exactly; a change
+# of the arithmetic itself changes them). Keys: phase 6 (dtype, K) from zero
+# init; phase 14 by mode, from the ice-free state of 40 years at F=+15
+NEWTON_UPDATES = {("float32", 8192): 18762098, ("float32", 1): 2299,
+                  ("float64", 8192): 18740528, "det": 6455296, "sigma0": 6455296,
+                  "keys/serial": 11199140, "keys/crossing": 11199140}
 
 
 def check_miz_occupancy(ptxas):
@@ -293,13 +295,12 @@ def check_classic_occupancy(ptxas):
     return found
 
 
-# the wide builds: the year kernels' cluster builds (csrc/cluster.cuh),
-# Classic and MIZ by dtype and noise (MIZ by its count output too), and K11's
-# and K10's device-memory builds (csrc/common.cuh) by dtype, each held to no
-# spill stores: every per-cell value lives in a record, so the registers
-# hold one cell's step at a time
-WIDE_BUILDS = {"classic_cluster_kernel": 4, "miz_cluster_kernel": 8, "pcr_wide_kernel": 2,
-               "newton_t0_wide_kernel": 2}
+# the wide builds, every one a cluster build (csrc/cluster.cuh): Classic and
+# MIZ by dtype and noise (MIZ by its count output too), K11 and K10 by dtype,
+# each held to no spill stores: every per-cell value lives in a record, so
+# the registers hold one cell's work at a time
+WIDE_BUILDS = {"classic_cluster_kernel": 4, "miz_cluster_kernel": 8, "pcr_cluster_kernel": 2,
+               "newton_t0_cluster_kernel": 2}
 
 
 def check_wide_builds(ptxas):
@@ -1483,7 +1484,9 @@ def highres_phase(dev, smi):
     out = {}
     fixed2 = StepConfig(solver="pcr", newton_abstol=0.0, newton_reltol=0.0,
                         newton_max_step=50.0, newton_max_iter=2)
-    resident = _year.sm_count(dev) * _year.WIDE_BLOCKS_PER_SM
+    # more members than the card has SMs: more than any cluster build keeps
+    # resident (checked against each plan)
+    resident = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def classic_inputs(nx, nt, K, dtype):
         st = ebt.SpaceTime.sin(nx, nt, 1)
@@ -1664,10 +1667,38 @@ def highres_phase(dev, smi):
             "included; every carry finite): "
             + ", ".join(f"{k} {v:.3e}" for k, v in noise_err.items()))
 
-    # (e) K11 and K10, f32 and f64
+    # (e) K11 and K10 on their cluster builds, f32 and f64: bitwise one plain
+    # result each, at every C whose plan launches and at the C the C side
+    # chooses (C=0), with more systems than clusters resident
     rng = np.random.default_rng(22)
     n11 = max(HR_CLASSIC_NX)
-    k_err, resid = {}, {}
+    k_err, resid, k_plans = {}, {}, {}
+
+    def each_c(kernel, n, K, dtype, run, want, label):
+        """``run()`` at every C (0: the C side's choice), each bitwise
+        ``want``; the plans, and which C do not fit, recorded."""
+        for C in (0, 2, 4, 8, 16):
+            _year.FORCE_CLUSTER[kernel] = C
+            try:
+                plan = _year.cluster_plan(kernel, n, 1, K, dtype, dev)
+            except RuntimeError:
+                if C == 0:
+                    fail(f"phase 22 {label}: no plan launches")
+                k_plans[f"{label} C={C}"] = "does not fit"
+                continue
+            finally:
+                _year.FORCE_CLUSTER[kernel] = 0
+            _year.FORCE_CLUSTER[kernel] = C
+            try:
+                got = run()
+            finally:
+                _year.FORCE_CLUSTER[kernel] = 0
+            key = f"{label} C={C or 'chosen'}"
+            k_err[key] = _max_err((got,), (want,), key)
+            k_plans[key] = dict(plan._asdict(), over=K > plan.clusters)
+            if C == 0 and K <= plan.clusters:
+                fail(f"phase 22 {label}: K={K} systems fit the {plan.clusters} resident clusters")
+
     for dtype in (torch.float32, torch.float64):
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
         lo, up = rng.normal(size=(HR_SYSTEMS, n11)), rng.normal(size=(HR_SYSTEMS, n11))
@@ -1677,11 +1708,12 @@ def highres_phase(dev, smi):
         b = t(rng.normal(size=(HR_SYSTEMS, n11)))
         for bands, kind in (((t(lo), t(di), t(up)), "per-system"),
                             ((t(lo[0]), t(di[0]), t(up[0])), "shared")):
+            want = pcr_solve(*bands, b)
+            each_c("pcr_fused", n11, HR_SYSTEMS, dtype, lambda: pcr_fused(*bands, b), want,
+                   f"K11 {dtype_name(dtype)} {kind}")
             x = pcr_fused(*bands, b)
-            label = f"K11 {dtype} {kind}"
-            k_err[label] = _max_err((x,), (pcr_solve(*bands, b),), label)
             r = tridiag_matvec(*(v.double() for v in bands), x.double()) - b.double()
-            resid[label] = float(r.norm() / b.double().norm())
+            resid[f"K11 {dtype} {kind}"] = float(r.norm() / b.double().norm())
         if dtype == torch.float32:
             bands = (t(lo), t(di), t(up))
             ms["pcr"] = _event_ms(lambda: pcr_fused(*bands, b), 10)
@@ -1700,20 +1732,35 @@ def highres_phase(dev, smi):
                 t(np.tile(insol, (HR_SYSTEMS, 1))), t(geom.lo), t(geom.di), t(geom.up),
                 t(np.linspace(0.55, 0.65, HR_SYSTEMS) * COUPLING * 2000 / n10 ** 2), mpar["k"],
                 mpar["Tm"], mpar["A"], mpar["B"], mpar["ai"], 0.0]
-        x = newton_t0(*args, max_step=50.0, iters=6)
-        label = f"K10 {dtype}"
-        k_err[label] = _max_err((x,), (newton_t0_reference(*args, max_step=50.0, iters=6),),
-                                label)
-        if not bool(torch.isfinite(x).all()):
-            fail(f"phase 22 {label}: not finite")
+        want = newton_t0_reference(*args, max_step=50.0, iters=6)
+        each_c("newton_t0", n10, HR_SYSTEMS, dtype,
+               lambda: newton_t0(*args, max_step=50.0, iters=6), want, f"K10 {dtype_name(dtype)}")
+        if not bool(torch.isfinite(want).all()):
+            fail(f"phase 22 K10 {dtype}: not finite")
         if dtype == torch.float32:
             ms["newton"] = _event_ms(lambda: newton_t0(*args, max_step=50.0, iters=6), 5)
             ms["newton_plain"] = _host_ms(lambda: newton_t0_reference(*args, max_step=50.0,
                                                                       iters=6))[1]
-    say(22, f"K11 at ({HR_SYSTEMS}, {n11}) and K10 at ({HR_SYSTEMS}, {n10}) (6 iterations) vs "
-            "plain, bitwise: " + ", ".join(f"{k} {v:.3e}" for k, v in k_err.items())
+    say(22, f"K11 at ({HR_SYSTEMS}, {n11}) and K10 at ({HR_SYSTEMS}, {n10}) (6 iterations) on "
+            "their cluster builds vs one plain result each, bitwise, at every C that fits: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in k_err.items())
             + "; K11 |A x - b| / |b| (tridiag_matvec, in float64): "
             + ", ".join(f"{k} {v:.3e}" for k, v in resid.items()))
+    regs = ptxas_rows(_build.build_log())
+    for key, p in k_plans.items():
+        if isinstance(p, dict):
+            short = "f32" if "float32" in key else "f64"
+            p["registers"] = regs.get(f"{'pcr' if key.startswith('K11') else 'newton_t0'}"
+                                      f"_cluster_kernel<{short}>")
+    say(22, "K11 and K10 cluster plans (C, threads, records in shared memory, resident "
+            "clusters, shared bytes per block, more systems than resident clusters, "
+            "registers): " + "; ".join(
+                f"{k}: " + (v if isinstance(v, str) else
+                            f"C={v['C']} threads={v['threads']} "
+                            f"records_shared={v['records_shared']} clusters={v['clusters']} "
+                            f"shared={v['shared_bytes']} B over={v['over']} {v['registers']}")
+                for k, v in k_plans.items()))
+    out["k_plans"] = k_plans
 
     # the cluster builds as the C side planned them for this phase's calls:
     # C, threads, shared bytes per block, resident clusters, registers
@@ -1867,6 +1914,10 @@ def main():
                                   text=True, check=True).stdout.strip().splitlines()[-1]
     say(1, f"gpu={torch.cuda.get_device_name(0)!r} count={torch.cuda.device_count()} "
            f"torch={torch.__version__} cuda={torch.version.cuda} nvcc={nvcc_version!r}")
+    from energybalancemodel_jl_tpu_torch.utils.numerics import addcmul_is_fma
+    say(1, "the plain float32 version's fused multiply-add (utils/numerics.py::fma_f32): "
+           + ("torch.addcmul, one rounding on this card" if addcmul_is_fma("cuda")
+              else "the float64 emulation (torch.addcmul rounds twice here)"))
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1884,7 +1935,7 @@ def main():
         f"{name} {regs} regs {members} ({want})"
         for name, (regs, members, want) in classic_occ.items()))
     wide_builds = check_wide_builds(ptxas)
-    say(2, "wide builds (the year kernels' cluster builds, K11's and K10's in device memory), "
+    say(2, "wide builds (the cluster builds of both year kernels, K11 and K10), "
         "registers, no spill stores: "
         + ", ".join(f"{name} {used}" for name, used in wide_builds.items()))
 
@@ -2099,7 +2150,8 @@ def main():
             row = dict(dtype=str(dtype), K=K, kernel_ms_per_year=kernel_ms,
                        plain_ms_per_year=plain_ms, gpu=smi,
                        kernel_model_years_per_day=K / kernel_ms * 864e5,
-                       newton_updates_per_member_step=det_updates[dtype, K] / K / st.nt)
+                       newton_updates_per_member_step=det_updates[dtype, K] / K / st.nt,
+                       newton_updates=det_updates[dtype, K])
             if K == 1:  # a single run's raw-collected year
                 start.record()
                 for _ in range(3):
@@ -2780,6 +2832,7 @@ def main():
             max_abs_err_kernel_vs_plain={m: main_err.get((model, m)) for m in modes},
             newton_updates_per_member_step={m: updates[model, m] / K_MAIN / nt
                                             for m in modes if (model, m) in updates},
+            newton_updates={m: updates[model, m] for m in modes if (model, m) in updates},
             crossings_recorded=f"{crossed[model]} of {K_MAIN}")))
     del kernels_held, plains
     say(14, f"every mode phase 13 runs, kernel vs plain at SpaceTime.sin(180, 2000, 1) "
@@ -2991,6 +3044,10 @@ def main():
               None, library_call=(f"none: the dense ({HR_SYSTEMS}, {n11}, {n11}) systems of "
                                   "torch.linalg.solve would take 275 GB"),
               residual_f32=hr["resid"]["K11 torch.float32 per-system"],
+              design=("cluster build (csrc/pcr.cu::pcr_cluster_kernel, csrc/cluster.cuh): a "
+                      "thread-block cluster per system, its rows in the ranks' shared memory, "
+                      "one cluster barrier per PCR level"),
+              cluster=hr["k_plans"]["K11 float32 per-system C=chosen"],
               shape=f"({HR_SYSTEMS}, {n11}) float32, one solve",
               path="batched engine, Classic (phase 22)"),
         entry("newton_t0[wide]", "newton_t0.cu",
@@ -2998,6 +3055,10 @@ def main():
               worst(hr["k_err"], "K10"), hms["newton"], hms["newton_plain"],
               bound(4 * (6 * HR_SYSTEMS * n10 + 3 * n10 + HR_SYSTEMS),
                     HR_SYSTEMS * n10 * 6 * (33 + pcr_at(n10) + 3)),
+              design=("cluster build (csrc/newton_t0.cu::newton_t0_cluster_kernel, "
+                      "csrc/cluster.cuh): a thread-block cluster per member, its rows, "
+                      "exchange and records in the ranks' shared memory"),
+              cluster=hr["k_plans"]["K10 float32 C=chosen"],
               shape=f"({HR_SYSTEMS}, {n10}) float32, 6 Newton iterations",
               path="batched engine, MIZ (phase 22)"),
     ]

@@ -29,7 +29,8 @@
 // year; a raw-collected year (raw != nullptr) also writes every step's three
 // outputs, raw[t][var][member][cell].
 //
-// Per step (models/classic.py::step, line for line, same operation order):
+// Per step (models/classic.py::step, line for line, same operation order, the
+// fused multiply-adds at its sites as fma_rn; C by the year's first step or not):
 //   - insolation rows S_i and the wraparound S_{i+1} rebuilt from
 //     (S0 - S2 x^2) - (S1 cos 2pi t) x, forcing f[t] + F;
 //   - the albedo switch (zero at E == 0), T0, the three-regime T from the
@@ -97,32 +98,42 @@ struct ClassicCell {
   T di, b;
 };
 
+// C = alpha S_i + cg_tau Tg - A + f, with XLA:CPU's contraction: cg_tau Tg
+// in a year's first step (`first`, which the JAX package's scan peels),
+// alpha S_i in the others (models/classic.py::step)
+template <typename T>
+__device__ __forceinline__ T classic_C(T alpha, T S_i, T cg_tau, T Tgc, T A, T f, bool first) {
+  const T s = first ? fma_rn(cg_tau, Tgc, alpha * S_i) : fma_rn(alpha, S_i, cg_tau * Tgc);
+  return s - A + f;
+}
+
 template <typename T>
 __device__ __forceinline__ ClassicCell<T> classic_cell(const ClassicMember<T>& p, T Ec, T Tgc,
                                                        T xc, T SA, T aw, T kdi0, T s1c, T s1n,
-                                                       T f, T dt) {
+                                                       T f, T dt, bool first) {
   const T pos = Ec > T(0) ? T(1) : T(0);
   const T neg = Ec < T(0) ? T(1) : T(0);
   const T nonneg = Ec >= T(0) ? T(1) : T(0);
   const T alpha = aw * pos + p.ai * neg;  // zero at E == 0
-  const T S_i = SA - s1c * xc;
-  const T C = alpha * S_i + p.cg_tau * Tgc - p.A + f;
+  const T S_i = fma_rn(-s1c, xc, SA);
+  const T C = classic_C(alpha, S_i, p.cg_tau, Tgc, p.A, f, first);
   const T T0 = Ec == T(0) ? T(0) : C / (p.M - p.kLf / Ec);
   const T t0neg = T0 < T(0) ? T(1) : T(0);
   const T Tc = Ec / p.cw * nonneg + T0 * (neg * t0neg);  // pre-update E
-  const T En = Ec + dt * (C - p.M * Tc + p.Fb);
+  const T En = fma_rn(fma_rn(-p.M, Tc, C) + p.Fb, dt, Ec);
 
   const T negn = En < T(0) ? T(1) : T(0);
   const T nonnegn = En >= T(0) ? T(1) : T(0);
   const T denom = p.M - p.kLf / (En == T(0) ? T(1) : En);
   const T mask = t0neg * negn;
-  const T S_ip1 = SA - s1n * xc;  // the wraparound row S_{i+1}
+  const T S_ip1 = fma_rn(-s1n, xc, SA);  // the wraparound row S_{i+1}
   ClassicCell<T> r;
   r.di = kdi0 - p.dc / denom * mask;
-  r.b = Tgc + p.dt_tau * (En / p.cw * nonnegn + (p.ai * S_ip1 - p.A + f) / denom * mask);
+  r.b = fma_rn(p.dt_tau,
+               En / p.cw * nonnegn + (fma_rn(p.ai, S_ip1, -p.A) + f) / denom * mask, Tgc);
   r.out[0] = En;
   r.out[1] = Tc;
-  r.out[2] = -En / p.Lf * negn;
+  r.out[2] = En < T(0) ? -En / p.Lf : T(0);  // +0 where ice-free, as XLA selects
   return r;
 }
 
@@ -163,8 +174,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     const int j = i < nx ? i : 0;
     x[c] = cols[j];
     const T x2 = cols[nx + j];
-    SA[c] = S0 - S2 * x2;
-    aw[c] = a0 - a2 * x2;
+    SA[c] = fma_rn(-S2, x2, S0);
+    aw[c] = fma_rn(-a2, x2, a0);
     klo[c] = -dtD * cols[2 * nx + j] / cg;
     kdi0[c] = (T(1) + dt_tau) - dtD * cols[3 * nx + j] / cg;
     kup[c] = -dtD * cols[4 * nx + j] / cg;
@@ -187,7 +198,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const ClassicCell<T> r = classic_cell(mb, E[c], Tg[c], x[c], SA[c], aw[c], kdi0[c], s1c,
-                                            s1n, f, dt);
+                                            s1n, f, dt, t == 0);
       lo[c] = klo[c];
       di[c] = r.di;
       up[c] = kup[c];
@@ -196,7 +207,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
       for (int v = 0; v < N_OUT; ++v) out[c][v] = r.out[v];
       E[c] = r.out[0];
     }
-    pcr_solve<T, CPT>(lo, di, up, b, s, nx, pcr_steps);
+    pcr_solve<T, CPT, false>(lo, di, up, b, s, nx, pcr_steps);
 
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
@@ -350,8 +361,8 @@ __global__ void __launch_bounds__(classic_cluster_threads<T>(), 1)
       const int i = cs.lo + li;
       c[W_X] = cols[i];
       const T x2 = cols[nx + i];
-      c[W_SA] = S0 - S2 * x2;
-      c[W_AW] = a0 - a2 * x2;
+      c[W_SA] = fma_rn(-S2, x2, S0);
+      c[W_AW] = fma_rn(-a2, x2, a0);
       c[W_KLO] = -dtD * cols[2 * nx + i] / cg;
       c[W_KDI0] = (T(1) + dt_tau) - dtD * cols[3 * nx + i] / cg;
       c[W_KUP] = -dtD * cols[4 * nx + i] / cg;
@@ -372,7 +383,7 @@ __global__ void __launch_bounds__(classic_cluster_threads<T>(), 1)
         const Rec<T> c{fld + li, cs.slice};
         const int i = cs.lo + li;
         const ClassicCell<T> r = classic_cell(mb, c[W_E], c[W_TG], c[W_X], c[W_SA], c[W_AW],
-                                              c[W_KDI0], s1c, s1n, f, dt);
+                                              c[W_KDI0], s1c, s1n, f, dt, t == 0);
         c[W_E] = r.out[0];
         // step 0's outputs seed the sums, as in the plain version
         for (int v = 0; v < N_OUT; ++v)
@@ -394,7 +405,7 @@ __global__ void __launch_bounds__(classic_cluster_threads<T>(), 1)
       }
       cluster_sync();  // every rank's rows (and crossing values) are written
       if (crossing && cs.rank == 0) cluster_noise_crossing(ns, xv, cs, cross_red, t);
-      const PcrRow<T>* solved = cluster_pcr_solve(pcr, cs, pcr_steps);
+      const PcrRow<T>* solved = cluster_pcr_solve<T, false>(pcr, cs, pcr_steps);
       for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x)
         fld[W_TG * cs.slice + li] = cluster_pcr_x(solved, li);
     }
@@ -478,8 +489,8 @@ __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
       const int j = i < nx ? i : 0;
       const T x2 = cols[nx + j];
       xr[s] = cols[j];
-      SAr[s] = S0 - S2 * x2;
-      awr[s] = a0 - a2 * x2;
+      SAr[s] = fma_rn(-S2, x2, S0);
+      awr[s] = fma_rn(-a2, x2, a0);
       klor[s] = -dtD * cols[2 * nx + j] / cg;
       kdi0r[s] = (T(1) + dt_tau) - dtD * cols[3 * nx + j] / cg;
       kupr[s] = -dtD * cols[4 * nx + j] / cg;
@@ -526,23 +537,24 @@ __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
       const T neg = Ec < T(0) ? T(1) : T(0);
       const T nonneg = Ec >= T(0) ? T(1) : T(0);
       const T alpha = aw * pos + ai * neg;  // zero at E == 0
-      const T S_i = SA - s1c * xc;
-      const T C = alpha * S_i + cg_tau * Tg[s] - A + f;
+      const T S_i = fma_rn(-s1c, xc, SA);
+      const T C = classic_C(alpha, S_i, cg_tau, Tg[s], A, f, t == 0);
       const T T0 = Ec == T(0) ? T(0) : C / (M - kLf / Ec);
       const T t0neg = T0 < T(0) ? T(1) : T(0);
       const T Tc = Ec / cw * nonneg + T0 * (neg * t0neg);  // pre-update E
-      const T En = Ec + dt * (C - M * Tc + Fb);
+      const T En = fma_rn(fma_rn(-M, Tc, C) + Fb, dt, Ec);
 
       const T negn = En < T(0) ? T(1) : T(0);
       const T nonnegn = En >= T(0) ? T(1) : T(0);
       const T denom = M - kLf / (En == T(0) ? T(1) : En);
       const T mask = t0neg * negn;
-      const T S_ip1 = SA - s1n * xc;  // the wraparound row S_{i+1}
+      const T S_ip1 = fma_rn(-s1n, xc, SA);  // the wraparound row S_{i+1}
       lo[s] = CONSTS_SHARED ? c[3 * 32 * S] : klor[s];
       di[s] = (CONSTS_SHARED ? c[4 * 32 * S] : kdi0r[s]) - dc / denom * mask;
       up[s] = CONSTS_SHARED ? c[5 * 32 * S] : kupr[s];
-      b[s] = Tg[s] + dt_tau * (En / cw * nonnegn + (ai * S_ip1 - A + f) / denom * mask);
-      const T out[N_OUT] = {En, Tc, -En / Lf * negn};
+      b[s] = fma_rn(dt_tau, En / cw * nonnegn + (fma_rn(ai, S_ip1, -A) + f) / denom * mask,
+                    Tg[s]);
+      const T out[N_OUT] = {En, Tc, En < T(0) ? -En / Lf : T(0)};
       E[s] = En;
       // step 0's outputs seed the sums, as in the plain version (a -0.0
       // output stays -0.0)
@@ -568,7 +580,7 @@ __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
       }
     }
     if (NOISY && nz.cross_out != nullptr) warp_noise_crossing<T, S>(ns, part, nx, t);
-    warp_pcr_solve<T, S>(lo, di, up, b, nx, pcr_steps, lane);
+    warp_pcr_solve<T, S, false>(lo, di, up, b, nx, pcr_steps, lane);
 #pragma unroll
     for (int s = 0; s < S; ++s) Tg[s] = b[s];
     cos_t = cos_n;
@@ -792,13 +804,8 @@ int plan(int nx, int nt, int K, int noisy, int ou_mode, int force_c, int* out) {
   ClusterPlan p;
   const cudaError_t err = noisy ? classic_cluster_plan<T, true>(nx, nt, K, ou_mode, force_c, p)
                                 : classic_cluster_plan<T, false>(nx, nt, K, ou_mode, force_c, p);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = p.C;
-  out[1] = p.threads;
-  out[2] = p.records_shared;
-  out[3] = p.clusters;
-  out[4] = (int)p.shmem;
-  return 0;
+  if (err == cudaSuccess) plan_out(p, out);
+  return (int)err;
 }
 
 }  // namespace

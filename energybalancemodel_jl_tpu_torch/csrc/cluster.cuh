@@ -92,7 +92,8 @@ struct Rec {
 // buffer (its own row and the rows i -+ st, from whichever rank holds them)
 // and writes its rank's rows of the other; a row beyond either end is the
 // identity row (lo = up = b = 0, di = 1), the reach clamped onto it as in
-// common.cuh's wide_pcr_level and ops/tridiag.py::pcr_solve. The levels
+// common.cuh's pcr_level with several rows per thread and
+// ops/tridiag.py::pcr_solve. The levels
 // alternate the buffers, so one cluster barrier between two levels is
 // enough; none follows the last (each thread then reads only its own rows,
 // which the next system's rows overwrite in the buffer the last level wrote
@@ -103,25 +104,13 @@ struct ClusterPcr {
   int start;          // the buffer that takes the next system's rows
 };
 
-// local row li of the system, row-scaled as pcr_solve scales it
+// local row li of the system, row-scaled as pcr_solve scales it, in the
+// first level's form (common.cuh, PcrLevel)
 template <typename T>
 __device__ __forceinline__ void cluster_pcr_row(const ClusterPcr<T>& p, int li, T lo, T di, T up,
                                                 T b) {
   const T inv = T(1) / di;
-  store_row(p.buf[p.start] + li, lo * inv, T(1), up * inv, b * inv);
-}
-
-// One row of a doubling level from its neighbours m = i - st and p = i + st,
-// the operations of pcr_level in its order. FIRST: every diagonal is 1 and
-// x / 1 is x, so the level divides nothing.
-template <typename T, bool FIRST>
-__device__ __forceinline__ PcrRow<T> pcr_row_level(const PcrRow<T>& o, const PcrRow<T>& m,
-                                                   const PcrRow<T>& p) {
-  const T alpha = FIRST ? -o.lo : safe_div(-o.lo, m.di);
-  const T beta = FIRST ? -o.up : safe_div(-o.up, p.di);
-  const T b = o.b + alpha * m.b + beta * p.b;
-  const T di = o.di + alpha * m.up + beta * p.lo;
-  return {alpha * m.lo, di, beta * p.up, b};
+  store_row(p.buf[p.start] + li, lo * inv, inv, up * inv, b);
 }
 
 // row j of buffer cur, or the identity row beyond either end
@@ -132,7 +121,7 @@ __device__ __forceinline__ PcrRow<T> cluster_row(PcrRow<T>* cur, const ClusterSl
 
 // One doubling level at stride st; a thread loads ROWS of its rows (with
 // their neighbours) before it computes any, so the remote loads overlap.
-template <typename T, bool FIRST>
+template <typename T, int KIND>
 __device__ __forceinline__ void cluster_pcr_level(PcrRow<T>* cur, PcrRow<T>* next,
                                                   const ClusterSlice& s, int st) {
   constexpr int ROWS = 16 / sizeof(T);
@@ -152,7 +141,7 @@ __device__ __forceinline__ void cluster_pcr_level(PcrRow<T>* cur, PcrRow<T>* nex
     for (int r = 0; r < ROWS; ++r) {
       const int li = l0 + r * blockDim.x;
       if (li < s.cnt) {
-        const PcrRow<T> q = pcr_row_level<T, FIRST>(o[r], m[r], p[r]);
+        const PcrRow<T> q = pcr_row_update<T, KIND>(o[r], m[r], p[r]);
         store_row(next + li, q.lo, q.di, q.up, q.b);
       }
     }
@@ -167,7 +156,7 @@ __device__ __forceinline__ void cluster_pcr_level(PcrRow<T>* cur, PcrRow<T>* nex
 // float32 where a block holds one row per thread, whose levels wait on their
 // barriers more than they compute (measured: in float64 the extra rows cost
 // more than the barrier saved).
-template <typename T, bool FIRST>
+template <typename T, int K1, int K2>
 __device__ __forceinline__ void cluster_pcr_two_levels(PcrRow<T>* cur, PcrRow<T>* next,
                                                        const ClusterSlice& s, int st) {
   const PcrRow<T> ident{T(0), T(1), T(0), T(0)};
@@ -177,22 +166,44 @@ __device__ __forceinline__ void cluster_pcr_two_levels(PcrRow<T>* cur, PcrRow<T>
 #pragma unroll
     for (int d = 0; d < 7; ++d)
       r[d] = d == 3 ? load_row(cur + li) : cluster_row(cur, s, i + (d - 3) * st);
-    const PcrRow<T> qm = i - 2 * st < 0 ? ident : pcr_row_level<T, FIRST>(r[1], r[0], r[2]);
-    const PcrRow<T> q0 = pcr_row_level<T, FIRST>(r[3], r[2], r[4]);
-    const PcrRow<T> qp = i + 2 * st >= s.n ? ident : pcr_row_level<T, FIRST>(r[5], r[4], r[6]);
-    const PcrRow<T> q = pcr_row_level<T, false>(q0, qm, qp);
+    const PcrRow<T> qm = i - 2 * st < 0 ? ident : pcr_row_update<T, K1>(r[1], r[0], r[2]);
+    const PcrRow<T> q0 = pcr_row_update<T, K1>(r[3], r[2], r[4]);
+    const PcrRow<T> qp = i + 2 * st >= s.n ? ident : pcr_row_update<T, K1>(r[5], r[4], r[6]);
+    const PcrRow<T> q = pcr_row_update<T, K2>(q0, qm, qp);
     store_row(next + li, q.lo, q.di, q.up, q.b);
   }
 }
 
+// level `level` (and, with `two`, the next one too) of `steps`, its kinds
+// as pcr_level_kind says
+template <typename T, bool NEG>
+__device__ __forceinline__ void cluster_pcr_step(PcrRow<T>* cur, PcrRow<T>* next,
+                                                 const ClusterSlice& s, int st, int level,
+                                                 int steps, bool two) {
+  constexpr int F = NEG ? PCR_FIRST_NEG : PCR_FIRST;
+  const int k1 = pcr_level_kind(level, steps, NEG);
+  if (!two) {
+    if (k1 == F) cluster_pcr_level<T, F>(cur, next, s, st);
+    else if (k1 == PCR_MID) cluster_pcr_level<T, PCR_MID>(cur, next, s, st);
+    else cluster_pcr_level<T, PCR_LAST>(cur, next, s, st);
+    return;
+  }
+  const bool last2 = pcr_level_kind(level + 1, steps, NEG) == PCR_LAST;
+  if (k1 == F && last2) cluster_pcr_two_levels<T, F, PCR_LAST>(cur, next, s, st);
+  else if (k1 == F) cluster_pcr_two_levels<T, F, PCR_MID>(cur, next, s, st);
+  else if (last2) cluster_pcr_two_levels<T, PCR_MID, PCR_LAST>(cur, next, s, st);
+  else cluster_pcr_two_levels<T, PCR_MID, PCR_MID>(cur, next, s, st);
+}
+
 // Solve the system every rank wrote to buffer `start` (cluster_pcr_row),
-// after a cluster barrier the caller made: ceil(log2 n) = `steps` levels,
-// one cluster barrier between two (between two pairs of levels in float32
-// where a block holds a row per thread, cluster_pcr_two_levels). Returns this rank's
-// rows of the reduced system (local row li's solution is its b / di,
+// after a cluster barrier the caller made: ceil(log2 n) = `steps` levels
+// (NEG: the right-hand side is a negation, common.cuh's PcrLevel), one
+// cluster barrier between two (between two pairs of levels in float32 where
+// a block holds a row per thread, cluster_pcr_two_levels). Returns this
+// rank's rows of the reduced system (local row li's solution is its b / di,
 // cluster_pcr_x); the next system goes to that buffer. Every thread of every
-// rank calls it.
-template <typename T>
+// rank calls it. At least two levels (n > 2: the cluster builds' widths).
+template <typename T, bool NEG>
 __device__ __forceinline__ PcrRow<T>* cluster_pcr_solve(ClusterPcr<T>& p, const ClusterSlice& s,
                                                         int steps) {
   const bool pairs = sizeof(T) == 4 && s.slice <= (int)blockDim.x;
@@ -200,14 +211,7 @@ __device__ __forceinline__ PcrRow<T>* cluster_pcr_solve(ClusterPcr<T>& p, const 
   for (int level = 0, st = 1; level < steps; cur ^= 1) {
     if (level > 0) cluster_sync();
     const bool two = pairs && level + 1 < steps;
-    if (two && level == 0)
-      cluster_pcr_two_levels<T, true>(p.buf[cur], p.buf[cur ^ 1], s, st);
-    else if (two)
-      cluster_pcr_two_levels<T, false>(p.buf[cur], p.buf[cur ^ 1], s, st);
-    else if (level == 0)
-      cluster_pcr_level<T, true>(p.buf[cur], p.buf[cur ^ 1], s, st);
-    else
-      cluster_pcr_level<T, false>(p.buf[cur], p.buf[cur ^ 1], s, st);
+    cluster_pcr_step<T, NEG>(p.buf[cur], p.buf[cur ^ 1], s, st, level, steps, two);
     level += two ? 2 : 1;
     st <<= two ? 2 : 1;
   }
@@ -354,6 +358,17 @@ cudaError_t cluster_launch(void (*kernel)(Params...), const ClusterPlan& plan, i
       cluster_config(clusters, plan.C, plan.threads, plan.shmem, stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the plan as the C entry points return it: out = {C, threads, records in
+// shared memory (1) or in the workspace (0), resident clusters, dynamic
+// shared bytes per block}
+inline void plan_out(const ClusterPlan& p, int* out) {
+  out[0] = p.C;
+  out[1] = p.threads;
+  out[2] = p.records_shared;
+  out[3] = p.clusters;
+  out[4] = (int)p.shmem;
 }
 
 inline bool valid_cluster(int C) { return C >= 2 && C <= MAX_CLUSTER && (C & (C - 1)) == 0; }

@@ -1,14 +1,16 @@
 // Device code shared by the package's kernels (miz_year.cu, classic_year.cu,
 // pcr.cu, newton_t0.cu): NaN-aware helpers, a block-wide max of magnitudes,
 // and the row-scaled parallel cyclic reduction of ops/tridiag.py::pcr_solve,
-// for one system per block in shared memory (pcr_solve), for one system per
-// warp in registers (warp_pcr_solve), and for one system per block in
-// device memory (wide_pcr_solve, K10's and K11's wide builds above 4096
-// rows; the year kernels' cluster builds have their own, cluster.cuh).
+// for one system per block in shared memory (pcr_solve) and for one system
+// per warp in registers (warp_pcr_solve); the cluster builds above 4096 rows
+// (1024 cells for the MIZ year) have their own, cluster.cuh, on the same
+// level update (pcr_row_update).
 //
 // Every helper performs the same operations in the same order as the plain
 // PyTorch code it stands for, so a kernel built with -fmad=false rounds where
-// the plain version does.
+// the plain version does; the fused multiply-adds that XLA:CPU makes of the
+// JAX package's code, and that the plain version therefore makes
+// (utils/numerics.py), are explicit __fmaf_rn / __fma_rn (fma_rn).
 //
 // How values travel between the threads of a block (block_max_magnitude,
 // pcr_solve, noise.cuh's crossing sum and the neighbour exchange of
@@ -181,7 +183,7 @@ __device__ __forceinline__ void store_row(PcrRow<double>* p, double lo, double d
 // where pad = 2^(steps - 1) is the farthest a level reaches, so a level reads
 // rows i - st and i + st with no range test:
 //   [pad][buffer 0: n][pad][buffer 1: n][pad]
-// Several rows per thread (n > 1024, the wide builds): the padded pair would
+// Several rows per thread (n > 1024): the padded pair would
 // not fit in float64 at n = 4096, so one buffer with one identity row on each
 // side, the reach clamped onto it, and a second barrier per level.
 template <typename T>
@@ -215,10 +217,54 @@ __device__ __forceinline__ PcrSmem<T> pcr_begin(void* base, int n, int steps) {
   return PcrSmem<T>{rows + pad, n > 1024 ? 0 : n + pad, 0};
 }
 
-// One doubling level at stride st. FIRST: every diagonal is 1 (the row
-// scaling, and the identity rows) and x / 1 is x, so the level divides
-// nothing.
-template <typename T, int CPT, bool FIRST>
+// The kinds of doubling level, by the fused multiply-adds XLA:CPU makes of
+// the JAX package's PCR (ops/tridiag.py::pcr_solve, utils/numerics.py):
+//   - the first level, which reads rows (lo / di, 1 / di, up / di, b): the
+//     row-scaled bands, the scale where the diagonal (1) would be, and the
+//     unscaled right-hand side, so that each row can form b / di (= b * inv)
+//     itself. Its b takes the product b * inv (PCR_FIRST) or, for a
+//     right-hand side that is a negation, the Newton update's -r, alpha *
+//     b[i - st] (PCR_FIRST_NEG) as the contracted one; it divides nothing
+//     (every diagonal is 1, and x / 1 is x);
+//   - the levels between: both sums contracted, alpha's product first;
+//   - the last level: alpha's products rounded, beta's contracted.
+enum PcrLevel { PCR_FIRST, PCR_FIRST_NEG, PCR_MID, PCR_LAST };
+
+template <typename T> __device__ __forceinline__ T fma_rn(T a, T b, T c);
+template <> __device__ __forceinline__ float fma_rn<float>(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+template <> __device__ __forceinline__ double fma_rn<double>(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// one row o's update from its neighbours m = i - st and p = i + st; every
+// PCR of the package (block, warp, cluster) runs its levels through it
+template <typename T, int KIND>
+__device__ __forceinline__ PcrRow<T> pcr_row_update(const PcrRow<T>& o, const PcrRow<T>& m,
+                                                    const PcrRow<T>& p) {
+  if (KIND == PCR_FIRST || KIND == PCR_FIRST_NEG) {
+    const T alpha = -o.lo, beta = -o.up;
+    const T mb = m.b * m.di;
+    const T t = KIND == PCR_FIRST_NEG ? fma_rn(alpha, mb, o.b * o.di)
+                                      : fma_rn(o.b, o.di, alpha * mb);
+    return {alpha * m.lo, fma_rn(beta, p.lo, fma_rn(alpha, m.up, T(1))), beta * p.up,
+            fma_rn(beta, p.b * p.di, t)};
+  }
+  const T alpha = safe_div(-o.lo, m.di);
+  const T beta = safe_div(-o.up, p.di);
+  const T b = KIND == PCR_MID ? fma_rn(alpha, m.b, o.b) : o.b + alpha * m.b;
+  const T di = KIND == PCR_MID ? fma_rn(alpha, m.up, o.di) : o.di + alpha * m.up;
+  return {alpha * m.lo, fma_rn(beta, p.lo, di), beta * p.up, fma_rn(beta, p.b, b)};
+}
+
+// the kind of level `level` of `steps`
+__host__ __device__ inline int pcr_level_kind(int level, int steps, bool neg) {
+  return level == 0 ? (neg ? PCR_FIRST_NEG : PCR_FIRST) : (level + 1 < steps ? PCR_MID : PCR_LAST);
+}
+
+// One doubling level at stride st.
+template <typename T, int CPT, int KIND>
 __device__ __forceinline__ void pcr_level(T (&lo)[CPT], T (&di)[CPT], T (&up)[CPT],
                                           T (&b)[CPT], PcrSmem<T>& s, int n, int st) {
   PcrRow<T>* cur = s.rows + (s.turn ? s.stride : 0);
@@ -238,14 +284,12 @@ __device__ __forceinline__ void pcr_level(T (&lo)[CPT], T (&di)[CPT], T (&up)[CP
         im = im < -1 ? -1 : im;
         ip = ip > n ? n : ip;
       }
-      const PcrRow<T> m = load_row(cur + im);
-      const PcrRow<T> p = load_row(cur + ip);
-      const T alpha = FIRST ? -lo[c] : safe_div(-lo[c], m.di);
-      const T beta = FIRST ? -up[c] : safe_div(-up[c], p.di);
-      b[c] = b[c] + alpha * m.b + beta * p.b;
-      di[c] = di[c] + alpha * m.up + beta * p.lo;
-      lo[c] = alpha * m.lo;
-      up[c] = beta * p.up;
+      const PcrRow<T> q = pcr_row_update<T, KIND>(PcrRow<T>{lo[c], di[c], up[c], b[c]},
+                                                  load_row(cur + im), load_row(cur + ip));
+      lo[c] = q.lo;
+      di[c] = q.di;
+      up[c] = q.up;
+      b[c] = q.b;
     }
   }
   if (CPT > 1) __syncthreads();  // one buffer: reads done before the next write
@@ -255,9 +299,9 @@ __device__ __forceinline__ void pcr_level(T (&lo)[CPT], T (&di)[CPT], T (&up)[CP
 // (ops/tridiag.py::pcr_solve): thread t holds rows t + c * blockDim.x,
 // c < CPT, in the arrays. ceil(log2 n) = `steps` doubling levels; rows out of
 // range are the identity rows of the layout. One barrier per level with one
-// row per thread (CPT = 1), two in the wide builds. On return b[c] holds the
-// solution of row c.
-template <typename T, int CPT>
+// row per thread (CPT = 1), two with several. NEG: b is a negation (the
+// first level's kind). On return b[c] holds the solution of row c.
+template <typename T, int CPT, bool NEG>
 __device__ __forceinline__ void pcr_solve(T (&lo)[CPT], T (&di)[CPT], T (&up)[CPT],
                                           T (&b)[CPT], PcrSmem<T>& s, int n, int steps) {
 #pragma unroll
@@ -265,14 +309,23 @@ __device__ __forceinline__ void pcr_solve(T (&lo)[CPT], T (&di)[CPT], T (&up)[CP
     const T inv = T(1) / di[c];
     lo[c] = lo[c] * inv;
     up[c] = up[c] * inv;
-    b[c] = b[c] * inv;
-    di[c] = T(1);
+    di[c] = inv;  // the first level's row (PcrLevel)
   }
-  if (steps > 0) pcr_level<T, CPT, true>(lo, di, up, b, s, n, 1);
-  for (int level = 1, st = 2; level < steps; ++level, st <<= 1)
-    pcr_level<T, CPT, false>(lo, di, up, b, s, n, st);
+  if (steps > 0) pcr_level<T, CPT, NEG ? PCR_FIRST_NEG : PCR_FIRST>(lo, di, up, b, s, n, 1);
+  for (int level = 1, st = 2; level < steps; ++level, st <<= 1) {
+    if (level + 1 < steps)
+      pcr_level<T, CPT, PCR_MID>(lo, di, up, b, s, n, st);
+    else
+      pcr_level<T, CPT, PCR_LAST>(lo, di, up, b, s, n, st);
+  }
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) b[c] = b[c] / di[c];
+  for (int c = 0; c < CPT; ++c) {
+    if (steps == 0) {  // one row: b * inv, over the diagonal 1
+      b[c] = b[c] * di[c];
+      di[c] = T(1);
+    }
+    b[c] = b[c] / di[c];
+  }
 }
 
 // The same row-scaled PCR with ONE system per warp, in registers: row i of
@@ -299,42 +352,42 @@ __device__ __forceinline__ WarpRow<T> identity_row() {
   return {T(0), T(1), T(0), T(0)};
 }
 
-template <typename T, bool FIRST>
+template <typename T>
 __device__ __forceinline__ WarpRow<T> rotate(T lo, T di, T up, T b, int src) {
-  return {__shfl_sync(0xffffffffu, lo, src), FIRST ? T(1) : __shfl_sync(0xffffffffu, di, src),
+  return {__shfl_sync(0xffffffffu, lo, src), __shfl_sync(0xffffffffu, di, src),
           __shfl_sync(0xffffffffu, up, src), __shfl_sync(0xffffffffu, b, src)};
 }
 
-// one row's update from its neighbours m = i - st and p = i + st, the
-// operations of pcr_level in its order
-template <typename T, bool FIRST>
+// one row's update from its neighbours m = i - st and p = i + st
+template <typename T, int KIND>
 __device__ __forceinline__ void warp_pcr_row(T& lo, T& di, T& up, T& b, const WarpRow<T>& m,
                                              const WarpRow<T>& p) {
-  const T alpha = FIRST ? -lo : safe_div(-lo, m.di);
-  const T beta = FIRST ? -up : safe_div(-up, p.di);
-  b = b + alpha * m.b + beta * p.b;
-  di = di + alpha * m.up + beta * p.lo;
-  lo = alpha * m.lo;
-  up = beta * p.up;
+  const PcrRow<T> q = pcr_row_update<T, KIND>(PcrRow<T>{lo, di, up, b},
+                                              PcrRow<T>{m.lo, m.di, m.up, m.b},
+                                              PcrRow<T>{p.lo, p.di, p.up, p.b});
+  lo = q.lo;
+  di = q.di;
+  up = q.up;
+  b = q.b;
 }
 
-template <typename T, int S, bool FIRST, int ST>
+template <typename T, int S, int KIND, int ST>
 __device__ __forceinline__ void warp_pcr_level(T (&lo)[S], T (&di)[S], T (&up)[S], T (&b)[S],
                                                int n, int lane) {
   if (ST < 32) {
     const int src_m = (lane - ST) & 31, src_p = (lane + ST) & 31;
     const bool wrap_m = lane < ST, wrap_p = lane + ST >= 32;
     WarpRow<T> below = identity_row<T>();  // slot s - 1 rotated up
-    WarpRow<T> here_p = rotate<T, FIRST>(lo[0], di[0], up[0], b[0], src_p);
+    WarpRow<T> here_p = rotate<T>(lo[0], di[0], up[0], b[0], src_p);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const WarpRow<T> here_m = rotate<T, FIRST>(lo[s], di[s], up[s], b[s], src_m);
+      const WarpRow<T> here_m = rotate<T>(lo[s], di[s], up[s], b[s], src_m);
       const int a = s + 1 < S ? s + 1 : s;
       const WarpRow<T> above_p =
-          s + 1 < S ? rotate<T, FIRST>(lo[a], di[a], up[a], b[a], src_p) : identity_row<T>();
+          s + 1 < S ? rotate<T>(lo[a], di[a], up[a], b[a], src_p) : identity_row<T>();
       if (lane + 32 * s < n)
-        warp_pcr_row<T, FIRST>(lo[s], di[s], up[s], b[s], wrap_m ? below : here_m,
-                               wrap_p ? above_p : here_p);
+        warp_pcr_row<T, KIND>(lo[s], di[s], up[s], b[s], wrap_m ? below : here_m,
+                              wrap_p ? above_p : here_p);
       below = here_m;
       here_p = above_p;
     }
@@ -346,16 +399,26 @@ __device__ __forceinline__ void warp_pcr_level(T (&lo)[S], T (&di)[S], T (&up)[S
 #pragma unroll
     for (int s = 0; s < S; ++s)
       if (lane + 32 * s < n)
-        warp_pcr_row<T, FIRST>(lo[s], di[s], up[s], b[s],
-                               s - D >= 0 ? old[s - D >= 0 ? s - D : 0] : identity_row<T>(),
-                               s + D < S ? old[s + D < S ? s + D : 0] : identity_row<T>());
+        warp_pcr_row<T, KIND>(lo[s], di[s], up[s], b[s],
+                              s - D >= 0 ? old[s - D >= 0 ? s - D : 0] : identity_row<T>(),
+                              s + D < S ? old[s + D < S ? s + D : 0] : identity_row<T>());
   }
 }
 
+// level `level` >= 1 at stride ST: the last one or one between
+template <typename T, int S, int ST>
+__device__ __forceinline__ void warp_pcr_later(T (&lo)[S], T (&di)[S], T (&up)[S], T (&b)[S],
+                                               int n, int steps, int level, int lane) {
+  if (level + 1 < steps)
+    warp_pcr_level<T, S, PCR_MID, ST>(lo, di, up, b, n, lane);
+  else
+    warp_pcr_level<T, S, PCR_LAST, ST>(lo, di, up, b, n, lane);
+}
+
 // Solve the warp's system of n rows (ceil(log2 n) = `steps` levels, as
-// pcr_solve); on return b[s] holds the solution of row lane + 32 s. Every
-// lane of the warp calls it.
-template <typename T, int S>
+// pcr_solve, NEG likewise); on return b[s] holds the solution of row
+// lane + 32 s. Every lane of the warp calls it.
+template <typename T, int S, bool NEG>
 __device__ __forceinline__ void warp_pcr_solve(T (&lo)[S], T (&di)[S], T (&up)[S], T (&b)[S],
                                                int n, int steps, int lane) {
   static_assert(S >= 1 && S <= 8, "a warp holds at most 256 rows");
@@ -365,138 +428,30 @@ __device__ __forceinline__ void warp_pcr_solve(T (&lo)[S], T (&di)[S], T (&up)[S
       const T inv = T(1) / di[s];
       lo[s] = lo[s] * inv;
       up[s] = up[s] * inv;
-      b[s] = b[s] * inv;
+      di[s] = inv;  // the first level's row (PcrLevel)
     } else {
       lo[s] = T(0);
       up[s] = T(0);
       b[s] = T(0);
-    }
-    di[s] = T(1);
-  }
-  if (steps > 0) warp_pcr_level<T, S, true, 1>(lo, di, up, b, n, lane);
-  if (steps > 1) warp_pcr_level<T, S, false, 2>(lo, di, up, b, n, lane);
-  if (steps > 2) warp_pcr_level<T, S, false, 4>(lo, di, up, b, n, lane);
-  if (steps > 3) warp_pcr_level<T, S, false, 8>(lo, di, up, b, n, lane);
-  if (steps > 4) warp_pcr_level<T, S, false, 16>(lo, di, up, b, n, lane);
-  if (steps > 5) warp_pcr_level<T, S, false, 32>(lo, di, up, b, n, lane);
-  if (steps > 6) warp_pcr_level<T, S, false, 64>(lo, di, up, b, n, lane);
-  if (steps > 7) warp_pcr_level<T, S, false, 128>(lo, di, up, b, n, lane);
-#pragma unroll
-  for (int s = 0; s < S; ++s) b[s] = b[s] / di[s];
-}
-
-// -- THE WIDE BUILDS of K10 and K11 (pcr.cu, newton_t0.cu above n = 4096):
-// one block of WIDE_THREADS threads per system, rows strided over them (row
-// i at thread i % WIDE_THREADS), and every per-row value in a workspace of
-// device memory that the block owns (the state of 32768 rows does not fit
-// an SM's registers and shared memory). 512 threads leave a thread 128
-// registers. A block loops over systems m, m + gridDim.x, ..., so the
-// workspace scales with the blocks launched, not with K. The workspace is
-// read and written through plain pointers: a load through the read-only
-// path (const __restrict__, ld.global.nc) is not coherent with the block's
-// own writes. A __syncthreads() orders the block's global writes before its
-// reads as it orders shared ones. (The year kernels' wide grids run on
-// thread-block clusters instead, cluster.cuh.)
-//
-// The PCR of a wide block: two buffers of rows in the workspace, each with
-// one identity row on each side, written level by level in turn:
-//   [I][buffer 0: n][I] [I][buffer 1: n][I]
-// A level reads its row and the rows at i -+ st of one buffer, the reach
-// clamped onto the identity rows (the semantics of pcr_level's CPT > 1
-// branch, and of ops/tridiag.py::pcr_solve's fills), and writes the next
-// buffer: one barrier per level (write, ONE barrier, read, as above).
-constexpr int WIDE_THREADS = 512;
-
-template <typename T>
-struct WidePcr {
-  PcrRow<T>* rows;  // row 0 of buffer 0; buffer 1 is n + 2 rows on
-  int n;
-};
-
-// words of T the two buffers take
-__host__ __device__ inline size_t wide_pcr_words(int n) { return 8 * (size_t)(n + 2); }
-
-// Lay the buffers out at the start of the block's workspace (aligned to a
-// row) and write the identity rows, once per kernel: no level writes them.
-// The barrier before a solve's first level orders them before any read.
-template <typename T>
-__device__ __forceinline__ WidePcr<T> wide_pcr_begin(T* ws, int n) {
-  PcrRow<T>* rows = reinterpret_cast<PcrRow<T>*>(ws) + 1;
-  if (threadIdx.x < 4) {  // rows -1 and n of both buffers
-    PcrRow<T>* buf = rows + (threadIdx.x >> 1) * (n + 2);
-    store_row(buf + ((threadIdx.x & 1) ? n : -1), T(0), T(1), T(0), T(0));
-  }
-  return WidePcr<T>{rows, n};
-}
-
-// row i of the system into buffer 0, row-scaled as pcr_solve scales it
-template <typename T>
-__device__ __forceinline__ void wide_pcr_row(const WidePcr<T>& s, int i, T lo, T di, T up,
-                                             T b) {
-  const T inv = T(1) / di;
-  store_row(s.rows + i, lo * inv, T(1), up * inv, b * inv);
-}
-
-// One doubling level at stride st, the operations of pcr_level in its
-// order. A thread loads ROWS of its rows (each with its two neighbours)
-// before it computes and stores any: the compiler cannot move a load past
-// a store to the other buffer, so one row at a time would wait out a
-// device-memory round trip per row.
-template <typename T, bool FIRST>
-__device__ __forceinline__ void wide_pcr_level(const PcrRow<T>* cur, PcrRow<T>* next, int n,
-                                               int st) {
-  constexpr int ROWS = 16 / sizeof(T);
-  for (int i0 = threadIdx.x; i0 < n; i0 += ROWS * blockDim.x) {
-    PcrRow<T> o[ROWS], m[ROWS], p[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int i = i0 + r * blockDim.x;
-      if (i < n) {
-        o[r] = load_row(cur + i);
-        m[r] = load_row(cur + (i - st < -1 ? -1 : i - st));
-        p[r] = load_row(cur + (i + st > n ? n : i + st));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int i = i0 + r * blockDim.x;
-      if (i < n) {
-        const T alpha = FIRST ? -o[r].lo : safe_div(-o[r].lo, m[r].di);
-        const T beta = FIRST ? -o[r].up : safe_div(-o[r].up, p[r].di);
-        const T b = o[r].b + alpha * m[r].b + beta * p[r].b;
-        const T di = o[r].di + alpha * m[r].up + beta * p[r].lo;
-        store_row(next + i, alpha * m[r].lo, di, beta * p[r].up, b);
-      }
+      di[s] = T(1);
     }
   }
-  __syncthreads();
-}
-
-// Solve the system whose rows every thread wrote to buffer 0
-// (wide_pcr_row): ceil(log2 n) = `steps` levels, one barrier before the
-// first and one after each. Returns the buffer of the reduced rows: row i's
-// solution is its b / di (wide_pcr_x). Every thread of the block calls it.
-template <typename T>
-__device__ __forceinline__ const PcrRow<T>* wide_pcr_solve(const WidePcr<T>& s, int steps) {
-  PcrRow<T>* cur = s.rows;
-  PcrRow<T>* next = s.rows + (s.n + 2);
-  __syncthreads();
-  for (int level = 0, st = 1; level < steps; ++level, st <<= 1) {
-    if (level == 0)
-      wide_pcr_level<T, true>(cur, next, s.n, st);
-    else
-      wide_pcr_level<T, false>(cur, next, s.n, st);
-    PcrRow<T>* sw = cur;
-    cur = next;
-    next = sw;
+  if (steps > 0) warp_pcr_level<T, S, NEG ? PCR_FIRST_NEG : PCR_FIRST, 1>(lo, di, up, b, n, lane);
+  if (steps > 1) warp_pcr_later<T, S, 2>(lo, di, up, b, n, steps, 1, lane);
+  if (steps > 2) warp_pcr_later<T, S, 4>(lo, di, up, b, n, steps, 2, lane);
+  if (steps > 3) warp_pcr_later<T, S, 8>(lo, di, up, b, n, steps, 3, lane);
+  if (steps > 4) warp_pcr_later<T, S, 16>(lo, di, up, b, n, steps, 4, lane);
+  if (steps > 5) warp_pcr_later<T, S, 32>(lo, di, up, b, n, steps, 5, lane);
+  if (steps > 6) warp_pcr_later<T, S, 64>(lo, di, up, b, n, steps, 6, lane);
+  if (steps > 7) warp_pcr_later<T, S, 128>(lo, di, up, b, n, steps, 7, lane);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (steps == 0) {  // one row: b * inv, over the diagonal 1
+      b[s] = b[s] * di[s];
+      di[s] = T(1);
+    }
+    b[s] = b[s] / di[s];
   }
-  return cur;
-}
-
-template <typename T>
-__device__ __forceinline__ T wide_pcr_x(const PcrRow<T>* rows, int i) {
-  const PcrRow<T> r = load_row(rows + i);
-  return r.b / r.di;
 }
 
 // the per-block stride of a wide workspace: `words` rounded up to 32 words,
@@ -505,7 +460,8 @@ __host__ __device__ inline size_t wide_stride(size_t words) { return (words + 31
 
 // rows per thread of a block that strides n rows over at most 1024 threads:
 // the least power of two that is enough (1, 2 or 4 up to n = 4096, the
-// register builds; more in the wide builds)
+// register builds; more where the cluster builds sum a crossing area in
+// their order)
 __host__ __device__ inline int rows_per_thread(int n) {
   int cpt = 1;
   while (cpt * 1024 < n) cpt *= 2;

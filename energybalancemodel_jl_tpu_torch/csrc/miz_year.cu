@@ -21,7 +21,8 @@
 // exists for, pallas_year.py:3-14). A raw-collected year (raw != nullptr)
 // also writes every step's ten outputs, raw[t][var][member][cell].
 //
-// Per step (models/miz.py::step, line for line, same operation order):
+// Per step (models/miz.py::step, line for line, same operation order, the
+// fused multiply-adds at its sites as fma_rn):
 //   - insolation (S0 - (S1 x) cos 2pi t) - S2 x^2 and coalbedo a0 - a2 x^2
 //     from the member's parameter row, forcing f[t] + F;
 //   - warm-started Newton for T0 with tolerance max(abstol, reltol |r0|),
@@ -131,6 +132,13 @@ __device__ __forceinline__ void miz_derive(T* p) {
   p[Q_TWO_RL] = T(2) * p[P_RL];
 }
 
+// the insolation of a cell at x (x2 = x^2) for cos(2 pi t) = c
+// (models/miz.py::insolation): S0 - (S1 x) c, then - S2 x^2, both contracted
+template <typename T>
+__device__ __forceinline__ T miz_insol(const T* p, T x, T x2, T c) {
+  return fma_rn(-p[P_S2], x2, fma_rn(-(p[P_S1] * x), c, p[P_S0]));
+}
+
 // The step after the Newton solve (models/miz.py::step, its subnormal
 // flushes included), for one cell, shared by the block and the cluster builds:
 // miz_head before the Tb exchange, miz_tail after it.
@@ -158,29 +166,37 @@ __device__ __forceinline__ MizHead<T> miz_head(const MizStep<T>& sp, T T0, T h, 
   const bool zeroD = Df == T(0);
   o.n = flush_subnormal(zeroD ? T(0) : phi / (sp.alpha * (Df * Df)));
 
-  o.Tb = o.Ti * phi + water;
-  o.L = sp.A + sp.B * (o.Tb - sp.Tm);
+  o.Tb = fma_rn(o.Ti, phi, water);
+  o.L = fma_rn(sp.B, o.Tb - sp.Tm, sp.A);
   return o;
 }
 
 // s: the cell's fields, updated in place; out: the step's outputs
 template <typename T>
 __device__ __forceinline__ void miz_tail(const T* p, const MizStep<T>& sp, const MizHead<T>& hd,
-                                         MizState<T>& s, T Tw, T solar, T insol, T x2, T glo,
-                                         T gdi, T gup, T Tbm1, T Tbp1, T (&out)[N_OUT]) {
+                                         MizState<T>& s, T Tw, T insol, T x2, T glo, T gdi,
+                                         T gup, T Tbm1, T Tbp1, T (&out)[N_OUT]) {
   const T pi = T(3.14159265358979323846);
   const T Lf = sp.Lf, alpha = sp.alpha, Dmin = sp.Dmin, hmin = sp.hmin, dt = sp.dt;
   const T Ti = hd.Ti, n = hd.n, Ei = s.Ei, Ew = s.Ew, h = s.h, Df = s.Df, phi = s.phi;
   const bool zeroD = Df == T(0);
-  const T dTb = sp.D * (glo * Tbm1 + gdi * hd.Tb + gup * Tbp1);
-  const T aw = p[P_A0] - p[P_A2] * x2;  // water coalbedo
-  const T Fvi = solar - hd.L + dTb + p[P_FB] + sp.f;
-  const T Fvw = aw * insol - hd.L + dTb + p[P_FB] + sp.f;
+  const T lap = fma_rn(gup, Tbp1, fma_rn(glo, Tbm1, gdi * hd.Tb));
+  const T aw = fma_rn(-p[P_A2], x2, p[P_A0]);  // water coalbedo
+  const T base_i = fma_rn(p[P_AI], insol, -hd.L);
+  const T base_w = fma_rn(aw, insol, -hd.L);
+  // D lap: rounded where the JAX step reads both fluxes, contracted where
+  // it reads one (models/miz.py::step)
+  const T dTb = sp.D * lap;
+  const T Fvi = base_i + dTb + p[P_FB] + sp.f;
+  const T Fvw = base_w + dTb + p[P_FB] + sp.f;
+  const T Fvi_1 = fma_rn(sp.D, lap, base_i) + p[P_FB] + sp.f;
+  const T Fvw_1 = fma_rn(sp.D, lap, base_w) + p[P_FB] + sp.f;
   const T wl = p[P_M1] * (Tw - p[P_TM_POW_M2]);
   const T Flat = zeroD ? T(0) : phi * h * Lf * wl * pi / (alpha * Df);
 
-  const T rEi = Ei + (phi * Fvi + Flat) * dt;
-  const T rEw = Ew + ((T(1) - phi) * Fvw - Flat) * dt;
+  const T rEi = fma_rn(fma_rn(phi, Fvi, Flat), dt, Ei);
+  const T rEw = fma_rn(fma_rn(T(1) - phi, Fvw, -Flat), dt, Ew);
+  const T rEw_1 = fma_rn(fma_rn(T(1) - phi, Fvw_1, -Flat), dt, Ew);
   const T cEi = nan_min(rEi, T(0));
   const T cEw = nan_max(rEw, T(0));
   const T psiEidt = rEi - cEi;
@@ -189,34 +205,33 @@ __device__ __forceinline__ void miz_tail(const T* p, const MizStep<T>& sp, const
   const T Ew1 = flush_subnormal(cEw + psiEidt);
 
   const T Drl = Df + p[Q_TWO_RL];
-  const T ring = alpha * n * (Drl * Drl - Df * Df);
+  const T ring = alpha * n * fma_rn(Drl, Drl, -(Df * Df));
   const T Al = nan_min(ring, T(1) - phi);
-  const T psiEw = psiEwdt / dt;
+  const T psiEw = (rEw_1 - nan_max(rEw_1, T(0))) * (T(1) / dt);
   const T Ql = phi == T(1) ? T(0) : Al / (T(1) - phi) * psiEw;
   const T Qp = psiEw - Ql;
-  const T dn = dt * (-Qp / p[Q_DN_DEN]);
+  const T q = -Qp / p[Q_DN_DEN];  // dn = q dt
 
-  const T lat_melt = p[Q_LAT_MELT] * wl;
   const T lg_den = flush_subnormal(p[Q_TWO_LF] * h * phi);
   T lat_grow = lg_den == T(0) ? T(0) : -Df / lg_den * Ql;
   if (h == T(0)) lat_grow = T(0);
-  const T weld = p[Q_WELD] * phi * (Df * (Df * Df));
-  const T rD = Df + (lat_melt + lat_grow + weld) * dt;
-  const T total = flush_subnormal(n + dn);
+  const T weld_c = p[Q_WELD] * phi;
+  const T rD = fma_rn(fma_rn(weld_c, Df * Df * Df, fma_rn(p[Q_LAT_MELT], wl, lat_grow)), dt, Df);
+  const T total = flush_subnormal(fma_rn(q, dt, n));
   const bool zero_total = total == T(0);
-  T D1 = zero_total ? T(0) : (n * rD + dn * Dmin) / total;
+  T D1 = zero_total ? T(0) : fma_rn(q, Dmin * dt, n * rD) / total;
   D1 = nan_min(nan_max(D1, Dmin), p[P_DMAX]);
   if (Ei1 == T(0)) D1 = T(0);
 
-  const T rh = nan_max(h + (p[Q_NEG_INV_LF] * Fvi) * dt, T(0));
-  const T h1 = flush_subnormal(zero_total ? T(0) : (n * rh + dn * hmin) / total);
+  const T rh = nan_max(fma_rn(p[Q_NEG_INV_LF] * Fvi_1, dt, h), T(0));
+  const T h1 = flush_subnormal(zero_total ? T(0) : fma_rn(q, hmin * dt, n * rh) / total);
 
   T phi1 = flush_subnormal(h1 == T(0) ? T(0) : -Ei1 / (Lf * h1));
   if (phi1 > T(1)) phi1 = T(1);
 
   if (h1 == T(0)) Ei1 = T(0);
-  const T E = phi1 * Ei1 + (T(1) - phi1) * Ew1;
-  const T Tbar = Ti * phi1 + (T(1) - phi1) * Tw;
+  const T E = fma_rn(phi1, Ei1, (T(1) - phi1) * Ew1);
+  const T Tbar = fma_rn(Ti, phi1, (T(1) - phi1) * Tw);
   const T Ti_out = Ei1 == T(0) ? quiet_nan<T>() : Ti;
   const T Tw_out = phi1 > T(0.99) ? quiet_nan<T>() : Tw;
 
@@ -290,7 +305,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     // used: held in registers across the year they cost a block per SM
     const T Tm = p[P_TM], A = p[P_A], B = p[P_B], D = p[P_D], cw = p[P_CW];
     // -- step inputs ------------------------------------------------------
-    const T insol = (p[P_S0] - (p[P_S1] * x) * cosv[t]) - p[P_S2] * x2;
+    const T insol = miz_insol(p, x, x2, cosv[t]);
     T f = fyear[t] + p[P_F];
     if (NOISY) f = noise_forcing(nz, ns, f, t);
 
@@ -301,19 +316,20 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     cell[0].phi = phi;
     cell[0].water = (T(1) - phi) * Tw;
     cell[0].solar = p[P_AI] * insol;
+    cell[0].insol = insol;
     cell[0].kh = h == T(0) ? p[P_HMIN] : h;
-    const T0Par<T> tp{p[P_K], Tm, A, B, D, f};
+    const T0Par<T> tp{p[P_K], Tm, A, B, D, f, p[P_AI]};
 
     // -- Newton for T0 (per member) ---------------------------------------
     T r[1] = {T(0)}, jlo[1] = {T(0)}, jdi[1] = {T(1)}, jup[1] = {T(0)};
-    t0_residual_bands<T, 1, true, false>(T0, cell, tp, halo, nx, r, jlo, jdi, jup);
+    t0_residual_bands<T, 1, true, false, true>(T0, cell, tp, halo, nx, r, jlo, jdi, jup);
     T rnorm = block_max_magnitude(active ? abs_val(r[0]) : T(0), red);
     const T tol = nan_max(abstol, reltol * rnorm);
     for (int it = 0; it < max_iter && rnorm > tol; ++it) {
       T delta[1] = {-r[0]};
-      pcr_solve<T, 1>(jlo, jdi, jup, delta, pcr, nx, pcr_steps);
+      pcr_solve<T, 1, true>(jlo, jdi, jup, delta, pcr, nx, pcr_steps);
       if (active) T0[0] = T0[0] + clip_step(delta[0], max_step);
-      t0_residual_bands<T, 1, true, false>(T0, cell, tp, halo, nx, r, jlo, jdi, jup);
+      t0_residual_bands<T, 1, true, false, false>(T0, cell, tp, halo, nx, r, jlo, jdi, jup);
       rnorm = block_max_magnitude(active ? abs_val(r[0]) : T(0), red);
       if (COUNT && i == 0) ++n_updates;
     }
@@ -328,8 +344,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     exchange_rolled(hd.Tb, halo, i, nx, Tbm1, Tbp1);
     MizState<T> st{Ei, Ew, h, Df, phi};
     T out[N_OUT];
-    miz_tail(p, sp, hd, st, Tw, cell[0].solar, insol, x2, cell[0].glo, cell[0].gdi,
-             cell[0].gup, Tbm1, Tbp1, out);
+    miz_tail(p, sp, hd, st, Tw, insol, x2, cell[0].glo, cell[0].gdi, cell[0].gup, Tbm1, Tbp1,
+             out);
     Ei = st.Ei;
     Ew = st.Ew;
     h = st.h;
@@ -485,30 +501,38 @@ __global__ void __launch_bounds__(miz_cluster_threads<T>(), 1)
   // the record of local cell li, the frozen inputs of its residual, and its
   // neighbours on the rolled grid
   auto rec = [&](int li) { return Rec<T>{fld + li, cs.slice}; };
-  auto cell = [&](int li) {
+  auto cell = [&](int li, T insol) {
     const Rec<T> c = rec(li);
     const int i = cs.lo + li;
-    return T0Cell<T>{glo[i], gdi[i], gup[i], c[F_PHI], c[F_WATER], c[F_SOLAR], c[F_KH]};
+    return T0Cell<T>{glo[i], gdi[i], gup[i], c[F_PHI], c[F_WATER], c[F_SOLAR], insol, c[F_KH]};
   };
   auto left = [&](int i) { return i == 0 ? nx - 1 : i - 1; };
   auto right = [&](int i) { return i == nx - 1 ? 0 : i + 1; };
   // the write half of the residual's exchange: cell li's (Tb, g) into cur
   auto t0_put = [&](Pair<T>* cur, const T0Par<T>& tp, int li) {
-    const Pair<T> v = t0_tb_g(rec(li)[F_T0], cell(li), tp);
+    const Pair<T> v = t0_tb_g(rec(li)[F_T0], cell(li, T(0)), tp);
     store_pair(cur + li, v.a, v.b);
   };
   // the read half, after the cluster barrier that follows every rank's puts:
   // each of the thread's cells' residual and Jacobian row, written as the row
   // of the Newton update's system (jlo, jdi, jup | -r); the largest
-  // magnitude key of their |r| (0 for a thread with none)
-  auto t0_rows = [&](Pair<T>* cur, const T0Par<T>& tp) {
+  // magnitude key of their |r| (0 for a thread with none). The step's first
+  // residual (t >= 0) contracts ai insol, the others (t < 0) add `solar`
+  auto t0_rows = [&](Pair<T>* cur, const T0Par<T>& tp, int t) {
     MagnitudeKey<T> key = 0;
     for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
       const int i = cs.lo + li;
       T r, jlo, jdi, jup;
-      t0_row<T, false>(rec(li)[F_T0], cell(li), tp, load_pair(cur + li),
-                       load_pair(cluster_at(cur, cs, left(i))),
-                       load_pair(cluster_at(cur, cs, right(i))), r, jlo, jdi, jup);
+      const Pair<T> own = load_pair(cur + li);
+      const Pair<T> m = load_pair(cluster_at(cur, cs, left(i)));
+      const Pair<T> q = load_pair(cluster_at(cur, cs, right(i)));
+      if (t >= 0)
+        t0_row<T, false, true>(rec(li)[F_T0], cell(li, miz_insol(p, cols[i], cols[nx + i],
+                                                                 cosv[t])),
+                               tp, own, m, q, r, jlo, jdi, jup);
+      else
+        t0_row<T, false, false>(rec(li)[F_T0], cell(li, T(0)), tp, own, m, q, r, jlo, jdi,
+                                jup);
       cluster_pcr_row(pcr, li, jlo, jdi, jup, -r);
       const MagnitudeKey<T> k = magnitude_key(abs_val(r));
       key = k > key ? k : key;
@@ -538,7 +562,7 @@ __global__ void __launch_bounds__(miz_cluster_threads<T>(), 1)
       const T Tm = p[P_TM], A = p[P_A], B = p[P_B], D = p[P_D], cw = p[P_CW];
       T f = fyear[t] + p[P_F];
       if (NOISY) f = noise_forcing(nz, ns, f, t);
-      const T0Par<T> tp{p[P_K], Tm, A, B, D, f};
+      const T0Par<T> tp{p[P_K], Tm, A, B, D, f, p[P_AI]};
 
       // -- step inputs, and the first residual's exchange ------------------
       Pair<T>* cur = halo[hturn];
@@ -546,7 +570,7 @@ __global__ void __launch_bounds__(miz_cluster_threads<T>(), 1)
       for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
         const Rec<T> c = rec(li);
         const int i = cs.lo + li;
-        const T insol = (p[P_S0] - (p[P_S1] * cols[i]) * cosv[t]) - p[P_S2] * cols[nx + i];
+        const T insol = miz_insol(p, cols[i], cols[nx + i], cosv[t]);
         const T ph = c[F_PHI];
         const T den = (T(1) - ph) * cw;
         T tw = Tm + (den == T(0) ? T(0) : c[W_EW] / den);
@@ -561,10 +585,10 @@ __global__ void __launch_bounds__(miz_cluster_threads<T>(), 1)
 
       // -- Newton for T0 (per member); the max's cluster barrier also orders
       // the rows before the solve's first level -----------------------------
-      T rnorm = cluster_max_key<T>(t0_rows(cur, tp), red, cs);
+      T rnorm = cluster_max_key<T>(t0_rows(cur, tp, t), red, cs);
       const T tol = nan_max(abstol, reltol * rnorm);
       for (int it = 0; it < max_iter && rnorm > tol; ++it) {
-        const PcrRow<T>* solved = cluster_pcr_solve(pcr, cs, pcr_steps);
+        const PcrRow<T>* solved = cluster_pcr_solve<T, true>(pcr, cs, pcr_steps);
         cur = halo[hturn];
         hturn ^= 1;
         for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
@@ -573,7 +597,7 @@ __global__ void __launch_bounds__(miz_cluster_threads<T>(), 1)
           t0_put(cur, tp, li);
         }
         cluster_sync();
-        rnorm = cluster_max_key<T>(t0_rows(cur, tp), red, cs);
+        rnorm = cluster_max_key<T>(t0_rows(cur, tp, -1), red, cs);
         if (COUNT && threadIdx.x == 0) ++n_updates;
       }
       conv_m = nan_min(conv_m, rnorm <= tol ? T(1) : T(0));
@@ -596,10 +620,10 @@ __global__ void __launch_bounds__(miz_cluster_threads<T>(), 1)
         const int i = cs.lo + li;
         const MizHead<T> hd = miz_head(sp, c[F_T0], c[W_H], c[W_D], c[F_PHI], c[F_WATER]);
         const T x2 = cols[nx + i];
-        const T insol = (p[P_S0] - (p[P_S1] * cols[i]) * cosv[t]) - p[P_S2] * x2;
+        const T insol = miz_insol(p, cols[i], x2, cosv[t]);
         MizState<T> st{c[W_EI], c[W_EW], c[W_H], c[W_D], c[F_PHI]};
         T out[N_OUT];
-        miz_tail(p, sp, hd, st, c[W_TW], c[F_SOLAR], insol, x2, glo[i], gdi[i], gup[i],
+        miz_tail(p, sp, hd, st, c[W_TW], insol, x2, glo[i], gdi[i], gup[i],
                  cluster_at(cur, cs, left(i))->a, cluster_at(cur, cs, right(i))->a, out);
         c[W_EI] = st.Ei;
         c[W_EW] = st.Ew;
@@ -795,13 +819,8 @@ int plan(int nx, int nt, int K, int noisy, int ou_mode, int count, int force_c, 
   else
     err = count ? miz_cluster_plan<T, false, true>(nx, nt, K, ou_mode, force_c, p)
                 : miz_cluster_plan<T, false, false>(nx, nt, K, ou_mode, force_c, p);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = p.C;
-  out[1] = p.threads;
-  out[2] = p.records_shared;
-  out[3] = p.clusters;
-  out[4] = (int)p.shmem;
-  return 0;
+  if (err == cudaSuccess) plan_out(p, out);
+  return (int)err;
 }
 
 }  // namespace

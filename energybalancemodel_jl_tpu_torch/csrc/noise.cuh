@@ -19,14 +19,6 @@
 
 namespace {
 
-template <typename T> __device__ __forceinline__ T fma_rn(T a, T b, T c);
-template <> __device__ __forceinline__ float fma_rn<float>(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-template <> __device__ __forceinline__ double fma_rn<double>(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-
 // ou_mode: 0 the row is added as it is, 1 serial OU over the row, 2 the
 // row replaced by its log-depth OU path before the time loop
 template <typename T>

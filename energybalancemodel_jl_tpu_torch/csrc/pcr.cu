@@ -14,9 +14,13 @@
 //   - n > 256: ONE THREAD BLOCK PER SYSTEM (pcr_solve), rows strided over at
 //     most 1024 threads (1, 2 or 4 rows per thread, n <= 4096) in shared
 //     memory;
-//   - n > 4096 (up to 32768): the wide build (common.cuh), one block per
-//     system with its rows in a workspace of device memory, each block
-//     solving systems m, m + gridDim.x, ...
+//   - n > 4096 (up to 32768): the CLUSTER build (pcr_cluster_kernel,
+//     cluster.cuh), one thread-block cluster of C blocks per system, rank r
+//     holding rows [r slice, (r + 1) slice) in its shared memory and reading
+//     the other ranks' rows through distributed shared memory behind one
+//     cluster barrier per level (per pair of levels in float32 where a block
+//     holds a row per thread); the clusters solve systems m, m + clusters,
+//     ... The C side plans C (ebm_pcr_plan_*).
 //
 // Bands are shared by all systems (row stride 0) or one row per system
 // (row stride n); the right-hand side and the solution are (K, n).
@@ -28,7 +32,7 @@
 // layout leaves each lane S independent rows and the instructions of the
 // levels (two IEEE divisions and eight shuffles per row and level), which
 // bound it above the byte bound.
-#include "common.cuh"
+#include "cluster.cuh"
 
 namespace {
 
@@ -51,7 +55,7 @@ __global__ void __launch_bounds__(1024)
     u[c] = in ? up[m * up_stride + i] : T(0);
     r[c] = in ? b[m * n + i] : T(0);
   }
-  pcr_solve<T, CPT>(l, d, u, r, s, n, steps);
+  pcr_solve<T, CPT, false>(l, d, u, r, s, n, steps);
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int i = threadIdx.x + c * blockDim.x;
@@ -61,24 +65,52 @@ __global__ void __launch_bounds__(1024)
 
 constexpr int MAX_WIDE_N = 32768;
 
-__host__ __device__ inline size_t pcr_wide_words(int n) { return wide_stride(wide_pcr_words(n)); }
+// the most threads per block of the cluster build: 512 leave a thread the
+// 128 registers a level's batch of rows takes (1024 spilled)
+constexpr int PCR_CLUSTER_THREADS = 512;
 
-// the wide build: each thread writes its rows to the workspace (a thread
-// reads back only its own rows of the last solve before it writes the next
-// system's, so the systems need no barrier between them)
+// The cluster build: each rank writes its rows of system m to the buffer
+// the last solve wrote (each thread read back only its own rows of it),
+// one cluster barrier, the solve, and each rank writes its rows' solution.
+// The next system's rows follow the same way: the barrier before its solve
+// is reached by every rank only after its reads of this one.
 template <typename T>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
-    pcr_wide_kernel(const T* __restrict__ lo, const T* __restrict__ di,
-                    const T* __restrict__ up, const T* __restrict__ b, T* __restrict__ x,
-                    T* ws, int K, int n, int lo_stride, int di_stride, int up_stride, int steps) {
-  const WidePcr<T> s = wide_pcr_begin(ws + (size_t)blockIdx.x * pcr_wide_words(n), n);
-  for (size_t m = blockIdx.x; m < (size_t)K; m += gridDim.x) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      wide_pcr_row(s, i, lo[m * lo_stride + i], di[m * di_stride + i], up[m * up_stride + i],
-                   b[m * n + i]);
-    const PcrRow<T>* solved = wide_pcr_solve(s, steps);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) x[m * n + i] = wide_pcr_x(solved, i);
+__global__ void __launch_bounds__(PCR_CLUSTER_THREADS, 1)
+    pcr_cluster_kernel(const T* __restrict__ lo, const T* __restrict__ di,
+                       const T* __restrict__ up, const T* __restrict__ b, T* __restrict__ x,
+                       int K, int n, int lo_stride, int di_stride, int up_stride, int steps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ClusterSlice cs = cluster_slice(n);
+  PcrRow<T>* rows = reinterpret_cast<PcrRow<T>*>(smem_raw);
+  ClusterPcr<T> pcr{{rows, rows + cs.slice}, 0};
+  const int clusters = gridDim.x / cs.C;
+  for (size_t m = blockIdx.x / cs.C; m < (size_t)K; m += clusters) {
+    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
+      const int i = cs.lo + li;
+      cluster_pcr_row(pcr, li, lo[m * lo_stride + i], di[m * di_stride + i],
+                      up[m * up_stride + i], b[m * n + i]);
+    }
+    cluster_sync();
+    const PcrRow<T>* solved = cluster_pcr_solve<T, false>(pcr, cs, steps);
+    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x)
+      x[m * n + cs.lo + li] = cluster_pcr_x(solved, li);
   }
+  cluster_sync();  // no block leaves while another rank can read its shared memory
+}
+
+// The C side's plan of the cluster build (cluster.cuh::choose_cluster): the
+// rows' two buffers in every rank's shared memory (no records, no
+// workspace); an error when it cannot launch.
+template <typename T>
+cudaError_t pcr_cluster_plan(int n, int K, int force_c, ClusterPlan& plan) {
+  return choose_cluster(K, force_c, plan, [&](int C, ClusterPlan& p) {
+    p.C = C;
+    p.threads = cluster_threads(n, C, PCR_CLUSTER_THREADS);
+    p.records_shared = 1;
+    p.shmem = 2 * (size_t)cluster_slice_cells(n, C) * sizeof(PcrRow<T>);
+    if (p.shmem > CLUSTER_SHARED_BUDGET) return cudaErrorInvalidValue;
+    return cluster_occupancy(pcr_cluster_kernel<T>, p);
+  });
 }
 
 template <typename T, int S, int WARPS, int MIN_BLOCKS>
@@ -99,7 +131,7 @@ __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
     u[s] = in ? up[m * up_stride + i] : T(0);
     r[s] = in ? b[m * n + i] : T(0);
   }
-  warp_pcr_solve<T, S>(l, d, u, r, n, steps, lane);
+  warp_pcr_solve<T, S, false>(l, d, u, r, n, steps, lane);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int i = lane + 32 * s;
@@ -144,30 +176,29 @@ int launch_cells(cudaStream_t stream, const void* lo, const void* di, const void
   return (int)cudaGetLastError();
 }
 
-// the wide build on min(K, ws_blocks) blocks, each with its workspace of
-// pcr_wide_words(n) words at ws
+// the cluster build on min(K, resident) clusters of the plan
 template <typename T>
-int launch_wide(cudaStream_t stream, const void* lo, const void* di, const void* up,
-                const void* b, void* x, void* ws, int K, int n, int lo_stride, int di_stride,
-                int up_stride, int steps, int ws_words, int ws_blocks) {
-  if (ws == nullptr || ws_blocks < 1 || (size_t)ws_words != pcr_wide_words(n))
-    return (int)cudaErrorInvalidValue;
-  pcr_wide_kernel<T><<<K < ws_blocks ? K : ws_blocks, WIDE_THREADS, 0, stream>>>(
-      static_cast<const T*>(lo), static_cast<const T*>(di), static_cast<const T*>(up),
-      static_cast<const T*>(b), static_cast<T*>(x), static_cast<T*>(ws), K, n, lo_stride,
-      di_stride, up_stride, steps);
-  return (int)cudaGetLastError();
+int launch_cluster(cudaStream_t stream, const void* lo, const void* di, const void* up,
+                   const void* b, void* x, int K, int n, int lo_stride, int di_stride,
+                   int up_stride, int steps, int force_c) {
+  ClusterPlan plan;
+  const cudaError_t err = pcr_cluster_plan<T>(n, K, force_c, plan);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cluster_launch(pcr_cluster_kernel<T>, plan, K < plan.clusters ? K : plan.clusters,
+                             stream, static_cast<const T*>(lo), static_cast<const T*>(di),
+                             static_cast<const T*>(up), static_cast<const T*>(b),
+                             static_cast<T*>(x), K, n, lo_stride, di_stride, up_stride, steps);
 }
 
 template <typename T>
-int launch(const void* lo, const void* di, const void* up, const void* b, void* x, void* ws,
-           int K, int n, int lo_stride, int di_stride, int up_stride, int steps, int ws_words,
-           int ws_blocks, void* stream) {
+int launch(const void* lo, const void* di, const void* up, const void* b, void* x, int K,
+           int n, int lo_stride, int di_stride, int up_stride, int steps, int force_c,
+           void* stream) {
   if (K < 1 || n < 1 || n > MAX_WIDE_N) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n > 4096)
-    return launch_wide<T>(st, lo, di, up, b, x, ws, K, n, lo_stride, di_stride, up_stride,
-                          steps, ws_words, ws_blocks);
+    return launch_cluster<T>(st, lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride,
+                             steps, force_c);
   if (n <= 256) {
     switch (warp_slots(n)) {
       case 1:
@@ -204,18 +235,36 @@ int launch(const void* lo, const void* di, const void* up, const void* b, void* 
 
 extern "C" {
 
-int ebm_pcr_f32(const void* lo, const void* di, const void* up, const void* b, void* x,
-                void* ws, int K, int n, int lo_stride, int di_stride, int up_stride, int steps,
-                int ws_words, int ws_blocks, void* stream) {
-  return launch<float>(lo, di, up, b, x, ws, K, n, lo_stride, di_stride, up_stride, steps,
-                       ws_words, ws_blocks, stream);
+int ebm_pcr_f32(const void* lo, const void* di, const void* up, const void* b, void* x, int K,
+                int n, int lo_stride, int di_stride, int up_stride, int steps, int force_c,
+                void* stream) {
+  return launch<float>(lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride, steps, force_c,
+                       stream);
 }
 
-int ebm_pcr_f64(const void* lo, const void* di, const void* up, const void* b, void* x,
-                void* ws, int K, int n, int lo_stride, int di_stride, int up_stride, int steps,
-                int ws_words, int ws_blocks, void* stream) {
-  return launch<double>(lo, di, up, b, x, ws, K, n, lo_stride, di_stride, up_stride, steps,
-                        ws_words, ws_blocks, stream);
+int ebm_pcr_f64(const void* lo, const void* di, const void* up, const void* b, void* x, int K,
+                int n, int lo_stride, int di_stride, int up_stride, int steps, int force_c,
+                void* stream) {
+  return launch<double>(lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride, steps, force_c,
+                        stream);
+}
+
+// the cluster build's plan for K systems of n rows: out = {C, threads,
+// records in shared memory (always 1), resident clusters, shared bytes}
+int ebm_pcr_plan_f32(int n, int K, int force_c, int* out) {
+  if (n <= 4096 || n > MAX_WIDE_N || K < 1) return (int)cudaErrorInvalidValue;
+  ClusterPlan p;
+  const cudaError_t err = pcr_cluster_plan<float>(n, K, force_c, p);
+  if (err == cudaSuccess) plan_out(p, out);
+  return (int)err;
+}
+
+int ebm_pcr_plan_f64(int n, int K, int force_c, int* out) {
+  if (n <= 4096 || n > MAX_WIDE_N || K < 1) return (int)cudaErrorInvalidValue;
+  ClusterPlan p;
+  const cudaError_t err = pcr_cluster_plan<double>(n, K, force_c, p);
+  if (err == cudaSuccess) plan_out(p, out);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -24,7 +24,7 @@ import torch
 
 __all__ = [
     "ModelSpec", "StepConfig", "default_step_config", "dtype_name",
-    "register_model", "get_model",
+    "register_model", "get_model", "available_models",
 ]
 
 
@@ -93,3 +93,8 @@ def get_model(name: str) -> ModelSpec:
     if key not in _REGISTRY:
         raise ValueError(f"Unknown model {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[key]
+
+
+def available_models():
+    """The registered model names, sorted (JAX ``models/base.py::available_models``)."""
+    return sorted(_REGISTRY)

@@ -31,6 +31,7 @@ import torch
 from ..ops.diffusion import DiffusionGeometry
 from ..ops.tridiag import tridiag_solve
 from ..utils.collection import Collection
+from ..utils.numerics import fma, host_cos
 from .base import ModelSpec, StepConfig, register_model
 
 __all__ = ["CLASSIC", "uniform_bands", "member_scalars", "cos_table"]
@@ -73,7 +74,7 @@ def cos_table(st, dtype) -> torch.Tensor:
     device's cos may round differently, so the table is built here once for
     the eager step and the kernel alike."""
     t = torch.as_tensor(st.t, dtype=dtype)
-    cosv = torch.cos(2.0 * math.pi * t)
+    cosv = host_cos(2.0 * math.pi * t)
     return torch.cat([cosv, cosv[:1]])
 
 
@@ -94,8 +95,8 @@ def statics(st, par, dtype, device):
     band = lambda b: torch.as_tensor(b, dtype=dtype, device=device)
     return Collection(
         s,
-        aw=par["a0"] - par["a2"] * x2,
-        SA=par["S0"] - par["S2"] * x2,
+        aw=fma(-par["a2"], x2, par["a0"]),
+        SA=fma(-par["S2"], x2, par["S0"]),
         S1=par["S1"],
         x=x,
         cosv=cos_table(st, dtype).to(device),
@@ -115,18 +116,21 @@ def init_carry(init, st, dtype, device):
 
 def step_inputs(stat, fyear, t: int):
     """The inputs of step ``t``: insolation row ``t``, row ``t + 1`` (the
-    implicit step reads the wraparound row, reference :61) and the forcing."""
+    implicit step reads the wraparound row, reference :61), the forcing, and
+    whether ``t`` is the year's first step."""
     return dict(
-        S_i=stat.SA - (stat.S1 * stat.cosv[t]) * stat.x,
-        S_ip1=stat.SA - (stat.S1 * stat.cosv[t + 1]) * stat.x,
+        S_i=fma(-(stat.S1 * stat.cosv[t]), stat.x, stat.SA),
+        S_ip1=fma(-(stat.S1 * stat.cosv[t + 1]), stat.x, stat.SA),
         f=fyear[t],
+        first=t == 0,
     )
 
 
 def step(carry, xs, stat, par, cfg: StepConfig):
     """One WE15 step (rebuild of ``step!(::Val{:Classic})``,
     ``src/classic.jl:37-71``; line for line the JAX package's
-    ``classic.step``)."""
+    ``classic.step``, with the fused multiply-adds XLA:CPU makes of it,
+    listed in :mod:`..utils.numerics`)."""
     E, Tg = carry["E"], carry["Tg"]
     S_i, S_ip1, f = xs["S_i"], xs["S_ip1"], xs["f"]
     dtype = E.dtype
@@ -136,14 +140,19 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     neg = (E < 0.0).to(dtype)
     nonneg = (E >= 0.0).to(dtype)
     alpha = stat.aw * pos + par["ai"] * neg  # WE15 Eq. (4); zero at E == 0 (:47)
-    C = alpha * S_i + stat.cg_tau * Tg - par["A"] + f  # (:48)
+    # XLA:CPU contracts alpha S in the scan body, cg_tau Tg in the year's
+    # first step, which the JAX package's scan peels (``xs["first"]``)
+    if xs.get("first", False):
+        C = fma(stat.cg_tau, Tg, alpha * S_i) - par["A"] + f  # (:48)
+    else:
+        C = fma(alpha, S_i, stat.cg_tau * Tg) - par["A"] + f
     # E == 0 lanes: the reference's kLf/0 = inf gives T0 = -+0.0, whose only
     # use is through the (T0 < 0) mask — false for both signed zeros — so
     # pinning T0 = 0 there is output-identical (double-where pattern)
     zeroE = E == 0.0
     T0 = where(zeroE, 0.0, C / (stat.M - stat.kLf / where(zeroE, 1.0, E)))  # WE15 Eq. (A3) (:50)
     T = E / par["cw"] * nonneg + T0 * (neg * (T0 < 0.0).to(dtype))  # WE15 Eq. (9) (:51)
-    E_new = E + stat.dt * (C - stat.M * T + par["Fb"])  # WE15 Eq. (A2) (:53)
+    E_new = fma(fma(-stat.M, T, C) + par["Fb"], stat.dt, E)  # WE15 Eq. (A2) (:53)
 
     # Implicit Euler for Tg (WE15 Eq. (A1), :55-63) — masks use the *updated*
     # E. E_new == 0 lanes have mask == 0, so the guarded denominator is again
@@ -155,13 +164,15 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     denom = stat.M - stat.kLf / where(zeroEn, 1.0, E_new)
     mask = t0neg * negn
     kdi = stat.kdi - stat.dc / denom * mask
-    rhs = Tg + stat.dt_tau * (
-        E_new / par["cw"] * nonnegn + (par["ai"] * S_ip1 - par["A"] + f) / denom * mask
-    )
+    rhs = fma(stat.dt_tau,
+              E_new / par["cw"] * nonnegn + (fma(par["ai"], S_ip1, -par["A"]) + f) / denom * mask,
+              Tg)
     method = "pcr" if cfg.solver == "pallas" else cfg.solver
     Tg_new = tridiag_solve(stat.klo, kdi, stat.kup, rhs, method=method)
 
-    h = -E_new / par["Lf"] * negn  # diagnostic ice thickness (:65)
+    # diagnostic ice thickness (:65); XLA selects where the mask is 0, so an
+    # ice-free cell's h is +0
+    h = torch.where(E_new < 0.0, -E_new / par["Lf"], 0.0)
 
     carry = Collection(E=E_new, Tg=Tg_new)
     out = Collection(E=E_new, T=T, h=h)

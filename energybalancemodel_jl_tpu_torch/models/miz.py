@@ -41,6 +41,7 @@ from ..ops.newton_t0 import newton_t0
 from ..ops.tridiag import tridiag_solve
 from ..utils.collection import Collection
 from ..utils.numerics import flush_subnormal as flush
+from ..utils.numerics import fma, host_cos
 from .base import ModelSpec, StepConfig, register_model
 
 __all__ = ["MIZ", "insolation"]
@@ -63,9 +64,10 @@ def statics(st, par, dtype, device):
     return Collection(
         S0=par["S0"],
         S1x=par["S1"] * x,
-        S2x2=par["S2"] * x2,
-        cosv=torch.cos(2.0 * math.pi * t).to(device),
-        aw=par["a0"] - par["a2"] * x2,  # water coalbedo (:14)
+        S2=par["S2"],
+        x2=x2,
+        cosv=host_cos(2.0 * math.pi * t).to(device),
+        aw=fma(-par["a2"], x2, par["a0"]),  # water coalbedo (:14)
         glo=band(geom.lo),
         gdi=band(geom.di),
         gup=band(geom.up),
@@ -82,7 +84,7 @@ def insolation(stat, t: int):
     """The insolation bracket of step ``t``, shared by ice and water solar
     terms (reference :11,14): ``(S0 - (S1 x) cos(2 pi t)) - S2 x^2``, the
     same products in the same order as the JAX package's table."""
-    return (stat.S0 - stat.S1x * stat.cosv[t]) - stat.S2x2
+    return fma(-stat.S2, stat.x2, fma(-stat.S1x, stat.cosv[t], stat.S0))
 
 
 def init_carry(init, st, dtype, device):
@@ -111,16 +113,25 @@ def _dstencil(stat, par, v):
     return par["D"] * (stat.glo * vm1 + stat.gdi * v + stat.gup * vp1)
 
 
-def _t0_residual(T0, args, axis=-1):
-    """The ``T0eq`` residual (reference ``src/miz.jl:33-45``)."""
+def _stencil_sum(glo, gdi, gup, vm1, v, vp1):
+    """``glo v_{i-1} + gdi v_i + gup v_{i+1}`` as XLA:CPU contracts it: the
+    first product into the first sum, the third into the second."""
+    return fma(gup, vp1, fma(glo, vm1, gdi * v))
+
+
+def _t0_residual(T0, args, axis=-1, ai_insol=None):
+    """The ``T0eq`` residual (reference ``src/miz.jl:33-45``). Inside the
+    JAX package's Newton loop ``ai * insol`` is a rounded loop invariant;
+    given as ``ai_insol`` it is added as such, else it is contracted, as in
+    the residual of the warm start."""
     insol, hp, Tw, phi, f, glo, gdi, gup, k, Tm, A, B, ai, D = args
     Ti = torch.minimum(T0, Tm)
-    Tb = Ti * phi + (1.0 - phi) * Tw
+    Tb = fma(Ti, phi, (1.0 - phi) * Tw)  # (1 - phi) Tw is rounded (materialised)
     r = k * (Tm - T0) / hp
-    r = r + ai * insol
-    r = r + ((-A) - B * (T0 - Tm))
+    r = fma(ai, insol, r) if ai_insol is None else r + ai_insol
+    r = r + fma(-B, T0 - Tm, -A)
     Tbm1, Tbp1 = neighbor_cells(Tb, axis)
-    r = r + D * (glo * Tbm1 + gdi * Tb + gup * Tbp1)
+    r = fma(D, _stencil_sum(glo, gdi, gup, Tbm1, Tb, Tbp1), r)
     r = r + f
     return r
 
@@ -131,7 +142,7 @@ def _t0_bands(T0, args, axis=-1):
     g = phi * (T0 < Tm).to(T0.dtype)
     gm1, gp1 = neighbor_cells(g, axis)
     jlo = D * glo * gm1
-    jdi = -k / hp - B + D * gdi * g
+    jdi = fma(D * gdi, g, -k / hp - B)
     jup = D * gup * gp1
     return jlo, jdi, jup
 
@@ -181,9 +192,12 @@ def _solver_method(cfg: StepConfig) -> str:
 
 
 def _newton_root(T0_warm, args, cfg: StepConfig):
+    insol, ai = args[0], args[12]
+    ai_insol = ai * insol
     return newton_tridiag(
-        lambda T0: (_t0_residual(T0, args), _t0_bands(T0, args)),
+        lambda T0: (_t0_residual(T0, args, ai_insol=ai_insol), _t0_bands(T0, args)),
         T0_warm,
+        initial=lambda T0: (_t0_residual(T0, args), _t0_bands(T0, args)),
         abstol=cfg.newton_abstol,
         reltol=cfg.newton_reltol,
         max_iter=cfg.newton_max_iter,
@@ -298,7 +312,10 @@ def _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg: StepConfig)
 def step(carry, xs, stat, par, cfg: StepConfig):
     """One MIZ step (rebuild of ``step!(::Val{:MIZ})``,
     ``src/miz.jl:150-196``, preserving the reference's exact update order
-    and masking semantics; line-for-line the JAX package's ``miz.step``).
+    and masking semantics; line-for-line the JAX package's ``miz.step``,
+    with the fused multiply-adds XLA:CPU makes of it, listed in
+    :mod:`..utils.numerics`, so the scan engine's first step is JAX's
+    bitwise).
 
     The JAX package computes on backends that flush subnormal results to
     zero (XLA's CPU backend, the TPU); PyTorch and the CUDA kernels keep
@@ -335,18 +352,28 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     n = flush(where(zeroD, 0.0, n))
 
     # -- fluxes (:162-164) ---------------------------------------------
-    Tb = Ti * phi + (1.0 - phi) * Tw  # Tbar (:21-28)
-    L = par["A"] + par["B"] * (Tb - Tm)  # OLR (:99)
-    dTb = _dstencil(stat, par, Tb)
-    Fvi = par["ai"] * insol - L + dTb + par["Fb"] + f  # vert_flux ice (:96-101)
-    Fvw = stat.aw * insol - L + dTb + par["Fb"] + f  # vert_flux water
+    Tb = fma(Ti, phi, (1.0 - phi) * Tw)  # Tbar (:21-28)
+    L = fma(par["B"], Tb - Tm, par["A"])  # OLR (:99)
+    Tbm1, Tbp1 = neighbor_cells(Tb)
+    lap = _stencil_sum(stat.glo, stat.gdi, stat.gup, Tbm1, Tb, Tbp1)
+    base_i = fma(par["ai"], insol, -L)
+    base_w = fma(stat.aw, insol, -L)
+    # dTb = D lap: rounded where the JAX step needs both fluxes at once (its
+    # product then has two uses), contracted where it needs one
+    dTb = par["D"] * lap
+    Fvi = base_i + dTb + par["Fb"] + f  # vert_flux ice (:96-101)
+    Fvw = base_w + dTb + par["Fb"] + f  # vert_flux water
+    Fvi_1 = fma(par["D"], lap, base_i) + par["Fb"] + f
+    Fvw_1 = fma(par["D"], lap, base_w) + par["Fb"] + f
     wl = par["m1"] * (Tw - stat["Tm_pow_m2"])  # wlat (:71) — exponent binds to Tm
     Flat = phi * h * par["Lf"] * wl * math.pi / where(zeroD, 1.0, par["alpha"] * Df)  # lat_flux (:103-107)
     Flat = where(zeroD, 0.0, Flat)
 
     # -- enthalpy forward Euler + redistribution (:166-170, :109-117) --
-    rEi = Ei + (phi * Fvi + Flat) * dt  # Ei_t (:137)
-    rEw = Ew + ((1.0 - phi) * Fvw - Flat) * dt  # Ew_t (:138)
+    rEi = fma(fma(phi, Fvi, Flat), dt, Ei)  # Ei_t (:137)
+    rEw = fma(fma(1.0 - phi, Fvw, -Flat), dt, Ew)  # Ew_t (:138)
+    # the water enthalpy as the floe-size update reads it, from Fvw alone
+    rEw_1 = fma(fma(1.0 - phi, Fvw_1, -Flat), dt, Ew)
     # minimum/maximum, not clamp: the same values, and at a tie (rEi == 0 in
     # every ice-free cell) the gradient splits half and half, as JAX's
     # jnp.minimum/maximum split it; clamp would pass all of it
@@ -360,18 +387,19 @@ def step(carry, xs, stat, par, cfg: StepConfig):
 
     # -- floe size/thickness updates (:172-181) ------------------------
     Drl = Df + 2.0 * par["rl"]
-    ring = par["alpha"] * n * (Drl * Drl - Df * Df)  # area_lead (:90-93)
+    ring = par["alpha"] * n * fma(Drl, Drl, -(Df * Df))  # area_lead (:90-93)
     Al = torch.minimum(ring, 1.0 - phi)
-    psiEw = psiEwdt / dt
+    psiEw = (rEw_1 - torch.maximum(rEw_1, zero)) * (1.0 / dt)
     phi_one = phi == 1.0
     Ql = Al / where(phi_one, 1.0, 1.0 - phi) * psiEw  # split_psiEw (:120-125)
     Ql = where(phi_one, 0.0, Ql)  # condset!(Ql, 0, isone, phi)
     Qp = psiEw - Ql
-    dn = dt * (-Qp / (par["Lf"] * par["alpha"] * (par["Dmin"] * par["Dmin"]) * par["hmin"]))  # psinplus (:127)
+    # psinplus (:127): dn = q dt, contracted into each sum that reads it
+    q = -Qp / (par["Lf"] * par["alpha"] * (par["Dmin"] * par["Dmin"]) * par["hmin"])
 
     # D_t (:140-146) — the reference's operator-precedence quirk:
     # lat_melt = ((-pi)/2.0*alpha)*wlat = -(pi/2) alpha wlat
-    lat_melt = -math.pi / 2.0 * par["alpha"] * wl
+    lat_melt_c = -math.pi / 2.0 * par["alpha"]
     # guard on the full denominator (h or phi zero): such lanes are always
     # rescued by the zeroref(D, Ei) below — final outputs unchanged
     lg_den = flush(2.0 * par["Lf"] * h * phi)
@@ -379,18 +407,19 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     lat_grow = -Df / where(zlg, 1.0, lg_den) * Ql
     lat_grow = where(zlg, 0.0, lat_grow)
     lat_grow = where(h == 0.0, 0.0, lat_grow)  # zeroref!(lat_grow, h) (:144)
-    weld = par["kappa"] * par["alpha"] / 4.0 * phi * (Df * (Df * Df))
-    rD = Df + (lat_melt + lat_grow + weld) * dt
-    total = flush(n + dn)
+    weld_c = par["kappa"] * par["alpha"] / 4.0 * phi
+    rD = fma(fma(weld_c, Df * Df * Df, fma(lat_melt_c, wl, lat_grow)), dt, Df)
+    total = flush(fma(q, dt, n))
     zero_total = total == 0.0
-    D1 = (n * rD + dn * par["Dmin"]) / where(zero_total, 1.0, total)  # average new pancakes (:129-134,176)
+    # average new pancakes (:129-134,176)
+    D1 = fma(q, par["Dmin"] * dt, n * rD) / where(zero_total, 1.0, total)
     D1 = where(zero_total, 0.0, D1)
     D1 = torch.minimum(torch.maximum(D1, par["Dmin"]), par["Dmax"])  # clamp (:177)
     D1 = where(Ei1 == 0.0, 0.0, D1)  # zeroref!(D, Ei) (:178)
 
-    rh = h + (-1.0 / par["Lf"] * Fvi) * dt  # h_t (:139,179)
+    rh = fma(-1.0 / par["Lf"] * Fvi_1, dt, h)  # h_t (:139,179)
     rh = torch.maximum(rh, zero)  # clamp!(rh, 0, Inf) (:180)
-    h1 = (n * rh + dn * par["hmin"]) / where(zero_total, 1.0, total)  # (:181)
+    h1 = fma(q, par["hmin"] * dt, n * rh) / where(zero_total, 1.0, total)  # (:181)
     h1 = flush(where(zero_total, 0.0, h1))
 
     # -- concentration (:183, concentration :74-80) --------------------
@@ -401,8 +430,8 @@ def step(carry, xs, stat, par, cfg: StepConfig):
 
     # -- totals (:185-187) ---------------------------------------------
     Ei1 = where(h1 == 0.0, 0.0, Ei1)  # zeroref!(Ei, h)
-    E = phi1 * Ei1 + (1.0 - phi1) * Ew1
-    T = Ti * phi1 + (1.0 - phi1) * Tw  # Tbar(Ti, Tw, phi) with updated phi
+    E = fma(phi1, Ei1, (1.0 - phi1) * Ew1)
+    T = fma(Ti, phi1, (1.0 - phi1) * Tw)  # Tbar(Ti, Tw, phi) with updated phi
 
     # -- NaN masking for storage only (:193-194) -----------------------
     Ti_out = where(Ei1 == 0.0, math.nan, Ti)

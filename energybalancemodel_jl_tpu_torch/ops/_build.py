@@ -27,10 +27,13 @@ __all__ = ["load_library", "build_log", "launch", "launch_raw", "NVCC_FLAGS"]
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-# -fmad=false: no contraction of a*b+c into one fused multiply-add, so the
-# kernel rounds every operation where the plain PyTorch version (one kernel
-# per operation) and the JAX reference do; the MIZ year amplifies that
-# difference by ~1e5 over a year (measured, PERF.md)
+# -fmad=false: no contraction of a*b+c into one fused multiply-add that the
+# source does not ask for. XLA:CPU contracts the JAX reference's a*b+c where
+# product and sum share a fused loop (utils/numerics.py lists the sites);
+# the plain PyTorch version makes exactly those fused multiply-adds
+# (utils.numerics.fma) and the kernels write them as __fmaf_rn / __fma_rn,
+# so a kernel rounds where its plain version does. The MIZ year amplifies a
+# difference of one rounding by ~1e5 over a year (measured, PERF.md)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,14 +65,20 @@ _SIGNATURES = {
     # (keys, out, K, nt, stream) and (bits, out, n, stream)
     "ebm_normal_table": ([_P] * 2 + [_I] * 2 + [_P], _I),
     "ebm_normal_bits": ([_P] * 2 + [_I] + [_P], _I),
-    # (lo, di, up, b, x, ws, K, n, lo_stride, di_stride, up_stride, steps,
-    #  ws_words, ws_blocks, stream)
-    "ebm_pcr_f32": ([_P] * 6 + [_I] * 8 + [_P], _I),
-    "ebm_pcr_f64": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    # (lo, di, up, b, x, K, n, lo_stride, di_stride, up_stride, steps, force_c,
+    #  stream)
+    "ebm_pcr_f32": ([_P] * 5 + [_I] * 7 + [_P], _I),
+    "ebm_pcr_f64": ([_P] * 5 + [_I] * 7 + [_P], _I),
+    # the cluster build's plan: (n, K, force_c, out[5])
+    "ebm_pcr_plan_f32": ([_I] * 3 + [_P], _I),
+    "ebm_pcr_plan_f64": ([_I] * 3 + [_P], _I),
     # (T0, hp, Tw, phi, insol, bands, D, scal, out, ws, K, n, iters, steps,
-    #  ws_words, ws_blocks, stream)
-    "ebm_newton_t0_f32": ([_P] * 10 + [_I] * 6 + [_P], _I),
-    "ebm_newton_t0_f64": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    #  ws_words, ws_blocks, force_c, stream)
+    "ebm_newton_t0_f32": ([_P] * 10 + [_I] * 7 + [_P], _I),
+    "ebm_newton_t0_f64": ([_P] * 10 + [_I] * 7 + [_P], _I),
+    # the cluster build's plan: (n, K, force_c, out[5])
+    "ebm_newton_t0_plan_f32": ([_I] * 3 + [_P], _I),
+    "ebm_newton_t0_plan_f64": ([_I] * 3 + [_P], _I),
     "ebm_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -120,12 +129,11 @@ def _build(sources, target: Path) -> None:
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for src, obj in zip(sources, objs)]
         outputs = [p.communicate() for p in procs]
-        log = []
-        for src, p, (out, err) in zip(sources, procs, outputs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} (exit {p.returncode}):\n"
-                                   f"{out}\n{err}")
-            log.append(f"== {src.name}\n{out}{err}")
+        failed = [f"nvcc failed on {src.name} (exit {p.returncode}):\n{out}\n{err}"
+                  for src, p, (out, err) in zip(sources, procs, outputs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        log = [f"== {src.name}\n{out}{err}" for src, (out, err) in zip(sources, outputs)]
         lib = os.path.join(tmp, "lib.so")
         cmd = [nvcc, "-shared", "-o", lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -25,9 +25,9 @@ __all__ = ["member_columns", "check_year_args", "check_width", "check_noise_args
            "check_crossing_args", "trapezoid_weights", "ou_path", "assoc_ou_path",
            "classic_ou_unroll", "noise_offsets", "member_rows", "keys_tensor",
            "block_sum", "block_layout", "pcr_shared_bytes", "CrossingTracker", "NoiseLaunch",
-           "year_result", "MAX_SHARED_BYTES", "refuse_grad", "WIDE", "WIDE_BLOCKS_PER_SM",
+           "year_result", "MAX_SHARED_BYTES", "refuse_grad", "WIDE",
            "FORCE_CLUSTER", "ClusterPlan", "cluster_plan", "wide_workspace", "wide_words",
-           "workspace", "sm_count", "check_raw_fits"]
+           "workspace", "check_raw_fits"]
 
 
 def refuse_grad(kernel: str, *values) -> None:
@@ -294,24 +294,20 @@ def block_layout(n: int):
 # member, each block owning ceil(n / C) cells, the PCR rows and the
 # neighbour exchange in the owners' shared memory, each cell's record of
 # "fields" values there too or, where the C side's plan says they do not
-# fit, in a workspace of device memory; the C side picks C (ClusterPlan). K10
-# and K11 keep one block per system with its PCR rows, exchange ("halo") and
-# records in a workspace of device memory. Each block or cluster loops over
-# members. A wide build sums a crossing area in the order of block_layout,
-# whatever its own threads.
+# fit, in a workspace of device memory; the C side picks C (ClusterPlan).
+# K11's records are its PCR rows alone; K10's are the iterate and the solve's
+# frozen inputs. Each cluster loops over members. A wide build sums a
+# crossing area in the order of block_layout, whatever its own threads.
 WIDE = {
-    "classic_year": dict(narrow=4096, max=32768, fields=11, cluster=True),
-    "miz_year": dict(narrow=1024, max=16384, fields=20, cluster=True),
-    "pcr_fused": dict(narrow=4096, max=32768, fields=0, halo=False, cluster=False),
-    "newton_t0": dict(narrow=4096, max=16384, fields=5, halo=True, cluster=False),
+    "classic_year": dict(narrow=4096, max=32768, fields=11),
+    "miz_year": dict(narrow=1024, max=16384, fields=20),
+    "pcr_fused": dict(narrow=4096, max=32768, fields=0),
+    "newton_t0": dict(narrow=4096, max=16384, fields=5),
 }
-# blocks of K10's and K11's wide builds that one SM holds: their
-# __launch_bounds__(..., 1)
-WIDE_BLOCKS_PER_SM = 1
-# the cluster size a year kernel's cluster build is launched with: 0 lets the
-# C side choose (csrc/cluster.cuh::choose_cluster); 2, 4, 8 or 16 forces it
+# the cluster size a cluster build is launched with: 0 lets the C side
+# choose (csrc/cluster.cuh::choose_cluster); 2, 4, 8 or 16 forces it
 # (tools/kernel_times.py clusters measures each)
-FORCE_CLUSTER = {"classic_year": 0, "miz_year": 0}
+FORCE_CLUSTER = {"classic_year": 0, "miz_year": 0, "pcr_fused": 0, "newton_t0": 0}
 
 
 class ClusterPlan(NamedTuple):
@@ -326,55 +322,32 @@ class ClusterPlan(NamedTuple):
     shared_bytes: int
 
 
-def wide_words(kernel: str, n: int, C: int = 1) -> int:
-    """Words of the run's dtype in one wide block's workspace: for a year
-    kernel's cluster build of ``C`` blocks (``csrc/*_year.cu::*_cluster_words``),
-    the records of its ``ceil(n / C)`` cells; for K10 and K11
-    (``csrc/*.cu::*_wide_words``), the PCR's two buffers of four-value rows
-    with an identity row on each side, the exchange's two buffers of
-    two-value cells with one beyond each end, the per-cell fields. Rounded
-    up to 32 words so every block's part starts aligned."""
-    spec = WIDE[kernel]
-    if spec["cluster"]:
-        words = spec["fields"] * -(-n // C)
-    else:
-        words = 8 * (n + 2) + (4 * (n + 2) if spec["halo"] else 0) + spec["fields"] * n
+def wide_words(kernel: str, n: int, C: int) -> int:
+    """Words of the run's dtype in one block's part of a cluster build's
+    workspace (``csrc/*.cu::*_cluster_words``): the records of the block's
+    ``ceil(n / C)`` cells, rounded up to 32 words so every block's part
+    starts aligned."""
+    words = WIDE[kernel]["fields"] * -(-n // C)
     return -(-words // 32) * 32
 
 
-def wide_workspace(kernel: str, n: int, K: int, sms: int, plan: ClusterPlan | None = None):
+def wide_workspace(kernel: str, n: int, K: int, plan: ClusterPlan | None = None):
     """``(blocks, words per block)`` of the workspace that ``kernel`` takes
     for ``K`` members (systems) of ``n`` cells (rows): ``(0, 0)`` up to the
-    register builds' width, which take none. Above it, a year kernel's
-    cluster build takes one only where its ``plan`` keeps the records in
-    device memory: a part for each block of the clusters launched (at most
-    the resident ones, each looping over members), clusters x C blocks; K10
-    and K11 take one part per block, at most the blocks that stay resident
-    on a card of ``sms`` SMs. Either way it scales with the card, not with
-    ``K``. The C side checks the words against its own count. Raises past
-    the wide build's width."""
+    register builds' width, which take none. Above it, a cluster build takes
+    one only where its ``plan`` keeps the records in device memory: a part
+    for each block of the clusters launched (at most the resident ones, each
+    looping over members), clusters x C blocks, so it scales with the card,
+    not with ``K``. The C side checks the words against its own count.
+    Raises past the wide build's width."""
     check_width(kernel, n)
-    spec = WIDE[kernel]
-    if n <= spec["narrow"]:
+    if n <= WIDE[kernel]["narrow"]:
         return 0, 0
-    if spec["cluster"]:
-        if plan is None:
-            raise ValueError(f"the {kernel} cluster build is sized from the C side's plan")
-        if plan.records_shared:
-            return 0, 0
-        return min(K, plan.clusters) * plan.C, wide_words(kernel, n, plan.C)
-    return min(K, sms * WIDE_BLOCKS_PER_SM), wide_words(kernel, n)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def sm_count(device) -> int:
-    """The SMs of a CUDA device."""
-    device = torch.device(device)
-    return _sms(device.index if device.index is not None else torch.cuda.current_device())
+    if plan is None:
+        raise ValueError(f"the {kernel} cluster build is sized from the C side's plan")
+    if plan.records_shared:
+        return 0, 0
+    return min(K, plan.clusters) * plan.C, wide_words(kernel, n, plan.C)
 
 
 @functools.lru_cache(maxsize=None)
@@ -384,10 +357,15 @@ def _plan(kernel, n, nt, K, itemsize, index, noisy, ou_mode, count, force_c):
     lib = _build.load_library()
     suffix = {4: "f32", 8: "f64"}[itemsize]
     out = (ctypes.c_int * 5)()
-    flags = (int(noisy), ou_mode) + ((int(count),) if kernel == "miz_year" else ())
+    if kernel in ("pcr_fused", "newton_t0"):
+        name, args = {"pcr_fused": "ebm_pcr_plan", "newton_t0": "ebm_newton_t0_plan"}[kernel], ()
+    else:
+        name, args = f"ebm_{kernel}_plan", (nt,)
+    flags = ((int(noisy), ou_mode) + ((int(count),) if kernel == "miz_year" else ())
+             if kernel in ("miz_year", "classic_year") else ())
     with torch.cuda.device(index):
-        err = getattr(lib, f"ebm_{kernel}_plan_{suffix}")(n, nt, K, *flags, force_c,
-                                                          ctypes.cast(out, ctypes.c_void_p))
+        err = getattr(lib, f"{name}_{suffix}")(n, *args, K, *flags, force_c,
+                                               ctypes.cast(out, ctypes.c_void_p))
     if err != 0:
         msg = lib.ebm_cuda_error_string(err).decode()
         raise RuntimeError(
@@ -400,11 +378,12 @@ def _plan(kernel, n, nt, K, itemsize, index, noisy, ou_mode, count, force_c):
 def cluster_plan(kernel: str, n: int, nt: int, K: int, dtype, device, noisy: bool = False,
                  ou_mode: int = 0, count: bool = False) -> ClusterPlan:
     """The C side's plan of ``kernel``'s cluster build for ``K`` members of
-    an ``n``-cell year of ``nt`` steps on ``device`` (the build by its noise
-    and count flags; C as :data:`FORCE_CLUSTER` says, else the widest
-    cluster whose resident clusters run all ``K`` members at once); raises
-    ``RuntimeError`` when the build cannot launch (too much shared memory,
-    or no cluster resident)."""
+    an ``n``-cell year of ``nt`` steps on ``device`` (the year kernels' build
+    by its noise and count flags; K10's and K11's take neither ``nt`` nor
+    flags; C as :data:`FORCE_CLUSTER` says, else the widest cluster whose
+    resident clusters run all ``K`` members at once); raises ``RuntimeError``
+    when the build cannot launch (too much shared memory, or no cluster
+    resident)."""
     device = torch.device(device)
     index = device.index if device.index is not None else torch.cuda.current_device()
     return _plan(kernel, n, nt if noisy else 1, K, torch.empty((), dtype=dtype).element_size(),
@@ -416,7 +395,7 @@ def workspace(kernel: str, n: int, K: int, dtype, device, plan: ClusterPlan | No
     workspace of :func:`wide_workspace`, uninitialised (each kernel writes
     every word before it reads it). The caller holds the tensor until its
     launch is queued; the allocator hands the memory on in stream order."""
-    blocks, words = wide_workspace(kernel, n, K, sm_count(device), plan)
+    blocks, words = wide_workspace(kernel, n, K, plan)
     if words == 0:
         return None, None, 0, 0
     ws = torch.empty(blocks * words, dtype=dtype, device=device)

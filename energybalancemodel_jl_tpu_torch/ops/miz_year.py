@@ -36,6 +36,7 @@ import torch
 from ..models.base import StepConfig
 from ..solutions import Seasonal
 from ..utils.collection import Collection
+from ..utils.numerics import host_cos
 from . import _build
 from ._year import (FORCE_CLUSTER, WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
                     check_noise_args, check_raw_fits, check_width, check_year_args,
@@ -90,7 +91,7 @@ def _year_tables(st, dtype, device):
     geom = diffusion_bands(st)
     band = lambda b: torch.as_tensor(np.asarray(b), dtype=dtype)
     cols = torch.stack([x, x * x, band(geom.lo), band(geom.di), band(geom.up)])
-    cosv = torch.cos(2.0 * math.pi * t)
+    cosv = host_cos(2.0 * math.pi * t)
     return cols.to(device), cosv.to(device)
 
 

@@ -29,6 +29,7 @@ def newton_tridiag(
     method: str = "pcr",
     max_step: float = None,
     axis: int = -1,
+    initial=None,
 ):
     """Solve ``r(x) = 0`` where ``J = dr/dx`` is tridiagonal.
 
@@ -36,7 +37,9 @@ def newton_tridiag(
     the residual inf-norm along ``axis``:
     ``||r||_inf <= max(abstol, reltol * ||r0||_inf)`` per lane. ``max_step``
     optionally caps each Newton update elementwise (float32 safeguard); a
-    non-finite update freezes its entry instead of poisoning it.
+    non-finite update freezes its entry instead of poisoning it. ``initial``
+    (default ``residual_and_bands``) evaluates the warm start ``x0``: the
+    JAX package's loop body and its first evaluation round differently.
 
     Returns ``(x, converged, iterations)`` — the solution, the per-lane bool
     convergence flags, and the iteration count actually used (an int).
@@ -45,7 +48,7 @@ def newton_tridiag(
         # NaN-propagating, like jnp.max
         return torch.amax(torch.abs(r), dim=axis)
 
-    r, bands = residual_and_bands(x0)
+    r, bands = (initial or residual_and_bands)(x0)
     rnorm = norm(r)
     tol = torch.maximum(
         torch.as_tensor(abstol, dtype=x0.dtype, device=x0.device), reltol * rnorm
@@ -56,7 +59,7 @@ def newton_tridiag(
     # the current iterate are carried from the previous iteration
     while it < max_iter and bool(torch.any(rnorm > tol)):
         lo, di, up = bands
-        delta = tridiag_solve(lo, di, up, -r, method=method, axis=axis)
+        delta = tridiag_solve(lo, di, up, -r, method=method, axis=axis, negated=True)
         if max_step is not None:
             delta = torch.clamp(delta, -max_step, max_step)
         # a non-finite update (singular float32 Jacobian) freezes the lane

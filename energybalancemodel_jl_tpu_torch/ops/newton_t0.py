@@ -17,13 +17,14 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._year import WIDE, check_width, refuse_grad, workspace
+from ._year import FORCE_CLUSTER, WIDE, check_width, cluster_plan, refuse_grad, workspace
+from ..utils.numerics import fma
 from .tridiag import _shift, pcr_solve, pcr_steps
 
 __all__ = ["newton_t0", "newton_t0_reference", "MAX_N"]
 
 # up to 4096 cells in registers (at most 4 per thread of 1024), above that
-# the wide build (each cell's state in device memory)
+# the cluster build (each member's cells across a thread-block cluster)
 MAX_N = WIDE["newton_t0"]["max"]
 
 
@@ -63,9 +64,9 @@ def newton_t0(T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, ai, f,
     A, B, ai, f`` and ``max_step``. Returns the updated ``(K, nx)`` ``T0``.
 
     On a CUDA device this launches the kernel (counted in
-    ``newton_t0.launches``; above nx = 4096 its wide build, up to ``MAX_N``
-    cells) and raises if it cannot; on the CPU it runs
-    :func:`newton_t0_reference`."""
+    ``newton_t0.launches``; above nx = 4096 its cluster build as the C side
+    plans it, up to ``MAX_N`` cells) and raises if it cannot; on the CPU it
+    runs :func:`newton_t0_reference`."""
     dtype, device = T0.dtype, T0.device
     as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     glo, gdi, gup = as_t(glo), as_t(gdi), as_t(gup)
@@ -84,10 +85,15 @@ def newton_t0(T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, ai, f,
     bands = torch.stack([glo, gdi, gup])
     inputs = [v.contiguous() for v in (T0, hp, Tw, phi, insol)]
     out = torch.empty_like(inputs[0])
-    ws, ws_ptr, ws_words, ws_blocks = workspace("newton_t0", n, K, dtype, device)
+    # above the register builds' width, the cluster build as the C side
+    # plans it (it launches with the same plan), with a workspace only where
+    # its records stay in device memory
+    plan = (cluster_plan("newton_t0", n, 1, K, dtype, device)
+            if n > WIDE["newton_t0"]["narrow"] else None)
+    ws, ws_ptr, ws_words, ws_blocks = workspace("newton_t0", n, K, dtype, device, plan)
     _build.launch("ebm_newton_t0", dtype, device, *(v.data_ptr() for v in inputs),
                   bands.data_ptr(), D.data_ptr(), scal.data_ptr(), out.data_ptr(), ws_ptr, K, n,
-                  int(iters), pcr_steps(n), ws_words, ws_blocks)
+                  int(iters), pcr_steps(n), ws_words, ws_blocks, FORCE_CLUSTER["newton_t0"])
     newton_t0.launches += 1
     return out
 
@@ -100,8 +106,9 @@ def newton_t0_reference(T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, a
     """The plain PyTorch version of :func:`newton_t0` on any device: the
     fixed-iteration loop of JAX ``pallas_newton.py:104-134``, with
     ``k / hp``, ``(1 - phi) Tw`` and ``ai insol`` hoisted out of the loop,
-    neighbour values zero outside the grid, and :func:`.tridiag.pcr_solve`
-    for the Jacobian."""
+    neighbour values zero outside the grid, :func:`.tridiag.pcr_solve` for
+    the Jacobian, and the fused multiply-adds of the MIZ step's residual
+    (``models/miz.py::_t0_residual``), which the kernel shares."""
     dtype, device = T0.dtype, T0.device
     s = _scalars(dtype, device, k=k, Tm=Tm, A=A, B=B, ai=ai, f=f, max_step=max_step)
     k, Tm, A, B, ai, f, max_step = (s[name] for name in
@@ -114,14 +121,15 @@ def newton_t0_reference(T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, a
     solar_ice = ai * insol
     for _ in range(iters):
         Ti = torch.minimum(T0, Tm)
-        Tb = Ti * phi + one_m_phi_Tw
-        dTb = D * (glo * _shift(Tb, 1) + gdi * Tb + gup * _shift(Tb, -1))
-        r = k_over_h * (Tm - T0) + solar_ice + ((-A) - B * (T0 - Tm)) + dTb + f
+        Tb = fma(Ti, phi, one_m_phi_Tw)
+        lap = fma(gup, _shift(Tb, -1), fma(glo, _shift(Tb, 1), gdi * Tb))
+        r = k_over_h * (Tm - T0) + solar_ice
+        r = fma(D, lap, r + fma(-B, T0 - Tm, -A)) + f
         g = phi * (T0 < Tm).to(dtype)
         jlo = D * glo * _shift(g, 1)
-        jdi = -k_over_h - B + D * gdi * g
+        jdi = fma(D * gdi, g, -k_over_h - B)
         jup = D * gup * _shift(g, -1)
-        delta = pcr_solve(jlo, jdi, jup, -r)
+        delta = pcr_solve(jlo, jdi, jup, -r, negated=True)
         delta = torch.clamp(delta, -max_step, max_step)
         delta = torch.where(torch.isfinite(delta), delta, torch.zeros_like(delta))
         T0 = T0 + delta

@@ -17,13 +17,14 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._year import WIDE, check_width, refuse_grad, workspace
+from ._year import FORCE_CLUSTER, WIDE, check_width, cluster_plan, refuse_grad
 from .tridiag import pcr_solve, pcr_steps
 
 __all__ = ["pcr_fused", "MAX_N"]
 
 # up to 4096 rows in shared memory (at most 4 per thread of 1024), above
-# that the wide build (its rows in device memory)
+# that the cluster build (each system's rows across the shared memory of a
+# thread-block cluster)
 MAX_N = WIDE["pcr_fused"]["max"]
 
 
@@ -31,8 +32,9 @@ def pcr_fused(lo, di, up, b):
     """Solve the ``(K, n)`` systems ``lo x[i-1] + di x[i] + up x[i+1] = b``
     (``lo[..., 0]`` and ``up[..., -1]`` are not read as couplings: the rows
     out of range are identity rows). On a CUDA device this launches the
-    kernel (counted in ``pcr_fused.launches``; above n = 4096 its wide
-    build, up to ``MAX_N`` rows); on the CPU it runs
+    kernel (counted in ``pcr_fused.launches``; above n = 4096 its cluster
+    build as the C side plans it, up to ``MAX_N`` rows, raising
+    ``RuntimeError`` where no plan can launch); on the CPU it runs
     :func:`.tridiag.pcr_solve`."""
     if b.ndim != 2:
         raise ValueError(f"pcr_fused solves (K, n) systems, got rhs shape {tuple(b.shape)}")
@@ -54,10 +56,11 @@ def pcr_fused(lo, di, up, b):
     (lo, s_lo), (di, s_di), (up, s_up) = band(lo), band(di), band(up)
     b = b.contiguous()
     x = torch.empty_like(b)
-    ws, ws_ptr, ws_words, ws_blocks = workspace("pcr_fused", n, K, b.dtype, b.device)
+    if n > WIDE["pcr_fused"]["narrow"]:
+        cluster_plan("pcr_fused", n, 1, K, b.dtype, b.device)  # raises where none launches
     _build.launch("ebm_pcr", b.dtype, b.device, lo.data_ptr(), di.data_ptr(),
-                  up.data_ptr(), b.data_ptr(), x.data_ptr(), ws_ptr, K, n, s_lo, s_di, s_up,
-                  pcr_steps(n), ws_words, ws_blocks)
+                  up.data_ptr(), b.data_ptr(), x.data_ptr(), K, n, s_lo, s_di, s_up,
+                  pcr_steps(n), FORCE_CLUSTER["pcr_fused"])
     pcr_fused.launches += 1
     return x
 

@@ -33,6 +33,8 @@ import struct
 import numpy as np
 import torch
 
+from ..utils.numerics import fma_f32, fma_f64
+
 __all__ = [
     "prng_key", "fold_in", "member_year_keys", "threefry2x32", "fma_f32",
     "fma_f64", "log1p_f32", "erfinv_f32", "log_f64", "log1p_f64", "sqrt_f64", "erfinv_f64",
@@ -257,32 +259,6 @@ def member_year_keys(seed: int, members: int, year: int) -> np.ndarray:
 
 
 # -- the float32 pipeline (plain PyTorch) ---------------------------------------
-
-def fma_f32(a, b, c):
-    """``a * b + c`` in float32 with ONE rounding, as XLA contracts it and as
-    ``__fmaf_rn`` computes it, on any device. The product of two float32
-    values is exact in float64; the float64 sum is made round-to-odd (its
-    error, from a TwoSum, nudges an even last bit away from a tie), so the
-    final rounding to float32 is the single rounding of the exact value.
-    Finite operands only."""
-    dt = torch.float64
-    a, b, c = (torch.as_tensor(v).to(dt) for v in (a, b, c))
-    p = a * b
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    odd = torch.nextafter(s, torch.where(err > 0, torch.full_like(s, np.inf),
-                                         torch.full_like(s, -np.inf)))
-    s = torch.where((err != 0) & even, odd, s)
-    return s.to(torch.float32)
-
-
-def fma_f64(a, b, c):
-    """``a * b + c`` in float64 with one rounding (``torch.addcmul``, which
-    matches XLA's contracted float64 ``a * b + c``)."""
-    return torch.addcmul(c, a, b)
-
 
 def _bits_f32(v):
     """The IEEE bits of a float32 tensor as int64."""

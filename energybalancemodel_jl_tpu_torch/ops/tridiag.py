@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from ..utils.numerics import fma
+
 __all__ = ["thomas_solve", "pcr_solve", "pcr_steps", "tridiag_solve", "tridiag_matvec"]
 
 
@@ -84,7 +86,7 @@ def pcr_steps(n: int) -> int:
     return max(1, math.ceil(math.log2(n))) if n > 1 else 0
 
 
-def pcr_solve(lo, di, up, b, axis: int = -1):
+def pcr_solve(lo, di, up, b, axis: int = -1, negated: bool = False):
     """Solve a tridiagonal system by parallel cyclic reduction.
 
     At stride ``s`` every equation eliminates its ``±s`` neighbors:
@@ -98,6 +100,14 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
     Out-of-range neighbors are identity rows (di = 1, off-diagonals and rhs
     0), realized by zero-filled shifts of the bands and a ones-filled shift
     of the diagonal. ``axis`` selects the system axis (default last).
+
+    Each sum is the fused multiply-adds XLA:CPU makes of the JAX package's
+    solve (:mod:`..utils.numerics`): ``b' = fma(beta, b_{i+s}, fma(alpha,
+    b_{i-s}, b))`` and ``di'`` likewise; the first level contracts the row
+    scaling's ``b * inv`` and rounds ``alpha b_{i-s}`` (``negated``: the
+    right-hand side is a negation, as the Newton update's ``-r``, and XLA
+    contracts ``alpha b_{i-s}`` there and rounds ``b * inv``); the last
+    level rounds ``alpha``'s products.
     """
     if axis not in (-1, b.ndim - 1):
         for name, band in (("lo", lo), ("di", di), ("up", up)):
@@ -115,7 +125,6 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
     inv = 1.0 / di
     lo = lo * inv
     up = up * inv
-    b = b * inv
     di = torch.ones_like(di)
 
     def safe_div(num, den):
@@ -126,25 +135,44 @@ def pcr_solve(lo, di, up, b, axis: int = -1):
         return torch.where(zero, 0.0, num / torch.where(zero, 1.0, den))
 
     s = 1
-    for _ in range(steps):
+    for level in range(steps):
         di_m = _shift(di, s, axis, fill=1.0)
         di_p = _shift(di, -s, axis, fill=1.0)
         alpha = safe_div(-lo, di_m)
         beta = safe_div(-up, di_p)
-        b = b + alpha * _shift(b, s, axis) + beta * _shift(b, -s, axis)
-        di = di + alpha * _shift(up, s, axis) + beta * _shift(lo, -s, axis)
+        if level == 0:
+            b_s = b * inv
+            if negated:
+                t = fma(alpha, _shift(b_s, s, axis), b_s)
+            else:
+                t = fma(b, inv, alpha * _shift(b_s, s, axis))
+            b = fma(beta, _shift(b_s, -s, axis), t)
+        elif level < steps - 1:
+            b = fma(beta, _shift(b, -s, axis), fma(alpha, _shift(b, s, axis), b))
+        else:
+            b = fma(beta, _shift(b, -s, axis), b + alpha * _shift(b, s, axis))
+        if level < steps - 1 or steps == 1:
+            di = fma(beta, _shift(lo, -s, axis), fma(alpha, _shift(up, s, axis), di))
+        else:
+            di = fma(beta, _shift(lo, -s, axis), di + alpha * _shift(up, s, axis))
         lo = alpha * _shift(lo, s, axis)
         up = beta * _shift(up, -s, axis)
         s *= 2
+    if steps == 0:
+        return (b * inv) / di
     return b / di
 
 
-def tridiag_solve(lo, di, up, b, method: str = "pcr", axis: int = -1):
+def tridiag_solve(lo, di, up, b, method: str = "pcr", axis: int = -1,
+                  negated: bool = False):
     """Dispatch between :func:`pcr_solve` (default), :func:`thomas_solve`
     (``method='thomas'``, last axis only) and the one-launch batched PCR
     (``method='pcr_fused'``: a 2-D ``(K, n)`` system goes to
     :func:`.pcr_fused.pcr_fused`, any other rank to :func:`pcr_solve`, as in
-    the JAX package). ``axis`` (PCR only) selects the system axis."""
+    the JAX package). ``axis`` (PCR only) selects the system axis;
+    ``negated`` (PCR only) says that ``b`` is a negation, as the Newton
+    update's ``-r`` is, which changes XLA:CPU's first contraction
+    (:func:`pcr_solve`)."""
     if method == "spike":
         raise ValueError(
             "method 'spike' (grid-sharded solve) is not ported yet: ROADMAP "
@@ -158,9 +186,9 @@ def tridiag_solve(lo, di, up, b, method: str = "pcr", axis: int = -1):
             from .pcr_fused import pcr_fused
 
             return pcr_fused(lo, di, up, b)
-        return pcr_solve(lo, di, up, b)
+        return pcr_solve(lo, di, up, b, negated=negated)
     if method == "thomas":
         return thomas_solve(lo, di, up, b)
     if method == "pcr":
-        return pcr_solve(lo, di, up, b, axis=axis)
+        return pcr_solve(lo, di, up, b, axis=axis, negated=negated)
     raise ValueError(f"Unknown tridiagonal solver {method!r}")

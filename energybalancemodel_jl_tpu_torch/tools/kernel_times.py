@@ -32,7 +32,8 @@ kernel alone, from ``torch.profiler``), on the canonical grid
   and, where the checkout has both, its warp and block builds at K=1 and
   K=8192;
 - K10 (``newton_t0``, 6 iterations; its scalars as Python numbers, and as
-  tensors on the device) and K11 (``pcr_fused``) per call at (8192, 180);
+  tensors on the device) and K11 (``pcr_fused``) per call at (8192, 180),
+  and their wide builds per call at (64, 16384) and (64, 32768);
 - the wall time of ``transitions`` (MIZ, K=8192, 3 years, keys/serial) and of
   the 88 K=1 deterministic years its references cost (2 x 40 years of
   ``integrate`` + 8 reference-area years).
@@ -45,8 +46,9 @@ power limit.
 
 ``barriers`` builds and runs ``tools/cluster_sync_bench.cu``: the
 nanoseconds of one barrier phase of a thread-block cluster against a block's.
-``clusters`` times the year kernels' cluster builds at every cluster size
-and as the C side picks it, at the main paths' widths (see its docstring).
+``clusters`` times every cluster build (both year kernels, K10 and K11) at
+every cluster size and as the C side picks it, at the main paths' widths
+(see its docstring).
 
 ``highres`` times the high-resolution MIZ years on the wide build: for each
 grid of ``--miz`` (``nx:nt``; default the two of ``chip_smoke.py`` phase 22,
@@ -101,8 +103,8 @@ def ptxas_rows(log):
     for line in log.splitlines():
         m = re.search(r"(miz_year_kernel|classic_year_kernel|classic_warp_kernel|pcr_kernel|"
                       r"pcr_warp_kernel|newton_t0_kernel|normal_table_kernel|normal_bits_kernel|"
-                      r"classic_cluster_kernel|miz_cluster_kernel|pcr_wide_kernel|"
-                      r"newton_t0_wide_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
+                      r"classic_cluster_kernel|miz_cluster_kernel|pcr_cluster_kernel|"
+                      r"newton_t0_cluster_kernel)(?:I([fd])((?:L[ib]\d+E)*))?",
                       line)
         if m and "entry function" in line:
             args = [{"f": "f32", "d": "f64"}[m.group(2)]] if m.group(2) else []
@@ -317,6 +319,10 @@ def measure(root, flags, rows_wanted):
     step = t(50.0)
     row("K10 newton_t0 f32, scalars on the device",
         lambda: newton_t0(*dargs, max_step=step, iters=6), n=20, kernel="newton_t0_kernel")
+    # their wide builds at chip_smoke.py phase 22's shapes: K11 (64, 32768),
+    # K10 (64, 16384) with 6 iterations, float32
+    for label, fn in wide_solver_calls(torch, dev, torch.float32, mpar, 64):
+        row(label, fn, n=5)
 
     # the wide year kernels at their main paths' shapes (chip_smoke.py phase
     # 22), K=1 float32: the Classic year at nx=32768, nt=1000 from the warm
@@ -359,6 +365,38 @@ def measure(root, flags, rows_wanted):
                 np.ascontiguousarray(res.areas).tobytes()).hexdigest()[:16]}
         print(f"  transitions: {wall:.3f} s", flush=True)
     return result
+
+
+def wide_solver_calls(torch, dev, dtype, mpar, K):
+    """``(label, call)`` of K11 at (K, 32768) and K10 at (K, 16384), 6
+    iterations, on seeded inputs (chip_smoke.py phase 22's)."""
+    from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion_bands
+    from energybalancemodel_jl_tpu_torch.ops.newton_t0 import newton_t0
+    from energybalancemodel_jl_tpu_torch.ops.pcr_fused import pcr_fused
+    from energybalancemodel_jl_tpu_torch.spacetime import SpaceTime
+
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    g = np.random.default_rng(22)
+    n11 = 32768
+    lo, up = g.normal(size=(K, n11)), g.normal(size=(K, n11))
+    di = (np.abs(lo) + np.abs(up) + g.uniform(0.5, 2.0, lo.shape)) * g.choice([-1.0, 1.0],
+                                                                           lo.shape)
+    bands, b = (t(lo), t(di), t(up)), t(g.normal(size=(K, n11)))
+    n10 = 16384
+    st = SpaceTime.sin(n10, 1000, 1)
+    geom = diffusion_bands(st)
+    insol = (mpar["S0"] - mpar["S1"] * st.x * np.cos(2 * np.pi * 0.3)) - mpar["S2"] * st.x ** 2
+    g = np.random.default_rng(12)
+    args = [t(g.normal(-5.0, 5.0, (K, n10))),
+            t(np.abs(g.normal(1.0, 0.5, (K, n10))) + mpar["hmin"]),
+            t(g.normal(0.0, 3.0, (K, n10))), t(g.uniform(0.0, 1.0, (K, n10))),
+            t(np.tile(insol, (K, 1))), t(geom.lo), t(geom.di), t(geom.up),
+            t(np.linspace(0.55, 0.65, K) * (180 ** 2 / 2000) * 2000 / n10 ** 2), mpar["k"],
+            mpar["Tm"], mpar["A"], mpar["B"], mpar["ai"], 0.0]
+    name = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    return [(f"K11 wide pcr_fused {name} ({K}, {n11})", lambda: pcr_fused(*bands, b)),
+            (f"K10 wide newton_t0 {name} ({K}, {n10}) 6 iterations",
+             lambda: newton_t0(*args, max_step=50.0, iters=6))]
 
 
 def compare(parent, out, rows_wanted):
@@ -449,15 +487,16 @@ def barriers(out):
 
 
 def clusters(out):
-    """The cluster builds of the year kernels at C = 2, 4, 8 and 16 (as
-    ``ops._year.FORCE_CLUSTER`` forces it) and as the C side picks, K=1, at
-    the main paths' widths: the Classic year at nx=32768, nt=1000 (float32,
-    float64; CUDA events per year), and the MIZ year at nx=1536 (float32,
-    float64) and nx=16384 (float32) over nt=256 steps with D scaled to the
-    canonical coupling, once with 0 and once with 8 fixed Newton updates a
-    step: the step's cost without updates and the cost of one update (the
-    high-resolution year is nt x (base + u x update), u the updates a step
-    that ``highres`` counts)."""
+    """The cluster builds at C = 2, 4, 8 and 16 (as ``ops._year.FORCE_CLUSTER``
+    forces it) and as the C side picks, at the main paths' widths: the
+    Classic year at nx=32768, nt=1000, K=1 (float32, float64; CUDA events
+    per year); the MIZ year at nx=1536 (float32, float64) and nx=16384
+    (float32) over nt=256 steps with D scaled to the canonical coupling,
+    K=1, once with 0 and once with 8 fixed Newton updates a step: the step's
+    cost without updates and the cost of one update (the high-resolution
+    year is nt x (base + u x update), u the updates a step that ``highres``
+    counts); and K11 at (64, 32768), K10 at (64, 16384) with 6 iterations
+    (float32, float64; CUDA events per call)."""
     sys.path.insert(0, os.path.abspath("."))
     import torch
 
@@ -519,6 +558,24 @@ def clusters(out):
             result["miz"].append(row)
             print(json.dumps(row), flush=True)
     _year.FORCE_CLUSTER["miz_year"] = 0
+    result["solvers"] = []
+    mpar = ebt.default_parameters("MIZ")
+    for dtype in (torch.float32, torch.float64):
+        for (label, fn), (kernel, n) in zip(wide_solver_calls(torch, dev, dtype, mpar, 64),
+                                           (("pcr_fused", 32768), ("newton_t0", 16384))):
+            for C in (2, 4, 8, 16, 0):
+                _year.FORCE_CLUSTER[kernel] = C
+                try:
+                    plan = _year.cluster_plan(kernel, n, 1, 64, dtype, dev)._asdict()
+                except RuntimeError as e:
+                    plan = {"error": str(e)}
+                row = dict(call=label, C=C or "chosen", plan=plan)
+                if "error" not in plan:
+                    fn()
+                    row["ms_per_call"] = event_ms(fn, 5)
+                result["solvers"].append(row)
+                print(json.dumps(row), flush=True)
+            _year.FORCE_CLUSTER[kernel] = 0
     if out:
         with open(out, "w") as fh:
             json.dump(result, fh, indent=1)

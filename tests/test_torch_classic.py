@@ -76,7 +76,8 @@ def test_statics_match_jax(grid):
     par["D"] = np.linspace(0.5, 0.7, 3)[:, None]
     par["S1"] = 330.0  # the JAX package's table takes a scalar S1
     jpar, tpar = both_pars(par)
-    js = jcl.statics(st, jpar, jnp.float64)
+    # as the scan engine computes them: inside jit, from traced parameters
+    js = jax.jit(lambda p: jcl.statics(st, p, jnp.float64))(jpar)
     ts = tcl.statics(st, tpar, T64, CPU)
     for k in ("cg_tau", "dt_tau", "dc", "M", "kLf", "aw", "klo", "kdi", "kup"):
         a, b = np.asarray(js[k]), ts[k].numpy()

@@ -142,11 +142,11 @@ def test_members_equal_solo_runs_bitwise(cuda, dtype):
 
 
 # Newton updates of all members over one canonical year from zero init, as
-# the kernel counted them before its communication layer was redesigned (one
-# barrier per exchange, packed PCR rows, the integer block max): the redesign
-# moves values between threads and changes no iterate
-NEWTON_UPDATES_BEFORE = {(torch.float32, 8192): 18761277, (torch.float32, 1): 2304,
-                         (torch.float64, 8192): 18740968}
+# the kernel counts them with XLA:CPU's fused multiply-adds at their sites
+# (chip_smoke.py's NEWTON_UPDATES): a change to how values move between
+# threads changes no iterate
+NEWTON_UPDATES_BEFORE = {(torch.float32, 8192): 18762098, (torch.float32, 1): 2299,
+                         (torch.float64, 8192): 18740528}
 
 
 @pytest.mark.parametrize("dtype,K", list(NEWTON_UPDATES_BEFORE), ids=lambda v: str(v))
@@ -175,6 +175,15 @@ def test_unsupported_inputs_raise_instead_of_running_the_plain_version(cuda):
                                ebt.zeros_init(wide), n_members=2, device=cuda,
                                progress=False)
     assert miz_year.launches == before
+    # K11 and K10 past their cluster builds' reach
+    solvers = pcr_fused.launches, newton_t0.launches
+    z = lambda n: torch.zeros((2, n), device=cuda)
+    with pytest.raises(ValueError, match="runs nx <= 32768"):
+        pcr_fused(z(32769), z(32769) + 1.0, z(32769), z(32769))
+    with pytest.raises(ValueError, match="runs nx <= 16384"):
+        newton_t0(*(z(16385) for _ in range(5)), *(torch.zeros(16385, device=cuda),) * 3,
+                  0.6, 2.0, 0.0, 2.0, 2.0, 0.6, 0.0)
+    assert (pcr_fused.launches, newton_t0.launches) == solvers
     # nx = 1025, which raised before the wide build, launches it
     wide = ebt.SpaceTime.sin(1025, 10, 1)
     ebt.integrate("MIZ", wide, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
@@ -541,7 +550,7 @@ def test_miz_wide_build_adaptive_newton_single_run_bitwise(cuda, monkeypatch, dt
 
 
 def test_wide_build_loops_over_members_beyond_the_resident_blocks(cuda):
-    K = _year.sm_count(cuda) * _year.WIDE_BLOCKS_PER_SM + 4
+    K = torch.cuda.get_device_properties(cuda).multi_processor_count + 4
     st, par, carry, f = classic_setup(cuda, torch.float32, nx=8192, nt=1000, K=K)
     # more members than clusters resident: each cluster loops over members
     assert K > _year.cluster_plan("classic_year", st.nx, st.nt, K, torch.float32, cuda).clusters
@@ -611,21 +620,26 @@ def test_entry_points_launch_the_wide_builds(cuda):
 
 
 def test_wide_build_workspace_scales_with_resident_blocks(cuda):
-    """The workspace of a wide call: K11's at most one block per SM and a
-    year kernel's cluster build's at most its resident clusters' blocks (none
-    where its records fit in shared memory), whatever K; a cluster build
-    that cannot launch raises; a raw year that would not fit raises naming
-    its size."""
-    sms = _year.sm_count(cuda)
-    blocks, words = _year.wide_workspace("pcr_fused", 32768, 8192, sms)
-    assert (blocks, words) == (sms * _year.WIDE_BLOCKS_PER_SM,
-                               _year.wide_words("pcr_fused", 32768))
-    for dtype in (torch.float32, torch.float64):
-        plan = _year.cluster_plan("classic_year", 32768, 1000, 8192, dtype, cuda)
-        blocks, words = _year.wide_workspace("classic_year", 32768, 8192, sms, plan)
-        assert plan.C * plan.clusters <= sms and plan.shared_bytes <= _year.MAX_SHARED_BYTES
-        assert (blocks, words) == ((0, 0) if plan.records_shared else (
-            plan.clusters * plan.C, _year.wide_words("classic_year", 32768, plan.C)))
+    """The workspace of a wide call: a cluster build's at most its resident
+    clusters' blocks (none where its records fit in shared memory, K11's
+    always), whatever K; a cluster build that cannot launch raises; a raw
+    year that would not fit raises naming its size."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kernel, n in (("classic_year", 32768), ("pcr_fused", 32768), ("newton_t0", 16384)):
+        for dtype in (torch.float32, torch.float64):
+            plan = _year.cluster_plan(kernel, n, 1000, 8192, dtype, cuda)
+            blocks, words = _year.wide_workspace(kernel, n, 8192, plan)
+            assert plan.C * plan.clusters <= sms and plan.shared_bytes <= _year.MAX_SHARED_BYTES
+            assert (blocks, words) == ((0, 0) if plan.records_shared else (
+                plan.clusters * plan.C, _year.wide_words(kernel, n, plan.C)))
+            assert plan.records_shared or kernel != "pcr_fused"
+    with pytest.MonkeyPatch.context() as mp:
+        # K10 in float64 at C = 8: 2048 cells a block, the records in device memory
+        mp.setitem(_year.FORCE_CLUSTER, "newton_t0", 8)
+        plan = _year.cluster_plan("newton_t0", 16384, 1, 64, torch.float64, cuda)
+        assert not plan.records_shared
+        assert _year.wide_workspace("newton_t0", 16384, 64, plan) == (
+            min(64, plan.clusters) * 8, _year.wide_words("newton_t0", 16384, 8))
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(_year.FORCE_CLUSTER, "classic_year", 2)  # 16384 cells a block
         with pytest.raises(RuntimeError, match="cannot launch"):
@@ -636,3 +650,50 @@ def test_wide_build_workspace_scales_with_resident_blocks(cuda):
         miz_year(carry, ebt.default_parameters("MIZ"), torch.zeros(st.nt, device=cuda), st,
                  default_step_config("float32"), collect_raw=True)
 
+
+
+# K11 and K10 above 4096 rows: the cluster builds, at the C side's choice (0)
+# and forced C; a C whose plan cannot launch raises, it never falls back
+@pytest.mark.parametrize("C", [0, 2, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel,n", [("pcr_fused", 32768), ("pcr_fused", 8193),
+                                      ("newton_t0", 16384), ("newton_t0", 6000)])
+def test_k10_k11_cluster_builds_match_plain_bitwise(cuda, kernel, n, dtype, C, monkeypatch):
+    monkeypatch.setitem(_year.FORCE_CLUSTER, kernel, C)
+    rng = np.random.default_rng(n + C)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=cuda)
+    try:
+        plan = _year.cluster_plan(kernel, n, 1, 8, dtype, cuda)
+    except RuntimeError:
+        assert C > 0  # the C side's own choice always launches
+        K = 8
+        plan = None
+    else:
+        # more systems than clusters resident: each cluster loops over them
+        K = plan.clusters + 3
+    if kernel == "pcr_fused":
+        lo, up = rng.normal(size=(K, n)), rng.normal(size=(K, n))
+        di = (np.abs(lo) + np.abs(up) + 1.0) * rng.choice([-1.0, 1.0], (K, n))
+        args = [t(lo), t(di), t(up), t(rng.normal(size=(K, n)))]
+        run, plain = pcr_fused, pcr_solve
+        one = lambda m: [a[m:m + 1] for a in args]
+    else:
+        par = ebt.default_parameters("MIZ")
+        glo, gup = rng.uniform(0.5, 2.0, n), rng.uniform(0.5, 2.0, n)
+        glo[0] = gup[-1] = 0.0
+        args = [t(rng.normal(-5.0, 5.0, (K, n))), t(np.abs(rng.normal(1.0, 0.5, (K, n))) + 0.1),
+                t(rng.normal(0.0, 3.0, (K, n))), t(rng.uniform(0.0, 1.0, (K, n))),
+                t(rng.uniform(100.0, 400.0, (K, n))), t(glo), t(-(glo + gup)), t(gup),
+                t(np.linspace(0.5, 0.7, K)), par["k"], par["Tm"], par["A"], par["B"],
+                par["ai"], 0.7]
+        run = lambda *a: newton_t0(*a, max_step=50.0, iters=3)
+        plain = lambda *a: newton_t0_reference(*a, max_step=50.0, iters=3)
+        one = lambda m: [a[m:m + 1] for a in args[:5]] + args[5:8] + [args[8][m:m + 1]] + args[9:]
+    if plan is None:
+        with pytest.raises(RuntimeError, match="cannot launch"):
+            run(*args)
+        return
+    x = run(*args)
+    assert bitwise(x, plain(*args))
+    for m in (0, K - 1):
+        assert bitwise(run(*one(m))[0], x[m])

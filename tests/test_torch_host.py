@@ -79,6 +79,22 @@ def test_zeros_init_and_solutions_helpers_match_jax():
     np.testing.assert_array_equal(ebm.annual_mean(raw)["E"], ebt.annual_mean(raw)["E"])
 
 
+@pytest.mark.parametrize("module", ["models", "utils"])
+def test_public_names_of_models_and_utils_match_jax(module):
+    """The port's ``models`` and ``utils`` export what the JAX package's do,
+    each name bound to something of the same kind."""
+    import importlib
+
+    jax_mod = importlib.import_module(f"energybalancemodel_jl_tpu.{module}")
+    port_mod = importlib.import_module(f"energybalancemodel_jl_tpu_torch.{module}")
+    assert set(port_mod.__all__) == set(jax_mod.__all__)
+    for name in jax_mod.__all__:
+        assert callable(getattr(port_mod, name)) == callable(getattr(jax_mod, name)), name
+    # the JAX registry may hold test-only models other test files registered
+    assert ebt.models.available_models() == ["Classic", "MIZ"]
+    assert set(ebt.models.available_models()) <= set(ebm.models.available_models())
+
+
 def test_collection_is_a_plain_dot_dict():
     c = ebt.Collection(D=0.6)
     c.F = 1.0

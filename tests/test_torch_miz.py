@@ -115,15 +115,21 @@ def test_canonical_first_80_steps_match_jax():
     jpar, tpar = both_pars(par)
     init = ebt.zeros_init(st)
 
-    js = jmiz.statics(st, jpar, jnp.float64)
     cfg = jcfg("float64")
 
     @jax.jit
-    def jax_steps(carry):
+    def jax_steps(carry, p):
+        # the scan engine's graph (integrate.make_year_fn) cut to the window:
+        # statics from the traced parameters, the first step peeled
+        js = jmiz.statics(st, p, jnp.float64)
         xs = dict(insol=js.insol[:n_steps], f=jnp.zeros(n_steps))
-        return lax.scan(lambda c, x: jmiz.step(c, x, js, jpar, cfg), carry, xs)
+        carry, out0 = jmiz.step(carry, jax.tree_util.tree_map(lambda v: v[0], xs), js, p, cfg)
+        carry, outs = lax.scan(lambda c, x: jmiz.step(c, x, js, p, cfg), carry,
+                               jax.tree_util.tree_map(lambda v: v[1:], xs))
+        return carry, jax.tree_util.tree_map(lambda a, b: jnp.concatenate([a[None], b]),
+                                             out0, outs)
 
-    jcarry, jouts = jax_steps(jmiz.init_carry(init, st, jnp.float64))
+    jcarry, jouts = jax_steps(jmiz.init_carry(init, st, jnp.float64), jpar)
 
     ts = tmiz.statics(st, tpar, T64, CPU)
     tcfg = default_step_config("float64")

@@ -209,7 +209,8 @@ def test_kernel_build_is_keyed_by_headers_too(tmp_path):
         assert '#include "newton.cuh"' in text and "t0_residual_bands<" in text, user
     exported = {"ebm_cuda_error_string", "ebm_normal_table", "ebm_normal_bits"} | {
         f"ebm_{k}_{d}" for k in ("miz_year", "classic_year", "pcr", "newton_t0",
-                                 "miz_year_plan", "classic_year_plan")
+                                 "miz_year_plan", "classic_year_plan", "pcr_plan",
+                                 "newton_t0_plan")
         for d in ("f32", "f64")}
     assert set(_build._SIGNATURES) == exported
     for src in _build._sources():

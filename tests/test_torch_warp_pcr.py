@@ -24,6 +24,7 @@ import torch
 
 from energybalancemodel_jl_tpu_torch.ops import _year
 from energybalancemodel_jl_tpu_torch.ops.tridiag import pcr_solve, pcr_steps
+from energybalancemodel_jl_tpu_torch.utils.numerics import fma as fma_t
 
 NS = [1, 2, 31, 32, 33, 180, 255, 256]
 LANES = np.arange(32)
@@ -55,14 +56,30 @@ def safe_div(num, den):
         return np.where(den == 0, num.dtype.type(0), num / np.where(den == 0, 1, den))
 
 
-def warp_row(lo, di, up, b, m, p, first):
-    """``common.cuh::warp_pcr_row`` on whole slots (numpy arrays of one
-    dtype, each operation rounded to it); ``m`` and ``p`` are the neighbours'
-    (lo, di, up, b). Returns the row's new (lo, di, up, b)."""
-    alpha = -lo if first else safe_div(-lo, m[1])
-    beta = -up if first else safe_div(-up, p[1])
-    return (alpha * m[0], di + alpha * m[2] + beta * p[0], beta * p[2],
-            b + alpha * m[3] + beta * p[3])
+def fma(a, b, c):
+    """``a * b + c`` with one rounding, on numpy arrays of one dtype."""
+    a, b, c = (torch.from_numpy(np.ascontiguousarray(np.broadcast_to(v, np.shape(a))))
+               for v in (a, b, c))
+    return fma_t(a, b, c).numpy()
+
+
+def warp_row(lo, di, up, b, m, p, kind):
+    """``common.cuh::pcr_row_update`` (through ``warp_pcr_row``) on whole
+    slots (numpy arrays of one dtype, each operation rounded to it, the
+    fused multiply-adds of ``tridiag.pcr_solve`` made once); ``m`` and ``p``
+    are the neighbours' (lo, di, up, b), ``kind`` the level's: "first"
+    (rows (lo / di, 1 / di, up / di, b)), "mid" or "last". Returns the row's
+    new (lo, di, up, b)."""
+    t = lo.dtype.type
+    if kind == "first":
+        alpha, beta = -lo, -up
+        return (alpha * m[0], fma(beta, p[0], fma(alpha, m[2], t(1))), beta * p[2],
+                fma(beta, p[3] * p[1], fma(b, di, alpha * (m[3] * m[1]))))
+    alpha = safe_div(-lo, m[1])
+    beta = safe_div(-up, p[1])
+    bb = fma(alpha, m[3], b) if kind == "mid" else b + alpha * m[3]
+    dd = fma(alpha, m[2], di) if kind == "mid" else di + alpha * m[2]
+    return alpha * m[0], fma(beta, p[0], dd), beta * p[2], fma(beta, p[3], bb)
 
 
 def emulate_warp_pcr(lo, di, up, b, n, S):
@@ -75,12 +92,14 @@ def emulate_warp_pcr(lo, di, up, b, n, S):
     for k, band in enumerate((lo, di, up, b)):
         rows[k].reshape(-1)[:n] = band
     live = (LANES[None, :] + 32 * np.arange(S)[:, None]) < n
-    # row scaling (identity rows stay as they are)
+    # row scaling, the first level's rows (lo / di, 1 / di, up / di, b);
+    # identity rows stay as they are
     inv = t(1) / rows[1]
-    rows[0], rows[2], rows[3] = rows[0] * inv, rows[2] * inv, rows[3] * inv
-    rows[1] = t(1)
-    for level in range(pcr_steps(n)):
-        st, first = 1 << level, level == 0
+    rows[0], rows[2], rows[1] = rows[0] * inv, rows[2] * inv, inv
+    steps = pcr_steps(n)
+    for level in range(steps):
+        st = 1 << level
+        kind = "first" if level == 0 else ("mid" if level + 1 < steps else "last")
         old = rows.copy()
         for s in range(S):
             if st < 32:
@@ -100,23 +119,32 @@ def emulate_warp_pcr(lo, di, up, b, n, S):
             # the kernel's slot order guarantees
             new_lo, new_di, new_up, new_b = warp_row(old[0, s], old[1, s], old[2, s], old[3, s],
                                                      [m[0], m[1], m[2], m[3]],
-                                                     [p[0], p[1], p[2], p[3]], first)
+                                                     [p[0], p[1], p[2], p[3]], kind)
             for k, v in enumerate((new_lo, new_di, new_up, new_b)):
                 rows[k, s] = np.where(live[s], v, rows[k, s])
+    if steps == 0:  # one row: b * inv over the diagonal 1
+        rows[3], rows[1] = rows[3] * rows[1], t(1)
     return (rows[3] / rows[1]).reshape(-1)[:n]
 
 
 def test_warp_row_is_pcr_level_order():
-    """``warp_row`` keeps ``pcr_level``'s operand order: (b + alpha m.b) +
-    beta p.b, (di + alpha m.up) + beta p.lo, then the new bands."""
+    """``warp_row`` keeps ``pcr_level``'s operand order and fused
+    multiply-adds: between the first and the last level fma(beta, p.b,
+    fma(alpha, m.b, b)) and fma(beta, p.lo, fma(alpha, m.up, di)); at the
+    last, alpha's products rounded; then the new bands."""
     one = lambda v: np.array([v], np.float64)
+    f = lambda a, b, c: fma(one(a), one(b), one(c))[0]
     lo, di, up, b = one(0.3), one(1.0), one(-0.2), one(0.7)
     m = [one(0.1), one(1.5), one(0.4), one(2.0)]  # lo, di, up, b
     p = [one(-0.5), one(0.8), one(0.9), one(-1.0)]
     alpha, beta = -0.3 / 1.5, 0.2 / 0.8
-    got = warp_row(lo, di, up, b, m, p, False)
-    want = (alpha * 0.1, (1.0 + alpha * 0.4) + beta * -0.5, beta * 0.9,
-            (0.7 + alpha * 2.0) + beta * -1.0)
+    got = warp_row(lo, di, up, b, m, p, "mid")
+    want = (alpha * 0.1, f(beta, -0.5, f(alpha, 0.4, 1.0)), beta * 0.9,
+            f(beta, -1.0, f(alpha, 2.0, 0.7)))
+    assert all(bits_equal(g, one(w)) for g, w in zip(got, want))
+    got = warp_row(lo, di, up, b, m, p, "last")
+    want = (alpha * 0.1, f(beta, -0.5, 1.0 + alpha * 0.4), beta * 0.9,
+            f(beta, -1.0, 0.7 + alpha * 2.0))
     assert all(bits_equal(g, one(w)) for g, w in zip(got, want))
 
 
