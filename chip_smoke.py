@@ -149,12 +149,24 @@ failure):
     resumed bitwise (2 + 1 launches), ``integrate('MIZ',
     SpaceTime.sin(1536, 147456, 1), raw_mode='none')`` (1 launch, every
     store finite), and the batched engine at the wide widths through K11
-    and K10; the script's total seconds.
+    and K10;
+23. the multi-device layer on a mesh of four shards on the card (a device
+    repeated: a thread and a CUDA stream per shard): ``ensemble_integrate
+    (mesh=)`` MIZ and Classic at the main path's shape (K=8192, f32, one
+    year; one kernel launch per shard) and ``transitions(mesh=)`` in the
+    keys mode, each bitwise its unsharded run; SPIKE and the sharded stencil
+    at n=32768 against ``pcr_solve`` and ``diffusion``; ``spatial_integrate``
+    MIZ at ``SpaceTime.sin(16384, 64, 1)`` (f64, D scaled) and
+    ``ensemble_spatial_integrate`` on a (2, 2) mesh (K=64,
+    ``SpaceTime.sin(2048, 64, 1)``) against the unsharded eager runs at the
+    JAX package's bars (rtol 1e-8, atol 1e-9); each path's wall beside the
+    unsharded one; the script's total seconds.
 
 The line before the last is the kernel table as JSON (each kernel's time,
 plain time, launches on its path, the least time the card could take for its
 work, ``bound_ms``, and a library call's time where one PyTorch call computes
-the same function); the last line is
+the same function; ``launches_mesh``: its launches on phase 23's paths); the
+last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -1323,13 +1335,17 @@ def checkpoint_phase(dev, smi):
     return out
 
 
-def _held_plain_task(model, dtype, carry, par, f, cfg, kw):
-    """One of phase 14's plain years, in a process of its own: ``model``'s
-    plain version on the canonical grid for the held members (numpy inputs:
-    the carry, the forcing row, the keyword modes with their arrays), on
-    the card. Returns ``((carry, seasonal, rest), ms)``: the results as
-    numpy (``rest`` the year-end OU value and the crossing steps, where the
-    mode has them) and the year's milliseconds on the host clock."""
+def _held_plain_task(model, dtype, carry, par, f, cfg, kw, shape=CANONICAL, n_years=1,
+                     raw_last=False):
+    """One plain year (or ``n_years``) in a process of its own: ``model``'s
+    plain version at ``SpaceTime.sin(*shape, 1)`` (numpy inputs: the carry,
+    the forcing row, the keyword modes with their arrays), on the card; with
+    ``raw_last`` the last year is raw-collected. Phases 7 and 12 hold their
+    small-grid kernels against these, phase 14 its held members. Returns
+    ``((carry, seasonal, rest), ms)``: the last year's results as numpy
+    (``rest`` the raw steps, or the year-end OU value and the crossing
+    steps, where the year has them) and the years' milliseconds on the host
+    clock."""
     import torch
 
     import energybalancemodel_jl_tpu_torch as ebt
@@ -1350,16 +1366,30 @@ def _held_plain_task(model, dtype, carry, par, f, cfg, kw):
         else:
             args[k] = t(v)
     plain = miz_year_reference if model == "MIZ" else classic_year_reference
-    st = ebt.SpaceTime.sin(*CANONICAL, 1)
+    st = ebt.SpaceTime.sin(*shape, 1)
     carry = ebt.Collection({k: t(v) for k, v in carry.items()})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = plain(carry, par, t(f), st, cfg, **args)
+    for y in range(n_years):
+        out = plain(carry, par, t(f), st, cfg, collect_raw=raw_last and y == n_years - 1,
+                    **args)
+        carry = out[0]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     cpu = lambda c: {k: v.cpu().numpy() for k, v in c.items()}
-    return (cpu(out[0]), [cpu(c) for c in out[1]],
-            [None if v is None else v.cpu().numpy() for v in out[3:]]), ms
+    rest = [None if v is None else cpu(v) if isinstance(v, dict) else v.cpu().numpy()
+            for v in out[3:]]
+    return (cpu(out[0]), [cpu(c) for c in out[1]], rest), ms
+
+
+def _plain_pool(tasks):
+    """``_held_plain_task`` over ``tasks`` (argument tuples), at most eight
+    at once, each in a spawned process of its own: the plain years are bound
+    by the host's launches, one core each."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(min(len(tasks), 8)) as pool:
+        return pool.starmap(_held_plain_task, tasks)
 
 
 # -- phase 22: the high-resolution runs ---------------------------------------
@@ -1880,6 +1910,212 @@ def highres_phase(dev, smi):
     return out
 
 
+# -- phase 23: the multi-device layer (M14) on one card ------------------------
+# A mesh of MESH_SHARDS shards on cuda:0 (a device repeated: each shard a
+# thread of its own with a CUDA stream of its own). The member-sharded paths
+# run at the main path's shape and are bitwise their unsharded runs (members
+# equal solo runs on the kernels); the grid-sharded paths are held to the JAX
+# package's own sharded-against-unsharded bars. MIZ's explicit Tb diffusion
+# needs D nx^2 / nt near the canonical grid's (phase 22), so the grid-sharded
+# MIZ runs scale D to it
+MESH_SHARDS = 4
+MESH_SPATIAL = (16384, 64)  # the JAX package's MIZ fused reach, float64
+MESH_GRID2D = (2048, 64, 64, (2, 2))  # nx, nt, K, mesh shape
+MESH_SPIKE_N = 32768
+BAR_GRID_RTOL, BAR_GRID_ATOL = 1e-8, 1e-9  # JAX tests/test_spatial.py:58-90
+BAR_SPIKE = 1e-12  # spike and sharded diffusion vs pcr_solve/diffusion, normwise relative
+
+
+def mesh_phase(dev, smi, K=K_MAIN, canonical=CANONICAL, spatial=MESH_SPATIAL,
+               grid2d=MESH_GRID2D, spike_n=MESH_SPIKE_N):
+    """Phase 23; the shapes are arguments so that a rehearsal on the CPU can
+    run it small (there it holds no launch counts). Returns the launches of
+    each mesh path and the walls."""
+    import torch
+
+    import energybalancemodel_jl_tpu_torch as ebt
+    from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
+    from energybalancemodel_jl_tpu_torch.ops.diffusion import diffusion
+    from energybalancemodel_jl_tpu_torch.ops.miz_year import miz_year
+    from energybalancemodel_jl_tpu_torch.ops.tridiag import pcr_solve, tridiag_solve
+    from energybalancemodel_jl_tpu_torch.parallel import mesh as M
+    from energybalancemodel_jl_tpu_torch.parallel.grid2d import (ensemble_spatial_integrate,
+                                                                 grid2d_mesh)
+    from energybalancemodel_jl_tpu_torch.parallel.halo import grid_mesh, sharded_diffusion
+    from energybalancemodel_jl_tpu_torch.parallel.sharding import ensemble_mesh
+    from energybalancemodel_jl_tpu_torch.parallel.spatial import spatial_integrate
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    mesh = ensemble_mesh(MESH_SHARDS, device=dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    zn = lambda a: np.nan_to_num(np.asarray(a, dtype=np.float64))
+    run = {"walls": {}}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def launches(counter, fn, want, what):
+        """``fn()`` with ``counter``'s count set to 0 just before and read
+        just after; on the card it must be ``want``."""
+        counter.launches = 0
+        out, wall = timed(fn)
+        n = counter.launches
+        if on_card and n != want:
+            fail(f"phase 23 {what}: {n} {counter.__name__} launches, {want} expected")
+        return out, wall, n
+
+    def same_tree(a, b, what):
+        for k in a:
+            if not np.array_equal(np.asarray(a[k]), np.asarray(b[k]), equal_nan=True):
+                fail(f"phase 23 {what}: {k} differs from the unsharded run")
+
+    def in_turns(counter, unsharded, sharded, want, what):
+        """Unsharded, sharded, sharded, unsharded (the first call of each
+        pays first-use costs); the launches of every sharded call held to
+        ``want``. Returns both results and the walls of the second turns."""
+        ref, _, _ = launches(counter, unsharded, want[0], what + " unsharded")
+        got, _, n = launches(counter, sharded, want[1], what)
+        _, wall_s, _ = launches(counter, sharded, want[1], what)
+        _, wall_u, _ = launches(counter, unsharded, want[0], what + " unsharded")
+        return ref, got, wall_s, wall_u, n
+
+    # (a) the fused ensembles, one year, members split over the shards
+    st1 = ebt.SpaceTime.sin(*canonical, 1)
+    for model, year in (("MIZ", miz_year), ("Classic", classic_year)):
+        par = ebt.default_parameters(model)
+        par["D"] = np.linspace(0.55, 0.65, K)
+        init = (ebt.zeros_init(st1) if model == "MIZ" else
+                ebt.Collection(E=np.full(st1.nx, 30.0), Tg=np.full(st1.nx, 30.0 / par["cw"])))
+        kw = dict(engine="fused", dtype="float32", progress=False)
+        ref, got, wall4, wall1, n = in_turns(
+            year, lambda: ebt.ensemble_integrate(model, st1, ebt.Forcing(0.0), par, init,
+                                                 device=dev, **kw),
+            lambda: ebt.ensemble_integrate(model, st1, ebt.Forcing(0.0), par, init, mesh=mesh,
+                                           **kw),
+            (1, MESH_SHARDS), f"{model} ensemble_integrate(mesh=)")
+        for store in ("winter", "summer", "avg"):
+            same_tree(getattr(got.seasonal, store), getattr(ref.seasonal, store),
+                      f"{model} {store}")
+        run[model] = n
+        run["walls"][f"ensemble_integrate {model}"] = (wall4, wall1)
+        say(23, f"ensemble_integrate({model!r}, {st1!r}, K={K}, f32, engine='fused', "
+                f"mesh={MESH_SHARDS} shards on {dev}): {n} {year.__name__} launches (one per "
+                f"shard), every seasonal store bitwise the unsharded year; wall {wall4:.3f} s "
+                f"sharded, {wall1:.3f} s unsharded (the second of each, in turns); {smi}")
+
+    # (b) transitions, keys mode (K7), one year, from the states of two
+    # 40-year runs (phase 13's references)
+    mpar = ebt.default_parameters("MIZ")
+    st40 = ebt.SpaceTime.sin(*canonical, 40)
+    refs = []
+    for F in (15.0, -25.0):
+        sol = ebt.integrate("MIZ", st40, ebt.Forcing(F), mpar, ebt.zeros_init(st40),
+                            dtype="float32", device=dev, progress=False)
+        refs.append(ebt.Collection({k: sol.raw[k][-1] for k in ("Ei", "Ew", "h", "D", "phi")}))
+    tkw = dict(sigma=4.0, tau=0.05, K=K, seed=0, dtype="float32", years=1, engine="fused")
+    # each run: its year plus one deterministic reference year per attractor
+    ref, got, wall4, wall1, n = in_turns(
+        miz_year, lambda: ebt.transitions("MIZ", st1, ebt.Forcing(0.0), mpar, *refs,
+                                          device=dev, **tkw),
+        lambda: ebt.transitions("MIZ", st1, ebt.Forcing(0.0), mpar, *refs, mesh=mesh, **tkw),
+        (3, 2 + MESH_SHARDS), "transitions(mesh=)")
+    same_tree(got.state, ref.state, "transitions state")
+    for name in ("areas", "eta", "labels"):
+        if not np.array_equal(getattr(got, name), getattr(ref, name), equal_nan=True):
+            fail(f"phase 23 transitions(mesh=): {name} differs from the unsharded run")
+    run["transitions"] = n - 2
+    run["walls"]["transitions MIZ keys"] = (wall4, wall1)
+    say(23, f"transitions('MIZ', {st1!r}, K={K}, keys/serial, 1 year, mesh={MESH_SHARDS}): "
+            f"{n - 2} noisy miz_year launches (one per shard) + 2 reference years, areas, eta, "
+            f"labels and the final state bitwise the unsharded run; wall {wall4:.3f} s "
+            f"sharded, {wall1:.3f} s unsharded")
+
+    # (c) spike and the sharded stencil at spike_n rows, float64
+    g = np.random.default_rng(23)
+    lo, up = g.normal(size=spike_n), g.normal(size=spike_n)
+    lo[0] = up[-1] = 0.0
+    di = np.abs(lo) + np.abs(up) + 1.0 + g.uniform(0, 1, spike_n)
+    bands = [torch.as_tensor(v, device=dev) for v in (lo, di, up, g.normal(size=spike_n))]
+    gmesh = grid_mesh(MESH_SHARDS, device=dev)
+    spike = M.shard_map(lambda *a: tridiag_solve(*a, method="spike", axis_name="x"), gmesh,
+                        (M.P("x"),) * 4, M.P("x"))
+    spike(*bands)  # the first call pays the dense solver's set-up
+    (xs, ws), (xp, wp) = timed(lambda: spike(*bands)), timed(lambda: pcr_solve(*bands))
+    e_spike = float((xs - xp).abs().max() / xp.abs().max())
+    st_d = ebt.SpaceTime.sin(spike_n, 64, 1)
+    T = torch.as_tensor(g.normal(size=spike_n) * 30.0, device=dev)
+    (ds, wds), (dp, wdp) = (timed(lambda: sharded_diffusion(st_d, gmesh)(T, 0.6)),
+                            timed(lambda: diffusion(T, st_d, {"D": 0.6})))
+    e_diff = float((ds - dp).abs().max() / dp.abs().max())
+    if not (e_spike <= BAR_SPIKE and e_diff <= BAR_SPIKE):
+        fail(f"phase 23: spike {e_spike:.3e} or sharded diffusion {e_diff:.3e} past "
+             f"{BAR_SPIKE:g} of pcr_solve/diffusion")
+    run["walls"]["spike"], run["walls"]["sharded_diffusion"] = (ws, wp), (wds, wdp)
+    say(23, f"spike (n={spike_n}, f64, {MESH_SHARDS} shards) vs pcr_solve: {e_spike:.3e}; "
+            f"sharded_diffusion vs diffusion: {e_diff:.3e} (bar {BAR_SPIKE:g} normwise); wall "
+            f"spike {ws * 1e3:.1f} ms, pcr_solve {wp * 1e3:.1f} ms, sharded_diffusion "
+            f"{wds * 1e3:.1f} ms, diffusion {wdp * 1e3:.1f} ms")
+
+    # (d) a grid-sharded MIZ run (halo exchange and SPIKE inside Newton)
+    def scaled(nx, nt):
+        par = ebt.default_parameters("MIZ")
+        par["D"] = par["D"] * COUPLING * nt / nx ** 2
+        return ebt.SpaceTime.sin(nx, nt, 1), par
+
+    st_s, par_s = scaled(*spatial)
+    args = ("MIZ", st_s, ebt.Forcing(0.0), par_s, ebt.zeros_init(st_s))
+    kw = dict(lastonly=False, progress=False, dtype="float64")
+    got, wall4 = timed(lambda: spatial_integrate(*args, mesh=gmesh, **kw))
+    ref, wall1 = timed(lambda: ebt.integrate(*args, engine="scan", device=dev, **kw))
+    worst = 0.0
+    for k in ref.raw:
+        a, b = zn(got.raw[k]), zn(ref.raw[k])
+        if not np.isfinite(a).all():
+            fail(f"phase 23 spatial_integrate: {k} is not finite")
+        if not np.allclose(a, b, rtol=BAR_GRID_RTOL, atol=BAR_GRID_ATOL):
+            fail(f"phase 23 spatial_integrate: raw {k} differs from the unsharded run by "
+                 f"{np.max(np.abs(a - b)):.3e}")
+        worst = max(worst, float(np.max(np.abs(a - b))))
+    run["walls"]["spatial_integrate MIZ"] = (wall4, wall1)
+    say(23, f"spatial_integrate('MIZ', {st_s!r}, D scaled, f64, {MESH_SHARDS} grid shards) vs "
+            f"the unsharded eager integrate on the card: every raw step within rtol "
+            f"{BAR_GRID_RTOL:g} atol {BAR_GRID_ATOL:g} (max |diff| {worst:.3e}); wall "
+            f"{wall4:.1f} s sharded, {wall1:.1f} s unsharded")
+
+    # (e) members x grid on a 2-D mesh against the batched ensemble
+    nx, nt, K2, shape = grid2d
+    st_g, par_g = scaled(nx, nt)
+    par_g["D"] = np.linspace(par_g["D"], 1.1 * par_g["D"], K2)
+    kw = dict(progress=False, dtype="float64")
+    got, wall4 = timed(lambda: ensemble_spatial_integrate(
+        "MIZ", st_g, ebt.Forcing(0.0), par_g, ebt.zeros_init(st_g),
+        mesh=grid2d_mesh(*shape, device=dev), **kw))
+    ref, wall1 = timed(lambda: ebt.ensemble_integrate(
+        "MIZ", st_g, ebt.Forcing(0.0), par_g, ebt.zeros_init(st_g), engine="batched",
+        device=dev, **kw))
+    worst = 0.0
+    for store in ("winter", "summer", "avg"):
+        for k, b in getattr(ref.seasonal, store).items():
+            a = zn(getattr(got.seasonal, store)[k])
+            if not np.allclose(a, zn(b), rtol=BAR_GRID_RTOL, atol=BAR_GRID_ATOL):
+                fail(f"phase 23 ensemble_spatial_integrate: {store}.{k} differs from the "
+                     f"batched ensemble by {np.max(np.abs(a - zn(b))):.3e}")
+            worst = max(worst, float(np.max(np.abs(a - zn(b)))))
+    run["walls"]["ensemble_spatial_integrate MIZ"] = (wall4, wall1)
+    say(23, f"ensemble_spatial_integrate('MIZ', {st_g!r}, K={K2}, D scaled and swept, f64, "
+            f"mesh {shape}) vs the batched ensemble on the card: every seasonal store within "
+            f"rtol {BAR_GRID_RTOL:g} atol {BAR_GRID_ATOL:g} (max |diff| {worst:.3e}); wall "
+            f"{wall4:.1f} s sharded, {wall1:.1f} s unsharded")
+    say(23, f"phase 23: {time.perf_counter() - t_phase:.1f} s; walls (sharded, unsharded) s: "
+            + json.dumps(run["walls"]))
+    return run
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2190,21 +2426,40 @@ def main():
         finally:
             classic_mod.WARP_MIN_K = saved
 
-    wsmall = {}
+    def from_pool(result):
+        """A pooled plain year's results as tensors on the card, in the
+        order ``compare`` reads (carry, seasonal stores, -, the rest)."""
+        (carry, seasonal, rest), _ = result
+        on = lambda c: ebt.Collection({k: torch.as_tensor(v, device=dev) for k, v in c.items()})
+        return (on(carry), tuple(on(c) for c in seasonal), None,
+                *(None if v is None else on(v) if isinstance(v, dict)
+                  else torch.as_tensor(v, device=dev) for v in rest))
+
+    to_np = lambda c: {k: v.cpu().numpy() for k, v in c.items()}
+    small, small_tasks = [], []
     for dtype in (torch.float64, torch.float32):
         for warm, build in ((True, "warp"), (False, "warp"), (True, "block")):
             st, par, carry, f = classic_setup(40, 1000, 8, dtype, warm, ("D", "S1", "F"))
             out_k = on_build(build, lambda: years(classic_year, carry, par, f, st, cfg_of(dtype),
                                                   2, raw_last=True))
-            out_p = years(classic_year_reference, carry, par, f, st, cfg_of(dtype), 2,
-                          raw_last=True)
             label = (f"classic {dtype_name(dtype)} nx=40 {'warm' if warm else 'zeros'} "
                      f"{build} build")
-            w = compare(out_k, out_p, label, BAR_BITWISE)
-            wsmall[label] = max(w.values())
-            say(7, f"{label} nt=1000 K=8 D,S1,F swept 2y (year 2 raw-collected): "
-                   f"max|kernel-plain| carry={w['carry']:.3e} seasonal={w['seasonal']:.3e} "
-                   f"raw={w['raw']:.3e} (bar {BAR_BITWISE}: bitwise)")
+            small.append((label, out_k))
+            small_tasks.append(("Classic", dtype_name(dtype), to_np(carry), dict(par),
+                                f.cpu().numpy(), cfg_of(dtype), {}, (40, 1000), 2, True))
+    # the plain years at once, each in a process of its own
+    t_pool = time.perf_counter()
+    small_plain = _plain_pool(small_tasks)
+    say(7, f"the {len(small_tasks)} plain pairs of years in processes of their own: "
+           f"{time.perf_counter() - t_pool:.1f} s wall")
+    wsmall = {}
+    for (label, out_k), res in zip(small, small_plain):
+        w = compare(out_k, from_pool(res), label, BAR_BITWISE)
+        wsmall[label] = max(w.values())
+        say(7, f"{label} nt=1000 K=8 D,S1,F swept 2y (year 2 raw-collected): "
+               f"max|kernel-plain| carry={w['carry']:.3e} seasonal={w['seasonal']:.3e} "
+               f"raw={w['raw']:.3e} (bar {BAR_BITWISE}: bitwise)")
+    del small, small_plain
 
     st, par, carry_c, f = classic_setup(*CANONICAL, K_MAIN, torch.float32)
     ck_out = years(classic_year, carry_c, par, f, st, cfg_of(torch.float32), 1)
@@ -2481,20 +2736,36 @@ def main():
                 fail(f"{label}: {name} differs")
         return max(worst.values())
 
-    noise_err = {}
-    for model, year, plain, mk in (("MIZ", miz_year, miz_year_reference, setup),
-                                   ("Classic", classic_year, classic_year_reference,
-                                    lambda nx, nt, K, dtype: classic_setup(nx, nt, K, dtype))):
+    def kw_np(kw):
+        """A noise mode's keywords with host arrays for a pooled plain year."""
+        conv = lambda v: v.cpu().numpy() if torch.is_tensor(v) else v
+        return {k: tuple(conv(x) for x in v) if isinstance(v, tuple) else conv(v)
+                for k, v in kw.items()}
+
+    noisy, noisy_tasks = [], []
+    for model, year, mk in (("MIZ", miz_year, setup),
+                            ("Classic", classic_year,
+                             lambda nx, nt, K, dtype: classic_setup(nx, nt, K, dtype))):
         for dtype in (torch.float32, torch.float64):
             shape = (40, 200) if model == "MIZ" else (40, 1000)
             st, par, carry, f = mk(*shape, 8, dtype)
             adaptive = model == "MIZ" and dtype == torch.float64
             cfg = cfg64 if adaptive else (fixed32 if model == "MIZ" else cfg_of(dtype))
             for mode, kw in noise_modes(st, 8, dtype).items():
-                label = f"{model} {dtype_name(dtype)} {mode}"
-                noise_err[label] = compare_noisy(year(carry, par, f, st, cfg, **kw),
-                                                 plain(carry, par, f, st, cfg, **kw), label,
-                                                 None if adaptive else BAR_BITWISE)
+                noisy.append((f"{model} {dtype_name(dtype)} {mode}",
+                              year(carry, par, f, st, cfg, **kw),
+                              None if adaptive else BAR_BITWISE))
+                noisy_tasks.append((model, dtype_name(dtype), to_np(carry), dict(par),
+                                    f.cpu().numpy(), cfg, kw_np(kw), shape))
+    # the plain years at once, at most eight at a time, each in a process
+    t_pool = time.perf_counter()
+    noisy_plain = _plain_pool(noisy_tasks)
+    say(12, f"the {len(noisy_tasks)} plain noisy years in processes of their own: "
+            f"{time.perf_counter() - t_pool:.1f} s wall")
+    noise_err = {}
+    for (label, out_k, bar), res in zip(noisy, noisy_plain):
+        noise_err[label] = compare_noisy(out_k, from_pool(res), label, bar)
+    del noisy, noisy_plain
     say(12, "noise modes, kernel vs plain at nx=40 K=8 (MIZ nt=200, Classic nt=1000; MIZ f32 "
             "with 8 fixed Newton iterations, MIZ f64 adaptive at rtol=atol=1e-8, the rest "
             "bitwise; eta and crossing steps bitwise): " + ", ".join(
@@ -2927,6 +3198,9 @@ def main():
                     plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms,
                     **extra)
 
+    # -- 23. the multi-device layer (M14) on the card -------------------------
+    mesh_run = mesh_phase(dev, smi)
+
     py = "energybalancemodel_jl_tpu/ops/pallas_year.py"
     year_shape = f"K={K} nx={nx} nt={nt} float32, one model year"
     kernels = {"kernels": [
@@ -3062,7 +3336,11 @@ def main():
               shape=f"({HR_SYSTEMS}, {n10}) float32, 6 Newton iterations",
               path="batched engine, MIZ (phase 22)"),
     ]
-    say(22, f"total {time.perf_counter() - t_start:.0f} s")
+    for k in kernels["kernels"]:
+        # phase 23's member-sharded paths: one launch per shard per year
+        k["launches_mesh"] = {"miz_year": mesh_run["MIZ"], "classic_year": mesh_run["Classic"],
+                              "miz_year[keys/serial]": mesh_run["transitions"]}.get(k["name"], 0)
+    say(23, f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

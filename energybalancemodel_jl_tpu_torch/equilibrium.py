@@ -25,8 +25,10 @@ no VJP and refuse inputs that require grad, as the JAX package's Pallas
 kernels have none.
 
 ``equilibrate`` and ``continuation`` checkpoint and resume through
-:mod:`.checkpoint` (the JAX package's files and keys). Not ported yet:
-``mesh=`` (ROADMAP Queue 1 M14), which raises ``NotImplementedError``.
+:mod:`.checkpoint` (the JAX package's files and keys). ``mesh=`` splits an
+ensemble's members over a :class:`.parallel.mesh.Mesh`: ``equilibrate`` runs
+the whole-year kernel on every shard, ``stability`` its year graph on member
+shards; both bitwise the unsharded runs.
 """
 from __future__ import annotations
 
@@ -58,11 +60,29 @@ __all__ = ["equilibrate", "EquilibriumResult", "make_equilibrium_seasonal_fn",
 _BWD_STALL_ITERS = 30
 
 
-def _not_ported(mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (members sharded across devices) is not ported yet: ROADMAP "
-            "Queue 1 M14")
+def _mesh_and_device(mesh, device):
+    """``(mesh, device)``: a given mesh checked to be a
+    :class:`.parallel.mesh.Mesh`, and the device its first device when the
+    caller names none."""
+    if mesh is None:
+        return None, device
+    from .parallel.sharding import check_mesh
+
+    mesh = check_mesh(mesh)
+    return mesh, (mesh.devices.flat[0] if device is None else device)
+
+
+def _year_map(spec, st, cfg, mesh, K):
+    """The eager year of the gradient drivers: on the member shards of
+    ``mesh`` when one is given (its lockstep Newton loop then takes the
+    whole ensemble's trip count), else on one device."""
+    if mesh is None:
+        return make_year_fn(spec.name, st, cfg, False)
+    from .parallel.sharding import check_members, shard_member_year
+
+    check_members(mesh, K)
+    cfg = dataclasses.replace(cfg, batch_axis=mesh.axis_names[0])
+    return shard_member_year(make_year_fn(spec.name, st, cfg, False), mesh)
 
 
 def _needs_path(checkpoint, resume):
@@ -331,11 +351,17 @@ def equilibrate(
     extra simulated year, so it converges to the same tolerance along
     another iterate sequence.
 
+    ``mesh`` (a 1-D :class:`.parallel.mesh.Mesh`; an ensemble with ``K``
+    divisible by its size): each shard runs the whole-year kernel on its
+    members every simulated year (:func:`.parallel.sharding.shard_map_fused_year_fn`),
+    bitwise the unsharded loop; ``'auto'`` is then ``'fused'`` and
+    ``engine='batched'`` raises, as in the JAX package.
+
     ``dtype`` defaults to :func:`..integrate.default_dtype`; ``device`` to
-    the CUDA device (``"cpu"`` for the CPU). ``st.dur`` is ignored: the
-    horizon is ``max_years``.
+    the CUDA device (``"cpu"`` for the CPU), or with ``mesh=`` to the mesh's
+    first device. ``st.dur`` is ignored: the horizon is ``max_years``.
     """
-    _not_ported(mesh)
+    mesh, device = _mesh_and_device(mesh, device)
     spec = get_model(model)
     forcing = _constant(forcing, "equilibrate needs constant forcing (equilibria do not "
                                  "exist under a ramp); sweep levels across members via par['F']")
@@ -370,12 +396,23 @@ def equilibrate(
     cfg = default_step_config(dtype_name(dtype), newton_max_iter=newton_max_iter)
     checkpointed = _needs_path(checkpoint, resume)
 
+    if mesh is not None:
+        # a mesh's year map is the fused kernel on every shard
+        if engine == "batched":
+            raise ValueError("mesh= requires engine='fused' (the sharded year map is the "
+                             "fused kernel per shard)")
+        if engine == "auto":
+            engine = "fused"
     if engine == "auto":
         engine = "fused" if auto_is_fused(spec.name, device, "pcr") else "batched"
     if engine not in ("batched", "fused"):
         raise ValueError(f"unknown engine {engine!r}; expected 'batched', 'fused', or 'auto'")
     if engine == "fused":
         check_fused(spec.name, st.nx, device, "pcr", alternative="batched")
+    if mesh is not None:
+        from .parallel.sharding import check_members
+
+        check_members(mesh, K)
 
     carry = _ensemble_carry(spec, init, st, dtype, device, K)
     if engine == "fused":
@@ -388,10 +425,18 @@ def equilibrate(
         kernel_year = FUSED_YEARS[spec.name][0]
         if not ensemble:  # the kernels are ensemble-shaped
             carry = Collection({k: v[None] for k, v in carry.items()})
+        if mesh is not None:
+            from .parallel.sharding import shard_map_fused_year_fn
 
-        def year(c):
-            c, seasonal, conv, _ = kernel_year(c, par_y, frow, st, cfg)
-            return c, seasonal, conv
+            sharded = shard_map_fused_year_fn(st, mesh, par_y, dtype_name(dtype), cfg,
+                                              model=spec.name)
+
+            def year(c):
+                return sharded(c, par_y, frow)
+        else:
+            def year(c):
+                c, seasonal, conv, _ = kernel_year(c, par_y, frow, st, cfg)
+                return c, seasonal, conv
     else:
         par_y, frow = _year_inputs(par, F_off, K, forcing, st, dtype, device)
         eager_year = make_year_fn(spec.name, st, cfg, False)
@@ -413,7 +458,8 @@ def equilibrate(
             "equilibrate", spec.name, st, forcing, par_for_key, dtype_name(dtype),
             cfg.solver, newton_max_iter,
             extras=(f"engine={engine}", f"metric={','.join(metric)}",
-                    f"aa={anderson}", f"ce={check_every}"))
+                    f"aa={anderson}", f"ce={check_every}",
+                    *((f"mesh={mesh.size}",) if mesh is not None else ())))
     loaded = None
     if resume:
         if ckpt_mod.checkpoint_matches(checkpoint, key, kind="EqCheckpoint"):
@@ -828,9 +874,13 @@ def stability(
     :func:`equilibrate`); ``v0`` warm-starts the iteration (degenerate
     columns fall back to the seeded random draw). ``iters_per_dispatch`` is
     accepted for the JAX interface and changes nothing. float64 is strongly
-    recommended (many composed reverse years).
+    recommended (many composed reverse years). ``mesh`` (a 1-D
+    :class:`.parallel.mesh.Mesh`; an ensemble with ``K`` divisible by its
+    size) builds the year graph on member shards
+    (:func:`.parallel.sharding.shard_member_year`), bitwise the unsharded
+    run; ``device`` then defaults to the mesh's first device.
     """
-    _not_ported(mesh)
+    mesh, device = _mesh_and_device(mesh, device)
     spec = get_model(model)
     forcing = _constant(forcing, "stability needs constant forcing (the year map must be "
                                  "autonomous); sweep levels across members via par['F']")
@@ -848,6 +898,7 @@ def stability(
     cfg = default_step_config(dtype_name(dtype), newton_max_iter=newton_max_iter)
     carry = _ensemble_carry(spec, init, st, dtype, device, K)
     par_t, frow = _year_inputs(par, F_off, K, forcing, st, dtype, device)
+    year = _year_map(spec, st, cfg, mesh, K)
 
     bad = [n for n in project if n not in carry]
     if bad:
@@ -930,8 +981,7 @@ def stability(
     else:
         v, _ = prep(rand)
 
-    lin = _Linearization(make_year_fn(spec.name, st, cfg, False), carry, par_t, frow,
-                         tuple(carry.keys()), side)
+    lin = _Linearization(year, carry, par_t, frow, tuple(carry.keys()), side)
 
     def apply(t):
         if m == 1:

@@ -163,15 +163,19 @@ def make_year_fn(model_name: str, st: SpaceTime, cfg: StepConfig,
     noisy years' in-year crossing detector, ``integrate``'s sub-year
     progress ticks). ``debug(outputs, par) -> tensor``, when given, is
     recorded every step as the output ``"debug"`` (stored and averaged like
-    the model's own variables), as in the JAX package.
+    the model's own variables), as in the JAX package. ``stat``, when given,
+    is the model's statics (a grid-sharded run passes its shard of the
+    statics built on the whole grid); by default they are built from
+    ``par``.
     """
     spec = get_model(model_name)
     w0 = st.winter_inx - 1  # reference tick indices are 1-based (:573-589)
     s0 = st.summer_inx - 1
 
-    def year_fn(carry, par, fyear):
+    def year_fn(carry, par, fyear, stat=None):
         ref = next(iter(carry.values()))
-        stat = spec.statics(st, par, ref.dtype, ref.device)
+        if stat is None:
+            stat = spec.statics(st, par, ref.dtype, ref.device)
         f = _as_tensor(fyear, ref.dtype, ref.device)
         raw = [] if collect_raw else None
         acc = wint = summ = conv = None

@@ -27,8 +27,9 @@ Wide float32 ensembles: a few members per mille may sit on clamp knife-edges
 where the f32 reverse year gives NaN growths; the NaN stays in those members
 (per-member QR). Screen with ``np.isfinite(result.exponents)``.
 
-Not ported yet: ``mesh=`` (ROADMAP Queue 1 M14) raises
-``NotImplementedError``.
+``mesh=`` (a 1-D :class:`.parallel.mesh.Mesh`) builds each year graph on
+member shards (:func:`.parallel.sharding.shard_member_year`), bitwise the
+unsharded run.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ import torch
 
 from .convert import to_numpy
 from .equilibrium import (_Linearization, _constant, _ensemble_carry, _ensemble_size,
-                          _not_ported, _virtual_F, _year_inputs)
+                          _mesh_and_device, _virtual_F, _year_inputs, _year_map)
 from .forcing import Forcing
 from .integrate import _as_tensor, default_dtype, make_year_fn, resolve_device, resolve_dtype
 from .models.base import default_step_config, dtype_name, get_model
@@ -140,9 +141,12 @@ def lyapunov(
     ``years_per_dispatch`` sets how many years run between host reads of
     the growth history (default: all); the result is bitwise the same for
     any value. ``dtype`` defaults to :func:`..integrate.default_dtype`
-    (float64 strongly recommended), ``device`` to the CUDA device.
+    (float64 strongly recommended), ``device`` to the CUDA device. ``mesh``
+    (a 1-D :class:`..parallel.mesh.Mesh`; an ensemble with ``K``, and each
+    slab of ``member_chunk``, divisible by its size) runs each year graph on
+    member shards; ``device`` then defaults to the mesh's first device.
     """
-    _not_ported(mesh)
+    mesh, device = _mesh_and_device(mesh, device)
     spec = get_model(model)
     forcing = _constant(forcing, "lyapunov needs constant forcing (an autonomous year map); "
                                  "sweep levels across members via par['F']")
@@ -237,7 +241,7 @@ def lyapunov(
     frozen0 = (carry["phi"] >= 0.99) if project else None
     v = fit(proj(v, frozen0))[0]
 
-    year = make_year_fn(spec.name, st, cfg, False)
+    year = _year_map(spec, st, cfg, mesh, K)
 
     def tangents(lin, t):
         """``J t`` on a linearization: one second backward per mode."""

@@ -37,6 +37,15 @@ class StepConfig:
     newton_abstol: float = 1e-8  # reference reltol/abstol (src/miz.jl:58-59)
     newton_reltol: float = 1e-6
     newton_max_step: float = None  # trust-region-style step cap (float32 safeguard)
+    spatial_axis: str = None  # mesh axis name when the grid axis is sharded
+    # the member axis of a 2-D (members x grid) mesh, or of a member-sharded
+    # eager year: the Newton loop CONDITION is OR-reduced over it, so every
+    # shard runs the unsharded batch's trip count (per-member norms and
+    # tolerances untouched) and the shards' collectives stay in step
+    batch_axis: str = None
+    # which array axis holds the grid (JAX models/base.py:54; the port's
+    # steps keep it last)
+    grid_axis: int = -1
 
 
 def default_step_config(dtype_name: str, solver: str = "pcr",

@@ -167,8 +167,12 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     rhs = fma(stat.dt_tau,
               E_new / par["cw"] * nonnegn + (fma(par["ai"], S_ip1, -par["A"]) + f) / denom * mask,
               Tg)
-    method = "pcr" if cfg.solver == "pallas" else cfg.solver
-    Tg_new = tridiag_solve(stat.klo, kdi, stat.kup, rhs, method=method)
+    if cfg.spatial_axis is not None:
+        method = "spike"  # the grid sharded over a mesh axis
+    else:
+        method = "pcr" if cfg.solver == "pallas" else cfg.solver
+    Tg_new = tridiag_solve(stat.klo, kdi, stat.kup, rhs, method=method,
+                           axis_name=cfg.spatial_axis, axis=cfg.grid_axis)
 
     # diagnostic ice thickness (:65); XLA selects where the mask is 0, so an
     # ice-free cell's h is +0

@@ -106,10 +106,11 @@ def step_inputs(stat, fyear, t: int):
     return dict(insol=insolation(stat, t), f=fyear[t])
 
 
-def _dstencil(stat, par, v):
+def _dstencil(stat, par, v, axis_name=None, axis=-1):
     """``D∇²v`` via the precomputed bands (reference ``diffusion!``,
-    ``src/infrastructure.jl:505-527``)."""
-    vm1, vp1 = neighbor_cells(v)
+    ``src/infrastructure.jl:505-527``); the halo exchange when the grid axis
+    is sharded over the mesh axis ``axis_name``."""
+    vm1, vp1 = neighbor_cells(v, axis_name, axis)
     return par["D"] * (stat.glo * vm1 + stat.gdi * v + stat.gup * vp1)
 
 
@@ -119,28 +120,29 @@ def _stencil_sum(glo, gdi, gup, vm1, v, vp1):
     return fma(gup, vp1, fma(glo, vm1, gdi * v))
 
 
-def _t0_residual(T0, args, axis=-1, ai_insol=None):
+def _t0_residual(T0, args, axis_name=None, axis=-1, ai_insol=None):
     """The ``T0eq`` residual (reference ``src/miz.jl:33-45``). Inside the
     JAX package's Newton loop ``ai * insol`` is a rounded loop invariant;
     given as ``ai_insol`` it is added as such, else it is contracted, as in
-    the residual of the warm start."""
+    the residual of the warm start. ``axis_name``: the grid is sharded over
+    that mesh axis (halo exchange)."""
     insol, hp, Tw, phi, f, glo, gdi, gup, k, Tm, A, B, ai, D = args
     Ti = torch.minimum(T0, Tm)
     Tb = fma(Ti, phi, (1.0 - phi) * Tw)  # (1 - phi) Tw is rounded (materialised)
     r = k * (Tm - T0) / hp
     r = fma(ai, insol, r) if ai_insol is None else r + ai_insol
     r = r + fma(-B, T0 - Tm, -A)
-    Tbm1, Tbp1 = neighbor_cells(Tb, axis)
+    Tbm1, Tbp1 = neighbor_cells(Tb, axis_name, axis)
     r = fma(D, _stencil_sum(glo, gdi, gup, Tbm1, Tb, Tbp1), r)
     r = r + f
     return r
 
 
-def _t0_bands(T0, args, axis=-1):
+def _t0_bands(T0, args, axis_name=None, axis=-1):
     """Analytic tridiagonal Jacobian bands of :func:`_t0_residual`."""
     insol, hp, Tw, phi, f, glo, gdi, gup, k, Tm, A, B, ai, D = args
     g = phi * (T0 < Tm).to(T0.dtype)
-    gm1, gp1 = neighbor_cells(g, axis)
+    gm1, gp1 = neighbor_cells(g, axis_name, axis)
     jlo = D * glo * gm1
     jdi = fma(D * gdi, g, -k / hp - B)
     jup = D * gup * gp1
@@ -187,6 +189,8 @@ def _t0_residual_vjp(T0, args, u, need):
 
 
 def _solver_method(cfg: StepConfig) -> str:
+    if cfg.spatial_axis is not None:
+        return "spike"  # the grid sharded over a mesh axis
     # 'pallas' names the fixed-iteration kernel; its other solves are PCR
     return "pcr" if cfg.solver == "pallas" else cfg.solver
 
@@ -194,14 +198,18 @@ def _solver_method(cfg: StepConfig) -> str:
 def _newton_root(T0_warm, args, cfg: StepConfig):
     insol, ai = args[0], args[12]
     ai_insol = ai * insol
+    ax, g = cfg.spatial_axis, cfg.grid_axis
     return newton_tridiag(
-        lambda T0: (_t0_residual(T0, args, ai_insol=ai_insol), _t0_bands(T0, args)),
+        lambda T0: (_t0_residual(T0, args, ax, g, ai_insol=ai_insol), _t0_bands(T0, args, ax, g)),
         T0_warm,
-        initial=lambda T0: (_t0_residual(T0, args), _t0_bands(T0, args)),
+        initial=lambda T0: (_t0_residual(T0, args, ax, g), _t0_bands(T0, args, ax, g)),
         abstol=cfg.newton_abstol,
         reltol=cfg.newton_reltol,
         max_iter=cfg.newton_max_iter,
         method=_solver_method(cfg),
+        axis_name=ax,
+        cond_axis_name=cfg.batch_axis,
+        axis=g,
         max_step=cfg.newton_max_step,
     )
 
@@ -228,6 +236,11 @@ class _NewtonRoot(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gT0, _gconv):
+        if ctx.cfg.spatial_axis is not None:
+            # the backward runs outside the shards' threads, where no halo
+            # exchange or SPIKE solve can reach the other shards
+            raise RuntimeError("the MIZ Newton root of a grid-sharded step has no gradient; "
+                               "differentiate an unsharded run")
         T0, *args = ctx.saved_tensors
         # the residual is linearised at the root: T0 and the primal args are
         # constants here, the cotangent stays differentiable
@@ -258,10 +271,10 @@ def solve_T0(T0_warm, insol, h, Tw, phi, f, stat, par, cfg: StepConfig):
     With ``solver='pallas'`` a ``(K, nx)`` batch goes to the fixed-iteration
     Newton kernel (:func:`_solve_T0_pallas`); a single run's ``(nx,)`` state
     keeps the adaptive Newton with PCR, as in the JAX package (its
-    ``models/miz.py:208``).
+    ``models/miz.py:208``); so does a grid sharded over a mesh axis (SPIKE).
     """
     hp = torch.where(h == 0.0, par["hmin"], h)
-    if cfg.solver == "pallas" and T0_warm.ndim >= 2:
+    if cfg.solver == "pallas" and T0_warm.ndim >= 2 and cfg.spatial_axis is None:
         return _solve_T0_pallas(T0_warm, insol, hp, Tw, phi, f, stat, par, cfg)
     ref = T0_warm
     args = tuple(
@@ -354,7 +367,7 @@ def step(carry, xs, stat, par, cfg: StepConfig):
     # -- fluxes (:162-164) ---------------------------------------------
     Tb = fma(Ti, phi, (1.0 - phi) * Tw)  # Tbar (:21-28)
     L = fma(par["B"], Tb - Tm, par["A"])  # OLR (:99)
-    Tbm1, Tbp1 = neighbor_cells(Tb)
+    Tbm1, Tbp1 = neighbor_cells(Tb, cfg.spatial_axis, cfg.grid_axis)
     lap = _stencil_sum(stat.glo, stat.gdi, stat.gup, Tbm1, Tb, Tbp1)
     base_i = fma(par["ai"], insol, -L)
     base_w = fma(stat.aw, insol, -L)

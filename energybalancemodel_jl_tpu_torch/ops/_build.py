@@ -18,11 +18,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["load_library", "build_log", "launch", "launch_raw", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_log", "launch", "launch_raw", "count", "NVCC_FLAGS"]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -144,12 +145,19 @@ def _build(sources, target: Path) -> None:
         os.replace(lib, target)
 
 
+# the shards of a mesh (parallel/mesh.py) launch from threads of their own:
+# one lock for the first build and one for the launch counts
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     target = _library_path()
-    if not target.exists():
-        _build(_sources(), target)
+    with _BUILD_LOCK:
+        if not target.exists():
+            _build(_sources(), target)
     lib = ctypes.CDLL(str(target))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -171,6 +179,13 @@ def check(lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
         msg = lib.ebm_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel launch failed: error {err} ({msg})")
+
+
+def count(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel wrapper;
+    safe against the concurrent launches of a mesh's shards."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def launch(name: str, dtype: torch.dtype, device, *args) -> None:

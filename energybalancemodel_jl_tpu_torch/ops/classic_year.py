@@ -199,7 +199,7 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     _build.launch("ebm_classic_year", dtype, device, *ptrs, *nz.ptrs, ws_ptr, K, nx, st.nt,
                   st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), nz.ou_mode, nz.unroll,
                   WARP_MIN_K, ws_words, ws_blocks, FORCE_CLUSTER["classic_year"], st.dt)
-    classic_year.launches += 1
+    _build.count(classic_year)
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(
         *(Collection({k: store[i] for i, k in enumerate(OUT_VARS)})

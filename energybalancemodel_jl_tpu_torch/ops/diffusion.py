@@ -72,14 +72,27 @@ def diffusion_bands(st) -> DiffusionGeometry:
     return DiffusionGeometry(lo=lo, di=di, up=up)
 
 
-def neighbor_cells(v: torch.Tensor, axis: int = -1):
+def neighbor_cells(v: torch.Tensor, axis_name=None, axis: int = -1):
     """``(v_{i-1}, v_{i+1})`` along the grid ``axis`` (default last).
 
-    Boundary-rolled values: the wrapped entries are multiplied by the zero
-    band entries at the boundaries, so the wraparound is harmless. (The
-    JAX package's halo exchange for a sharded grid axis is not ported.)
+    Single shard: boundary-rolled values (the wrapped entries are multiplied
+    by the zero band entries at the boundaries, so the wraparound is
+    harmless). With ``axis_name`` (the grid axis sharded over that mesh axis,
+    called inside :func:`..parallel.mesh.shard_map`): the one-cell halo
+    exchange with the ring neighbours by ``ppermute`` (last axis only), as
+    JAX ``ops/diffusion.py:76-100``.
     """
-    return torch.roll(v, 1, dims=axis), torch.roll(v, -1, dims=axis)
+    if axis_name is None:
+        return torch.roll(v, 1, dims=axis), torch.roll(v, -1, dims=axis)
+    if axis not in (-1, v.ndim - 1):
+        raise ValueError("halo exchange is only supported along the last axis")
+    from ..parallel.mesh import ring_neighbors
+
+    # the two ppermutes of JAX's exchange (the left neighbour's last cell,
+    # the right neighbour's first) as one collective of both edge cells
+    left, right = ring_neighbors(torch.stack([v[..., -1:], v[..., :1]]), axis_name)
+    return (torch.cat([left[0], v[..., :-1]], dim=-1),
+            torch.cat([v[..., 1:], right[1]], dim=-1))
 
 
 def apply_diffusion(T: torch.Tensor, geom: DiffusionGeometry, D):

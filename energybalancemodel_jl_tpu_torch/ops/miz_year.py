@@ -224,7 +224,7 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys
                   st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), cfg.newton_max_iter,
                   nz.ou_mode, nz.unroll, ws_words, ws_blocks, FORCE_CLUSTER["miz_year"], st.dt,
                   cfg.newton_abstol, cfg.newton_reltol, max_step)
-    miz_year.launches += 1
+    _build.count(miz_year)
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(
         *(Collection({k: store[i] for i, k in enumerate(OUT_VARS)})

@@ -9,7 +9,9 @@ iterations.
 
 The loop runs in lockstep over the whole batch, as the JAX package's
 ``lax.while_loop`` does: it continues while ANY lane is above its tolerance,
-a condition the host reads once per iteration.
+a condition the host reads once per iteration. Inside
+:func:`..parallel.mesh.shard_map` the norm and the condition reduce over the
+mesh axes named (JAX ``ops/newton.py:30-99``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ def newton_tridiag(
     max_iter: int = 30,
     method: str = "pcr",
     max_step: float = None,
+    axis_name: str = None,
+    cond_axis_name: str = None,
     axis: int = -1,
     initial=None,
 ):
@@ -41,12 +45,27 @@ def newton_tridiag(
     (default ``residual_and_bands``) evaluates the warm start ``x0``: the
     JAX package's loop body and its first evaluation round differently.
 
+    ``axis_name`` (the grid sharded over that mesh axis): the norm is the
+    ``pmax`` over the shards, so every shard decides alike, and the update
+    solves by SPIKE when ``method='spike'``. ``cond_axis_name``: a further
+    mesh axis the loop CONDITION is OR-reduced over (a member axis), so
+    every shard runs the same trip count, the unsharded batch's; per-lane
+    norms, tolerances and flags are untouched.
+
     Returns ``(x, converged, iterations)`` — the solution, the per-lane bool
     convergence flags, and the iteration count actually used (an int).
     """
+    if axis_name is not None or cond_axis_name is not None:
+        from ..parallel.mesh import pmax
+
     def norm(r):
         # NaN-propagating, like jnp.max
-        return torch.amax(torch.abs(r), dim=axis)
+        n = torch.amax(torch.abs(r), dim=axis)
+        return n if axis_name is None else pmax(n, axis_name)
+
+    def go():
+        g = bool(torch.any(rnorm > tol))
+        return g if cond_axis_name is None else pmax(g, cond_axis_name)
 
     r, bands = (initial or residual_and_bands)(x0)
     rnorm = norm(r)
@@ -57,9 +76,10 @@ def newton_tridiag(
     it = 0
     # one residual evaluation per iteration: the residual and Jacobian of
     # the current iterate are carried from the previous iteration
-    while it < max_iter and bool(torch.any(rnorm > tol)):
+    while it < max_iter and go():
         lo, di, up = bands
-        delta = tridiag_solve(lo, di, up, -r, method=method, axis=axis, negated=True)
+        delta = tridiag_solve(lo, di, up, -r, method=method, axis_name=axis_name, axis=axis,
+                              negated=True)
         if max_step is not None:
             delta = torch.clamp(delta, -max_step, max_step)
         # a non-finite update (singular float32 Jacobian) freezes the lane

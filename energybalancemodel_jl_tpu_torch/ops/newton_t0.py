@@ -94,7 +94,7 @@ def newton_t0(T0, hp, Tw, phi, insol, glo, gdi, gup, D, k, Tm, A, B, ai, f,
     _build.launch("ebm_newton_t0", dtype, device, *(v.data_ptr() for v in inputs),
                   bands.data_ptr(), D.data_ptr(), scal.data_ptr(), out.data_ptr(), ws_ptr, K, n,
                   int(iters), pcr_steps(n), ws_words, ws_blocks, FORCE_CLUSTER["newton_t0"])
-    newton_t0.launches += 1
+    _build.count(newton_t0)
     return out
 
 

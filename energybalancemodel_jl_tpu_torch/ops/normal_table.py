@@ -39,7 +39,7 @@ def normal_table(keys, nt: int, device=None) -> torch.Tensor:
         raise ValueError(f"normal_table has no kernel for device {device}")
     out = torch.empty((nt, K), dtype=torch.float32, device=device)
     _build.launch_raw("ebm_normal_table", device, k.data_ptr(), out.data_ptr(), K, int(nt))
-    normal_table.launches += 1
+    _build.count(normal_table)
     return out
 
 
@@ -62,7 +62,7 @@ def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
     _build.launch_raw("ebm_normal_bits", bits.device, words.data_ptr(), out.data_ptr(),
                       int(bits.shape[0]))
-    normal_from_bits.launches += 1
+    _build.count(normal_from_bits)
     return out
 
 

@@ -61,7 +61,7 @@ def pcr_fused(lo, di, up, b):
     _build.launch("ebm_pcr", b.dtype, b.device, lo.data_ptr(), di.data_ptr(),
                   up.data_ptr(), b.data_ptr(), x.data_ptr(), K, n, s_lo, s_di, s_up,
                   pcr_steps(n), FORCE_CLUSTER["pcr_fused"])
-    pcr_fused.launches += 1
+    _build.count(pcr_fused)
     return x
 
 

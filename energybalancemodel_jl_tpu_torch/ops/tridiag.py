@@ -163,23 +163,28 @@ def pcr_solve(lo, di, up, b, axis: int = -1, negated: bool = False):
     return b / di
 
 
-def tridiag_solve(lo, di, up, b, method: str = "pcr", axis: int = -1,
-                  negated: bool = False):
+def tridiag_solve(lo, di, up, b, method: str = "pcr", axis_name: str = None,
+                  axis: int = -1, negated: bool = False):
     """Dispatch between :func:`pcr_solve` (default), :func:`thomas_solve`
-    (``method='thomas'``, last axis only) and the one-launch batched PCR
+    (``method='thomas'``, last axis only), the one-launch batched PCR
     (``method='pcr_fused'``: a 2-D ``(K, n)`` system goes to
     :func:`.pcr_fused.pcr_fused`, any other rank to :func:`pcr_solve`, as in
-    the JAX package). ``axis`` (PCR only) selects the system axis;
-    ``negated`` (PCR only) says that ``b`` is a negation, as the Newton
-    update's ``-r`` is, which changes XLA:CPU's first contraction
-    (:func:`pcr_solve`)."""
-    if method == "spike":
-        raise ValueError(
-            "method 'spike' (grid-sharded solve) is not ported yet: ROADMAP "
-            "Queue 1 M14; use 'pcr'"
-        )
+    the JAX package) and the distributed :func:`.spike.spike_tridiag_solve`
+    (``method='spike'``: the grid sharded over the mesh axis ``axis_name``,
+    inside :func:`..parallel.mesh.shard_map`). ``axis`` (PCR only) selects
+    the system axis; ``negated`` (PCR only) says that ``b`` is a negation,
+    as the Newton update's ``-r`` is, which changes XLA:CPU's first
+    contraction (:func:`pcr_solve`)."""
     if axis not in (-1, b.ndim - 1) and method != "pcr":
         raise ValueError(f"method {method!r} only solves along the last axis")
+    if method == "spike":
+        if axis_name is None:
+            raise ValueError(
+                "method 'spike' solves a grid sharded over a mesh axis: pass its "
+                "axis_name (inside parallel.mesh.shard_map)")
+        from .spike import spike_tridiag_solve
+
+        return spike_tridiag_solve(lo, di, up, b, axis_name)
     if method == "pcr_fused":
         if b.ndim == 2:
             # imported here: pcr_fused.py imports this module

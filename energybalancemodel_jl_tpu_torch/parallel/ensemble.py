@@ -18,6 +18,13 @@ device it never falls back to the eager loop: a run the kernel cannot take
 raises. ``solver='pallas'`` (the fixed-iteration Newton kernel) exists on
 the batched engine only: with it ``'auto'`` is ``'batched'`` and
 ``engine='fused'`` raises, as in the JAX package.
+
+``mesh=`` (with ``engine='fused'``) splits the members over a
+:class:`.mesh.Mesh`: one kernel launch per shard per year
+(:func:`.sharding.shard_map_fused_year_fn`). ``jit_wrapper=`` wraps the
+batched engine's year callable, as the JAX package's wraps its vmapped year
+(:func:`.sharding.sharded_ensemble_integrate` passes one that runs it on
+member shards).
 """
 from __future__ import annotations
 
@@ -148,14 +155,18 @@ def _ensemble_config_key(model, st, forcing, par, dtype, solver, engine, K,
     )
 
 
-def _resolve_engine(engine, spec, st, device, solver) -> str:
+def _resolve_engine(engine, spec, st, device, solver, jit_wrapper=None) -> str:
     if engine == "auto":
-        engine = "fused" if auto_is_fused(spec.name, device, solver) else "batched"
+        engine = ("fused" if auto_is_fused(spec.name, device, solver) and jit_wrapper is None
+                  else "batched")
     if engine not in ("batched", "fused"):
         raise ValueError(
             f"unknown engine {engine!r}; expected 'batched', 'fused' or 'auto'"
         )
     if engine == "fused":
+        if jit_wrapper is not None:
+            raise ValueError("engine='fused' does not compose with a jit_wrapper (it wraps "
+                             "the batched engine's year); use engine='batched'")
         check_fused(spec.name, st.nx, device, solver, alternative="batched")
     return engine
 
@@ -192,7 +203,7 @@ def ensemble_integrate(
     per-step states, ``'all'`` every step of every member (guarded by
     ``raw_memory_limit`` bytes). ``dtype`` defaults to float32, ``device``
     to the CUDA device (pass ``"cpu"`` for the CPU; with no CUDA device
-    ``None`` raises).
+    ``None`` raises), or with ``mesh=`` to the mesh's first device.
 
     ``solver``: ``'pcr'`` (default) or ``'pcr_fused'`` (on the fused engine
     both are the kernel's PCR; on the batched engine ``'pcr_fused'``
@@ -214,17 +225,26 @@ def ensemble_integrate(
     :func:`..integrate.integrate` does (:mod:`..checkpoint`; the JAX
     package's files and keys). ``raw_mode='all'`` cannot resume.
 
-    Not ported yet: ``mesh=`` and ``jit_wrapper=`` (ROADMAP Queue 1 M14).
+    ``mesh`` (with ``engine='fused'``): a 1-D :class:`.mesh.Mesh`; each
+    shard runs the whole-year kernel on its members (pure data parallelism,
+    the ``pmin`` of the Newton flag the one collective), bitwise the
+    unsharded run; it needs ``raw_mode='none'`` and ``K`` divisible by the
+    mesh size, as in the JAX package. ``jit_wrapper(year) -> year`` wraps
+    the batched engine's year callable ``(carry, par, fyear) -> (carry,
+    seasonal, converged, raw)`` (default: the identity); a wrapper with a
+    ``batch_axis`` attribute names the mesh axis it splits the members
+    over, which the eager Newton loop's condition then reduces over.
     """
-    if mesh is not None or jit_wrapper is not None:
-        raise NotImplementedError(
-            "mesh= and jit_wrapper= (multi-device ensembles) are not ported "
-            "yet: ROADMAP Queue 1 M14"
-        )
     spec = get_model(model)
     if raw_mode not in ("none", "last", "all"):
         raise ValueError(f"ensemble raw_mode must be 'none'|'last'|'all', got {raw_mode!r}")
     dtype = resolve_dtype(dtype)
+    if mesh is not None:
+        from .sharding import check_mesh
+
+        mesh = check_mesh(mesh)
+        if device is None:
+            device = mesh.devices.flat[0]
     device = resolve_device(device)
     par = Collection(par)
     K = par.pop("__K__", None) or n_members
@@ -246,7 +266,16 @@ def ensemble_integrate(
         if F_off.shape[0] != K:
             raise ValueError(f"par['F'] must have shape ({K},), got {F_off.shape}")
 
-    engine = _resolve_engine(engine, spec, st, device, solver)
+    engine = _resolve_engine(engine, spec, st, device, solver, jit_wrapper)
+    if mesh is not None:
+        if engine != "fused":
+            raise ValueError("mesh= requires engine='fused'; use sharded_ensemble_integrate "
+                             "for the batched engine")
+        if raw_mode != "none":
+            raise ValueError("engine='fused' with a mesh supports raw_mode='none' only "
+                             "(seasonal storage); collect raw data unsharded")
+        if K % mesh.size != 0:
+            raise ValueError(f"ensemble size {K} is not divisible by the mesh size {mesh.size}")
     if years_per_dispatch is not None:
         if int(years_per_dispatch) < 1:
             raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
@@ -254,7 +283,8 @@ def ensemble_integrate(
             raise ValueError("years_per_dispatch > 1 requires engine='fused'")
 
     cfg = default_step_config(dtype_name(dtype), solver=solver,
-                              newton_max_iter=newton_max_iter)
+                              newton_max_iter=newton_max_iter,
+                              batch_axis=getattr(jit_wrapper, "batch_axis", None))
     as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
     par_t = Collection({k: as_t(v) for k, v in par.items()})
     # the batched step broadcasts (K, 1) parameter columns against (K, nx)
@@ -262,9 +292,19 @@ def ensemble_integrate(
     par_fused = Collection(par_t)
     if F_off is not None:
         par_fused["F"] = as_t(F_off)
-    year_seasonal = make_year_fn(spec.name, st, cfg, False)
-    year_full = make_year_fn(spec.name, st, cfg, True)
+    wrap = jit_wrapper if jit_wrapper is not None else (lambda fn: fn)
+    year_seasonal = wrap(make_year_fn(spec.name, st, cfg, False))
+    year_full = wrap(make_year_fn(spec.name, st, cfg, True))
     fused_year = FUSED_YEARS[spec.name][0] if engine == "fused" else None
+    if mesh is not None:
+        from .sharding import shard_map_fused_year_fn
+
+        sharded = shard_map_fused_year_fn(st, mesh, par_fused, dtype_name(dtype), cfg,
+                                          model=spec.name)
+
+        def fused_year(carry, par, fyear, st, cfg, collect_raw):
+            carry, seasonal, conv = sharded(carry, par, fyear)
+            return carry, seasonal, conv, None
 
     carry = spec.init_carry(init, st, dtype, device)
     carry = Collection(

@@ -35,10 +35,15 @@ Engines:
 ``'auto'`` is ``'fused'`` on a CUDA device (float32 and float64) and
 ``'scan'`` on the CPU; on a CUDA device it never falls back.
 
+``mesh=`` splits the members over a 1-D :class:`.parallel.mesh.Mesh`, on
+both engines: each shard runs its members' noisy year (on the fused engine
+one kernel launch per shard per year), and the ``pmin`` of the Newton flag
+is the one collective. Draws are keyed per member, so a sharded run equals
+the unsharded one bitwise.
+
 A ``TransitionResult`` is saved, loaded and drawn by the module-level
 :func:`.io.save`, :func:`.io.load` and :func:`.plot.plot_transitions`, as
-in the JAX package. Not ported: ``mesh=`` (ROADMAP Queue 1 M14); the JAX
-package's ``EBM_OU_IMPL`` and
+in the JAX package. Not ported: the JAX package's ``EBM_OU_IMPL`` and
 ``EBM_FUSED_NOISE`` environment switches (``ou_impl=`` stays an argument);
 its ``block_k=`` member tile (the kernels run one block per member).
 """
@@ -382,12 +387,16 @@ def transitions(
     ``years_per_dispatch`` bounds the years queued on the device before the
     host waits for them (default: all); results do not depend on it.
     ``year0`` offsets the absolute year (draw keys and ramp rows).
-    ``mesh=`` is not ported (ROADMAP Queue 1 M14).
+    ``mesh=`` (a 1-D :class:`.parallel.mesh.Mesh`; ``K``, with the two ramp
+    companions, divisible by its size) splits the members over its shards
+    (module docstring); ``device`` then defaults to its first device.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (members sharded across devices) is not ported yet: ROADMAP "
-            "Queue 1 M14")
+        from .parallel.sharding import check_mesh
+
+        mesh = check_mesh(mesh)
+        if device is None:
+            device = mesh.devices.flat[0]
     spec = get_model(model)
     if not isinstance(forcing, Forcing):
         forcing = Forcing(float(forcing))
@@ -451,6 +460,12 @@ def transitions(
                 "use engine='fused' (f32)")
         if dtype != torch.float32:
             raise ValueError("subyear=True requires the float32 fused keys mode")
+        if ramped and mesh is not None:
+            raise ValueError(
+                "subyear=True under ramped forcing evolves the crossing threshold "
+                "from the sigma-zero companion lanes' areas, which live on a single "
+                "shard — run unsharded, or drop subyear= and refine with a second "
+                "unsharded pass")
 
     if ramped:
         swept = sorted(k for k, v in par.items() if np.ndim(v) > 0)
@@ -511,6 +526,8 @@ def transitions(
         F_off = None
 
     K_run = K + 2 if ramped else K
+    if mesh is not None and K_run % mesh.size != 0:
+        raise ValueError(f"ensemble size {K_run} is not divisible by the mesh size {mesh.size}")
     t = lambda v: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                   dtype=dtype, device=device)
     carry = spec.init_carry(init, st, dtype, device)
@@ -587,35 +604,60 @@ def transitions(
         cr_sgn = t(np.sign(other - own))
 
     x = t(st.x)
+    if mesh is not None:
+        # the eager year's lockstep Newton loop takes the whole batch's trip
+        # count on every shard; the kernels iterate per member
+        cfg = dataclasses.replace(cfg, batch_axis=mesh.axis_names[0])
     if engine == "fused":
         kernel_year = FUSED_YEARS[spec.name][0]
         par_run["F"] = f_off
+        par_year = par_run
     else:
         scan_year = make_year_fn(spec.name, st, cfg, False)
-        par_cols = Collection({k: (v[:, None] if v.ndim == 1 else v)
+        par_year = Collection({k: (v[:, None] if v.ndim == 1 else v)
                                for k, v in par_run.items()})
 
-    def one_year(carry, eta, yi, frow, thr, sgn):
-        """One noisy model year of all K_run members: (carry, eta, seasonal,
-        converged, crossing steps or None)."""
-        keys = prng.fold_in(member_keys, yi)
+    def one_year(carry, eta, mkeys, par, f_off, scale, rho, thr, sgn, yi, frow):
+        """One noisy model year of the members given (all K_run, or a
+        shard's): (carry, eta, seasonal, converged, crossing steps or None).
+        Every per-member operand is an argument, so a shard gets its own."""
+        dev = eta.device
+        keys = prng.fold_in(mkeys, yi)
+        frow = torch.as_tensor(frow, dtype=dtype, device=dev)
         if engine == "fused":
-            kw = dict(noise_ou=(rho_t, scale, eta))
+            kw = dict(noise_ou=(rho, scale, eta))
             if dtype == torch.float32:
                 kw.update(noise_keys=keys, ou_assoc=ou_impl == "assoc")
             else:
-                kw.update(noise=prng.normal_table_f64(keys, st.nt, device))
+                kw.update(noise=prng.normal_table_f64(keys, st.nt, dev))
             if subyear:
                 kw.update(crossing=(thr, sgn))
-            out = kernel_year(carry, par_run, t(frow), st, cfg, **kw)
+            out = kernel_year(carry, par, frow, st, cfg, **kw)
             carry, seasonal, conv, eta = out[:4]
             return carry, eta, seasonal, conv, (out[4] if subyear else None)
-        xi = (normal_table(keys, st.nt, device) if dtype == torch.float32
-              else prng.normal_table_f64(keys, st.nt, device))
-        etas = ou_path(xi, rho_t, scale, eta)
-        fyear = (t(frow)[:, None] + f_off[None, :]) + etas
-        carry, seasonal, conv, _ = scan_year(carry, par_cols, fyear[:, :, None])
+        xi = (normal_table(keys, st.nt, dev) if dtype == torch.float32
+              else prng.normal_table_f64(keys, st.nt, dev))
+        etas = ou_path(xi, rho, scale, eta)
+        fyear = (frow[:, None] + f_off[None, :]) + etas
+        carry, seasonal, conv, _ = scan_year(carry, par, fyear[:, :, None])
         return carry, etas[-1], seasonal, conv, None
+
+    run_year = one_year
+    if mesh is not None:
+        from .parallel.mesh import P, pmin, shard_map
+
+        ax = mesh.axis_names[0]
+        mem = P(ax)
+
+        def local_year(*args):
+            carry, eta, seasonal, conv, cross = one_year(*args)
+            return carry, eta, seasonal, (None if conv is None else pmin(conv, ax)), cross
+
+        par_specs = Collection({k: (mem if v.ndim > 0 else P()) for k, v in par_year.items()})
+        run_year = shard_map(
+            local_year, mesh,
+            in_specs=(mem, mem, mem, par_specs, mem, mem, P(), mem, mem, P(), P()),
+            out_specs=(mem, mem, mem, P(), mem))
 
     prog = None
     if progress:
@@ -631,8 +673,9 @@ def transitions(
         k = min(chunk, years - done)
         t0 = time.perf_counter()
         for y in range(done, done + k):
-            carry, eta, seasonal, conv, cross = one_year(
-                carry, eta, year0 + y, frows_all[y], cr_thr, cr_sgn)
+            carry, eta, seasonal, conv, cross = run_year(
+                carry, eta, member_keys, par_year, f_off, scale, rho_t, cr_thr, cr_sgn,
+                year0 + y, frows_all[y])
             coll = getattr(seasonal, season)
             area = _area_of(coll, x)
             areas_h.append(area)

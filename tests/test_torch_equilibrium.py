@@ -177,7 +177,8 @@ def test_equilibrate_validation(tmp_path):
     with pytest.raises(ValueError, match="Cannot infer ensemble size"):
         ebt.equilibrate("Classic", st, 0.0, ebt.Collection(par, D=np.ones(2), A=np.ones(3)),
                         init, **KW)
-    with pytest.raises(NotImplementedError, match="M14"):
+    # mesh= (ported with M14: tests/test_torch_parallel.py) takes a port Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         ebt.equilibrate("Classic", st, 0.0, par, init, mesh=object(), **KW)
     with pytest.raises(ValueError, match="needs checkpoint"):
         ebt.equilibrate("Classic", st, 0.0, par, init, resume=True, **KW)

@@ -147,5 +147,6 @@ def test_stability_validation(state):
                       **KW)
     with pytest.raises(ValueError, match="v0 leaves"):
         ebt.stability("MIZ", st, 0.0, par, state, v0={"Ei": np.zeros(3)}, **KW)
-    with pytest.raises(NotImplementedError, match="M14"):
+    # mesh= (ported with M14: tests/test_torch_parallel.py) takes a port Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         ebt.stability("MIZ", st, 0.0, par, state, mesh=object(), **KW)

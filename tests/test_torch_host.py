@@ -79,10 +79,10 @@ def test_zeros_init_and_solutions_helpers_match_jax():
     np.testing.assert_array_equal(ebm.annual_mean(raw)["E"], ebt.annual_mean(raw)["E"])
 
 
-@pytest.mark.parametrize("module", ["models", "utils"])
+@pytest.mark.parametrize("module", ["models", "utils", "parallel"])
 def test_public_names_of_models_and_utils_match_jax(module):
-    """The port's ``models`` and ``utils`` export what the JAX package's do,
-    each name bound to something of the same kind."""
+    """The port's ``models``, ``utils`` and ``parallel`` export what the JAX
+    package's do, each name bound to something of the same kind."""
     import importlib
 
     jax_mod = importlib.import_module(f"energybalancemodel_jl_tpu.{module}")

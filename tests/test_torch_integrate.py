@@ -301,9 +301,14 @@ def test_unported_options_and_bad_arguments_raise(tmp_path):
         ebt.integrate(*args, debug=lambda o, p: o["E"], engine="fused", device="cpu")
     with pytest.warns(UserWarning, match="progress_steps is ignored"):
         ebt.integrate(*args, engine="fused", progress_steps=10, device="cpu")
-    for kw in (dict(mesh=object()), dict(jit_wrapper=lambda f: f)):
-        with pytest.raises(NotImplementedError, match="M14"):
-            ebt.ensemble_integrate(*args, n_members=2, **kw, device="cpu")
+    # mesh= and jit_wrapper= are ported (M14: tests/test_torch_parallel.py):
+    # a mesh must be the port's Mesh, and a jit_wrapper wraps the batched
+    # engine's year, so it refuses the fused engine
+    with pytest.raises(TypeError, match="Mesh"):
+        ebt.ensemble_integrate(*args, n_members=2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="jit_wrapper"):
+        ebt.ensemble_integrate(*args, n_members=2, jit_wrapper=lambda f: f, engine="fused",
+                               device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         ebt.integrate(*args, engine="vmap", device="cpu")
     with pytest.raises(ValueError, match="raw_mode"):

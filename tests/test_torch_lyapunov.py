@@ -16,8 +16,8 @@ Bars:
   Newton in lockstep over the batch); ``years_per_dispatch`` chunking
   bitwise; ``member_chunk``: one slab bitwise the unchunked run, two slabs at
   1e-10, the trajectory bitwise either way;
-- every ``ValueError`` of ``tests/test_lyapunov.py``; ``mesh=`` raises
-  ``NotImplementedError`` naming ROADMAP M14.
+- every ``ValueError`` of ``tests/test_lyapunov.py``; ``mesh=`` takes the
+  port's ``Mesh`` (sharded runs: ``tests/test_torch_parallel.py``).
 """
 import numpy as np
 import pytest
@@ -174,5 +174,5 @@ def test_validation_errors(miz_state):
         ly(par=ebt.Collection(par, F=np.zeros(4)), member_chunk=3)
     with pytest.raises(ValueError, match="ensemble|member-batched"):
         ly(member_chunk=2)
-    with pytest.raises(NotImplementedError, match="M14"):
+    with pytest.raises(TypeError, match="Mesh"):
         ly(mesh=object())

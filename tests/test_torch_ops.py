@@ -99,12 +99,14 @@ def test_thomas_solve_matches_jax(shape, rng):
 
 
 @pytest.mark.parametrize("method,item", [("pcr_fused", "no kernel for device meta"),
-                                         ("spike", "M14"), ("lu", "Unknown")],
+                                         ("spike", "axis_name"), ("lu", "Unknown")],
                          ids=["pcr_fused-K11", "spike-M14", "lu-Unknown"])
 def test_tridiag_solve_unported_methods_raise(method, item, rng):
-    """'spike' (grid-sharded) is not ported and an unknown method raises;
-    'pcr_fused' is ported (tests/test_torch_solvers.py) and raises only on
-    a device that has neither its kernel nor its plain version."""
+    """An unknown method raises; 'spike' (the grid-sharded solve, ported
+    with M14: tests/test_torch_spatial.py) raises without the mesh axis it
+    solves over; 'pcr_fused' is ported (tests/test_torch_solvers.py) and
+    raises only on a device that has neither its kernel nor its plain
+    version."""
     lo, di, up, b = (t(v) for v in random_bands(rng, (2, 8)))
     if method == "pcr_fused":
         lo, di, up, b = (v.to("meta") for v in (lo, di, up, b))

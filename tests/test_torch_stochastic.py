@@ -193,7 +193,8 @@ def test_argument_errors(attractors, kw, match):
 def test_unported_options_raise(attractors, tmp_path):
     *_, tst, ta, tb = attractors
     par = dict(ebt.default_parameters("Classic"))
-    with pytest.raises(NotImplementedError, match="M14"):
+    # mesh= is ported (M14: tests/test_torch_parallel.py) and takes a port Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         transitions("Classic", tst, F, par, ta, tb, sigma=1.0, device="cpu", mesh=object())
     swept = dict(par, D=np.array([0.5, 0.6]))
     with pytest.raises(ValueError, match="EquilibriumResults"):
