@@ -18,11 +18,11 @@ eager loop otherwise: a run the kernel cannot take raises.
 
 ``checkpoint=``/``resume=`` write and resume mid-run checkpoints
 (:mod:`.checkpoint`: the JAX package's files and keys), ``profile_dir=``
-writes a ``torch.profiler`` trace of the run.
+writes a ``torch.profiler`` trace of the run, with the spans of
+:mod:`.utils.tracing`.
 """
 from __future__ import annotations
 
-import os
 import warnings
 from typing import Callable, Optional
 
@@ -38,6 +38,7 @@ from .solutions import Seasonal, Solutions
 from .spacetime import SpaceTime
 from .utils.collection import Collection
 from .utils.progress import Progress
+from .utils.tracing import profiled, span
 
 __all__ = ["integrate", "make_year_fn", "default_dtype", "resolve_engine", "resolve_dtype",
            "resolve_device", "auto_is_fused", "check_fused", "FUSED_YEARS"]
@@ -287,156 +288,149 @@ def integrate(
     other). ``raw_mode='all'`` cannot resume: the raw steps of completed
     years are not checkpointed.
 
-    ``profile_dir`` writes a ``torch.profiler`` trace of the year loop
-    (host and, on a CUDA device, kernel activity) to
-    ``profile_dir/integrate.pt.trace.json``, viewable in Perfetto or
-    ``chrome://tracing``.
+    ``profile_dir`` writes a ``torch.profiler`` trace of the whole call,
+    result assembly included (host and, on a CUDA device, kernel activity),
+    to ``profile_dir/integrate.pt.trace.json``, viewable in Perfetto or
+    ``chrome://tracing``; it holds the spans of :mod:`.utils.tracing`.
     """
-    spec = get_model(model)
-    dtype = resolve_dtype(dtype)
-    device = resolve_device(device)
-    missing = [v for v in spec.init_vars if v not in init]
-    if missing:
-        raise ValueError(f"init for model {spec.name!r} is missing {missing}")
-    if raw_mode is None:
-        raw_mode = "last" if lastonly else "all"
-    if raw_mode not in ("last", "all", "none"):
-        raise ValueError(f"raw_mode must be 'last'|'all'|'none', got {raw_mode!r}")
-    ticks = progress_steps is not None and int(progress_steps) > 0
-    if engine == "fused" and debug is not None:
-        raise ValueError("engine='fused' does not support the debug hook; use engine='scan'")
-    engine = resolve_engine(spec.name, st, device, engine, solver,
-                            scan_only=debug is not None or ticks)
-    if years_per_dispatch is not None and int(years_per_dispatch) < 1:
-        raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
-    # the JAX package's default chunking, which its checkpoint key names
-    ypd = int(years_per_dispatch) if years_per_dispatch is not None else (
-        8 if engine == "fused" else 1)
-    tick_every = 0
-    if ticks:
-        if engine != "scan" or ypd > 1:
-            warnings.warn(
-                "progress_steps is ignored: sub-year progress ticks need "
-                "engine='scan' with years_per_dispatch=1 "
-                f"(got engine={engine!r}, years_per_dispatch={ypd})"
+    # the profiler, where asked for, starts first, so that the call's root
+    # span lies in its file
+    with profiled(profile_dir, device, "integrate.pt.trace.json"), span("ebm.integrate"):
+        with span("ebm.integrate.prepare"):
+            spec = get_model(model)
+            dtype = resolve_dtype(dtype)
+            device = resolve_device(device)
+            missing = [v for v in spec.init_vars if v not in init]
+            if missing:
+                raise ValueError(f"init for model {spec.name!r} is missing {missing}")
+            if raw_mode is None:
+                raw_mode = "last" if lastonly else "all"
+            if raw_mode not in ("last", "all", "none"):
+                raise ValueError(f"raw_mode must be 'last'|'all'|'none', got {raw_mode!r}")
+            ticks = progress_steps is not None and int(progress_steps) > 0
+            if engine == "fused" and debug is not None:
+                raise ValueError(
+                    "engine='fused' does not support the debug hook; use engine='scan'")
+            engine = resolve_engine(spec.name, st, device, engine, solver,
+                                    scan_only=debug is not None or ticks)
+            if years_per_dispatch is not None and int(years_per_dispatch) < 1:
+                raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
+            # the JAX package's default chunking, which its checkpoint key names
+            ypd = int(years_per_dispatch) if years_per_dispatch is not None else (
+                8 if engine == "fused" else 1)
+            tick_every = 0
+            if ticks:
+                if engine != "scan" or ypd > 1:
+                    warnings.warn(
+                        "progress_steps is ignored: sub-year progress ticks need "
+                        "engine='scan' with years_per_dispatch=1 "
+                        f"(got engine={engine!r}, years_per_dispatch={ypd})"
+                    )
+                else:
+                    tick_every = int(progress_steps)
+
+            cfg = default_step_config(dtype_name(dtype), solver=solver,
+                                      newton_max_iter=newton_max_iter)
+
+            prog = Progress(
+                st.dur * st.nt,
+                "Integrating",
+                infofeed=lambda t: f"t = {round(t, 2)}",
+            ) if (progress is None or progress) else None
+            year_base = [0]  # the year the tick hook reports in
+
+            def tick(t, _out):
+                if (t + 1) % tick_every == 0:
+                    step = year_base[0] * st.nt + t + 1
+                    prog.update(step, feedargs=(float(st.T[step - 1]),))
+
+            hook = tick if (tick_every and prog is not None) else None
+            year_seasonal = make_year_fn(spec.name, st, cfg, False, hook, debug)
+            year_full = make_year_fn(spec.name, st, cfg, True, hook, debug)
+
+            f_tab = forcing.table(st)
+            par_t = Collection({k: _as_tensor(v, dtype, device) for k, v in par.items()})
+            carry = spec.init_carry(init, st, dtype, device)
+
+            winter_acc, summer_acc, avg_acc = [], [], []
+            start_year = 0
+            write = None
+            if checkpoint is not None:
+                from . import checkpoint as ckpt_mod
+
+                extras = []
+                if engine != "scan":
+                    extras.append(engine)
+                if ypd > 1 and engine != "fused":
+                    extras.append(f"ypd{ypd}")
+                key = ckpt_mod.config_key("", spec.name, st, forcing, par, dtype_name(dtype),
+                                          solver, newton_max_iter, extras)
+                carry, start_year, winter_acc, summer_acc, avg_acc = ckpt_mod.resume_state(
+                    checkpoint, key, resume, raw_mode, st.dur,
+                    lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                              device=device).contiguous(),
+                    carry)
+                write = ckpt_mod.year_writer(
+                    checkpoint, key, lambda: (carry, (winter_acc, summer_acc, avg_acc)))
+            if prog is not None and start_year:
+                prog.update(start_year * st.nt, feedargs=(float(start_year),))
+
+        raw_chunks = []
+        for y in range(start_year, st.dur):
+            with span("ebm.integrate.year"):
+                collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
+                year_base[0] = y
+                if engine == "fused":
+                    carry, seasonal, converged, ys = _fused_single_year(
+                        spec.name, carry, par_t, f_tab[y], st, cfg, collect)
+                else:
+                    fn = year_full if collect else year_seasonal
+                    carry, seasonal, converged, ys = fn(carry, par_t, f_tab[y])
+                winter_acc.append(seasonal.winter)
+                summer_acc.append(seasonal.summer)
+                avg_acc.append(seasonal.avg)
+                if collect:
+                    raw_chunks.append(ys)
+                if verbose and converged is not None and float(converged) < 1.0:
+                    warnings.warn(f"Solving for T0 failed in year {y + 1}.")
+            if write is not None and ((y + 1) % max(checkpoint_every, 1) == 0
+                                      or y == st.dur - 1):
+                with span("ebm.integrate.checkpoint"):
+                    write(y + 1)
+            if prog is not None and not tick_every:
+                prog.update((y + 1) * st.nt, feedargs=(float(st.T[(y + 1) * st.nt - 1]),))
+        if prog is not None and tick_every:
+            prog.update(st.dur * st.nt, feedargs=(float(st.T[-1]),))
+
+        with span("ebm.integrate.assemble"):
+            varnames = list(spec.solution_vars) + (["debug"] if debug is not None else [])
+            if raw_chunks:
+                raw = Collection(
+                    {k: to_numpy(torch.cat([c[k] for c in raw_chunks], dim=0))
+                     for k in varnames}
+                )
+            else:
+                raw = Collection({k: np.zeros((0, st.nx)) for k in varnames})
+
+            def stack(acc):
+                return Collection(
+                    {k: to_numpy(torch.stack([c[k] for c in acc], dim=0)) for k in varnames}
+                )
+
+            seasonal_store = Seasonal(winter=stack(winter_acc), summer=stack(summer_acc),
+                                      avg=stack(avg_acc))
+            ts = Solutions.stored_times(st, raw_mode != "all")
+            if raw_mode == "none":
+                ts = np.zeros((0,))
+
+            return Solutions(
+                spacetime=st,
+                ts=ts,
+                forcing=forcing,
+                parameters=Collection(par),
+                initconds=Collection({k: np.asarray(v) for k, v in init.items()}),
+                lastonly=lastonly,
+                debug=debug,
+                raw=raw,
+                seasonal=seasonal_store,
             )
-        else:
-            tick_every = int(progress_steps)
-
-    cfg = default_step_config(dtype_name(dtype), solver=solver,
-                              newton_max_iter=newton_max_iter)
-
-    prog = Progress(
-        st.dur * st.nt,
-        "Integrating",
-        infofeed=lambda t: f"t = {round(t, 2)}",
-    ) if (progress is None or progress) else None
-    year_base = [0]  # the year the tick hook reports in
-
-    def tick(t, _out):
-        if (t + 1) % tick_every == 0:
-            step = year_base[0] * st.nt + t + 1
-            prog.update(step, feedargs=(float(st.T[step - 1]),))
-
-    hook = tick if (tick_every and prog is not None) else None
-    year_seasonal = make_year_fn(spec.name, st, cfg, False, hook, debug)
-    year_full = make_year_fn(spec.name, st, cfg, True, hook, debug)
-
-    f_tab = forcing.table(st)
-    par_t = Collection({k: _as_tensor(v, dtype, device) for k, v in par.items()})
-    carry = spec.init_carry(init, st, dtype, device)
-
-    winter_acc, summer_acc, avg_acc = [], [], []
-    start_year = 0
-    write = None
-    if checkpoint is not None:
-        from . import checkpoint as ckpt_mod
-
-        extras = []
-        if engine != "scan":
-            extras.append(engine)
-        if ypd > 1 and engine != "fused":
-            extras.append(f"ypd{ypd}")
-        key = ckpt_mod.config_key("", spec.name, st, forcing, par, dtype_name(dtype),
-                                  solver, newton_max_iter, extras)
-        carry, start_year, winter_acc, summer_acc, avg_acc = ckpt_mod.resume_state(
-            checkpoint, key, resume, raw_mode, st.dur,
-            lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
-                                      device=device).contiguous(),
-            carry)
-        write = ckpt_mod.year_writer(
-            checkpoint, key, lambda: (carry, (winter_acc, summer_acc, avg_acc)))
-    if prog is not None and start_year:
-        prog.update(start_year * st.nt, feedargs=(float(start_year),))
-
-    profiler = None
-    if profile_dir is not None:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
-        profiler.__enter__()
-
-    raw_chunks = []
-    for y in range(start_year, st.dur):
-        collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
-        year_base[0] = y
-        if engine == "fused":
-            carry, seasonal, converged, ys = _fused_single_year(
-                spec.name, carry, par_t, f_tab[y], st, cfg, collect)
-        else:
-            fn = year_full if collect else year_seasonal
-            carry, seasonal, converged, ys = fn(carry, par_t, f_tab[y])
-        winter_acc.append(seasonal.winter)
-        summer_acc.append(seasonal.summer)
-        avg_acc.append(seasonal.avg)
-        if collect:
-            raw_chunks.append(ys)
-        if verbose and converged is not None and float(converged) < 1.0:
-            warnings.warn(f"Solving for T0 failed in year {y + 1}.")
-        if write is not None and ((y + 1) % max(checkpoint_every, 1) == 0
-                                  or y == st.dur - 1):
-            write(y + 1)
-        if prog is not None and not tick_every:
-            prog.update((y + 1) * st.nt, feedargs=(float(st.T[(y + 1) * st.nt - 1]),))
-    if prog is not None and tick_every:
-        prog.update(st.dur * st.nt, feedargs=(float(st.T[-1]),))
-
-    if profiler is not None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        profiler.__exit__(None, None, None)
-        os.makedirs(profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(profile_dir, "integrate.pt.trace.json"))
-
-    varnames = list(spec.solution_vars) + (["debug"] if debug is not None else [])
-    if raw_chunks:
-        raw = Collection(
-            {k: to_numpy(torch.cat([c[k] for c in raw_chunks], dim=0))
-             for k in varnames}
-        )
-    else:
-        raw = Collection({k: np.zeros((0, st.nx)) for k in varnames})
-
-    def stack(acc):
-        return Collection(
-            {k: to_numpy(torch.stack([c[k] for c in acc], dim=0)) for k in varnames}
-        )
-
-    seasonal_store = Seasonal(winter=stack(winter_acc), summer=stack(summer_acc),
-                              avg=stack(avg_acc))
-    ts = Solutions.stored_times(st, raw_mode != "all")
-    if raw_mode == "none":
-        ts = np.zeros((0,))
-
-    return Solutions(
-        spacetime=st,
-        ts=ts,
-        forcing=forcing,
-        parameters=Collection(par),
-        initconds=Collection({k: np.asarray(v) for k, v in init.items()}),
-        lastonly=lastonly,
-        debug=debug,
-        raw=raw,
-        seasonal=seasonal_store,
-    )

@@ -41,6 +41,7 @@ from ..models.base import StepConfig
 from ..models.classic import cos_table, member_scalars, uniform_bands
 from ..solutions import Seasonal
 from ..utils.collection import Collection
+from ..utils.tracing import traced
 from . import _build
 from ._year import (FORCE_CLUSTER, WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
                     check_noise_args, check_raw_fits, check_width, check_year_args,
@@ -87,6 +88,7 @@ def check_nx(nx: int) -> None:
     check_width("classic_year", nx)
 
 
+@traced("ebm.year.classic")
 def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
                  noise=None, noise_ou=None, noise_keys=None, ou_assoc: bool = False,
                  crossing=None):
@@ -106,7 +108,8 @@ def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = Fal
     ``classic_year.launches``; above nx = 4096 its cluster build) and raises
     if it cannot (``nx > MAX_NX``, or a cluster build the card cannot
     launch); on the CPU it runs
-    :func:`classic_year_reference`.
+    :func:`classic_year_reference`. Under ``torch.profiler`` the whole call
+    is the span ``ebm.year.classic`` (:mod:`..utils.tracing`).
     """
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "classic_year")
     noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,

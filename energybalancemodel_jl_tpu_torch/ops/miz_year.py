@@ -37,6 +37,7 @@ from ..models.base import StepConfig
 from ..solutions import Seasonal
 from ..utils.collection import Collection
 from ..utils.numerics import host_cos
+from ..utils.tracing import traced
 from . import _build
 from ._year import (FORCE_CLUSTER, WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
                     check_noise_args, check_raw_fits, check_width, check_year_args,
@@ -95,6 +96,7 @@ def _year_tables(st, dtype, device):
     return cols.to(device), cosv.to(device)
 
 
+@traced("ebm.year.miz")
 def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
              noise=None, noise_ou=None, noise_keys=None, ou_assoc: bool = False,
              crossing=None, newton_iters=None):
@@ -119,7 +121,8 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
     On a CUDA device this launches the kernel (counted in
     ``miz_year.launches``; above nx = 1024 its cluster build) and raises if
     it cannot (``nx > MAX_NX``, or a cluster build the card cannot launch);
-    on the CPU it runs :func:`miz_year_reference`.
+    on the CPU it runs :func:`miz_year_reference`. Under ``torch.profiler``
+    the whole call is the span ``ebm.year.miz`` (:mod:`..utils.tracing`).
     """
     K, nx, dtype, device = check_year_args(carry, CARRY_KEYS, fyear, st, "miz_year")
     noise_kw = dict(noise=noise, noise_ou=noise_ou, noise_keys=noise_keys,

@@ -44,6 +44,7 @@ from ..solutions import Seasonal, Solutions
 from ..spacetime import SpaceTime
 from ..utils.collection import Collection
 from ..utils.progress import Progress
+from ..utils.tracing import span, traced
 
 __all__ = ["EnsembleSolutions", "ensemble_integrate", "sweep", "batched_parameters"]
 
@@ -171,6 +172,7 @@ def _resolve_engine(engine, spec, st, device, solver, jit_wrapper=None) -> str:
     return engine
 
 
+@traced("ebm.ensemble_integrate")
 def ensemble_integrate(
     model: str,
     st: SpaceTime,
@@ -235,154 +237,159 @@ def ensemble_integrate(
     ``batch_axis`` attribute names the mesh axis it splits the members
     over, which the eager Newton loop's condition then reduces over.
     """
-    spec = get_model(model)
-    if raw_mode not in ("none", "last", "all"):
-        raise ValueError(f"ensemble raw_mode must be 'none'|'last'|'all', got {raw_mode!r}")
-    dtype = resolve_dtype(dtype)
-    if mesh is not None:
-        from .sharding import check_mesh
+    with span("ebm.ensemble_integrate.prepare"):
+        spec = get_model(model)
+        if raw_mode not in ("none", "last", "all"):
+            raise ValueError(f"ensemble raw_mode must be 'none'|'last'|'all', got {raw_mode!r}")
+        dtype = resolve_dtype(dtype)
+        if mesh is not None:
+            from .sharding import check_mesh
 
-        mesh = check_mesh(mesh)
-        if device is None:
-            device = mesh.devices.flat[0]
-    device = resolve_device(device)
-    par = Collection(par)
-    K = par.pop("__K__", None) or n_members
-    if K is None:
-        sizes = {np.shape(v)[0] for v in par.values() if np.ndim(v) > 0}
-        sizes |= {np.shape(v)[0] for v in init.values() if np.ndim(v) > 1}
-        if len(sizes) != 1:
-            raise ValueError("Cannot infer ensemble size; pass n_members")
-        K = sizes.pop()
-    K = int(K)
-    if raw_mode == "all":
-        _check_raw_all_budget(K, st, len(spec.solution_vars), dtype.itemsize,
-                              raw_memory_limit)
-    par_user = Collection(par)  # what the result reports, incl. virtual "F"
-    F_off = par.pop("F", None)
-    if F_off is not None:
-        F_off = np.asarray(F_off, dtype=np.float64)
-        F_off = np.full((K,), float(F_off)) if F_off.ndim == 0 else F_off.reshape(-1)
-        if F_off.shape[0] != K:
-            raise ValueError(f"par['F'] must have shape ({K},), got {F_off.shape}")
+            mesh = check_mesh(mesh)
+            if device is None:
+                device = mesh.devices.flat[0]
+        device = resolve_device(device)
+        par = Collection(par)
+        K = par.pop("__K__", None) or n_members
+        if K is None:
+            sizes = {np.shape(v)[0] for v in par.values() if np.ndim(v) > 0}
+            sizes |= {np.shape(v)[0] for v in init.values() if np.ndim(v) > 1}
+            if len(sizes) != 1:
+                raise ValueError("Cannot infer ensemble size; pass n_members")
+            K = sizes.pop()
+        K = int(K)
+        if raw_mode == "all":
+            _check_raw_all_budget(K, st, len(spec.solution_vars), dtype.itemsize,
+                                  raw_memory_limit)
+        par_user = Collection(par)  # what the result reports, incl. virtual "F"
+        F_off = par.pop("F", None)
+        if F_off is not None:
+            F_off = np.asarray(F_off, dtype=np.float64)
+            F_off = np.full((K,), float(F_off)) if F_off.ndim == 0 else F_off.reshape(-1)
+            if F_off.shape[0] != K:
+                raise ValueError(f"par['F'] must have shape ({K},), got {F_off.shape}")
 
-    engine = _resolve_engine(engine, spec, st, device, solver, jit_wrapper)
-    if mesh is not None:
-        if engine != "fused":
-            raise ValueError("mesh= requires engine='fused'; use sharded_ensemble_integrate "
-                             "for the batched engine")
-        if raw_mode != "none":
-            raise ValueError("engine='fused' with a mesh supports raw_mode='none' only "
-                             "(seasonal storage); collect raw data unsharded")
-        if K % mesh.size != 0:
-            raise ValueError(f"ensemble size {K} is not divisible by the mesh size {mesh.size}")
-    if years_per_dispatch is not None:
-        if int(years_per_dispatch) < 1:
-            raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
-        if int(years_per_dispatch) > 1 and engine != "fused":
-            raise ValueError("years_per_dispatch > 1 requires engine='fused'")
+        engine = _resolve_engine(engine, spec, st, device, solver, jit_wrapper)
+        if mesh is not None:
+            if engine != "fused":
+                raise ValueError("mesh= requires engine='fused'; use sharded_ensemble_integrate "
+                                 "for the batched engine")
+            if raw_mode != "none":
+                raise ValueError("engine='fused' with a mesh supports raw_mode='none' only "
+                                 "(seasonal storage); collect raw data unsharded")
+            if K % mesh.size != 0:
+                raise ValueError(f"ensemble size {K} is not divisible by the mesh size {mesh.size}")
+        if years_per_dispatch is not None:
+            if int(years_per_dispatch) < 1:
+                raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
+            if int(years_per_dispatch) > 1 and engine != "fused":
+                raise ValueError("years_per_dispatch > 1 requires engine='fused'")
 
-    cfg = default_step_config(dtype_name(dtype), solver=solver,
-                              newton_max_iter=newton_max_iter,
-                              batch_axis=getattr(jit_wrapper, "batch_axis", None))
-    as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
-    par_t = Collection({k: as_t(v) for k, v in par.items()})
-    # the batched step broadcasts (K, 1) parameter columns against (K, nx)
-    par_cols = Collection({k: (v[:, None] if v.ndim == 1 else v) for k, v in par_t.items()})
-    par_fused = Collection(par_t)
-    if F_off is not None:
-        par_fused["F"] = as_t(F_off)
-    wrap = jit_wrapper if jit_wrapper is not None else (lambda fn: fn)
-    year_seasonal = wrap(make_year_fn(spec.name, st, cfg, False))
-    year_full = wrap(make_year_fn(spec.name, st, cfg, True))
-    fused_year = FUSED_YEARS[spec.name][0] if engine == "fused" else None
-    if mesh is not None:
-        from .sharding import shard_map_fused_year_fn
+        cfg = default_step_config(dtype_name(dtype), solver=solver,
+                                  newton_max_iter=newton_max_iter,
+                                  batch_axis=getattr(jit_wrapper, "batch_axis", None))
+        as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+        par_t = Collection({k: as_t(v) for k, v in par.items()})
+        # the batched step broadcasts (K, 1) parameter columns against (K, nx)
+        par_cols = Collection({k: (v[:, None] if v.ndim == 1 else v) for k, v in par_t.items()})
+        par_fused = Collection(par_t)
+        if F_off is not None:
+            par_fused["F"] = as_t(F_off)
+        wrap = jit_wrapper if jit_wrapper is not None else (lambda fn: fn)
+        year_seasonal = wrap(make_year_fn(spec.name, st, cfg, False))
+        year_full = wrap(make_year_fn(spec.name, st, cfg, True))
+        fused_year = FUSED_YEARS[spec.name][0] if engine == "fused" else None
+        if mesh is not None:
+            from .sharding import shard_map_fused_year_fn
 
-        sharded = shard_map_fused_year_fn(st, mesh, par_fused, dtype_name(dtype), cfg,
-                                          model=spec.name)
+            sharded = shard_map_fused_year_fn(st, mesh, par_fused, dtype_name(dtype), cfg,
+                                              model=spec.name)
 
-        def fused_year(carry, par, fyear, st, cfg, collect_raw):
-            carry, seasonal, conv = sharded(carry, par, fyear)
-            return carry, seasonal, conv, None
+            def fused_year(carry, par, fyear, st, cfg, collect_raw):
+                carry, seasonal, conv = sharded(carry, par, fyear)
+                return carry, seasonal, conv, None
 
-    carry = spec.init_carry(init, st, dtype, device)
-    carry = Collection(
-        {k: (v if v.ndim == 2 else v.expand((K,) + tuple(v.shape))) for k, v in carry.items()}
-    )
-    for k, v in carry.items():
-        if tuple(v.shape) != (K, st.nx):
-            raise ValueError(f"init[{k!r}] must be ({st.nx},) or ({K}, {st.nx}), got {tuple(v.shape)}")
-    f_base = forcing.table(st)  # (dur, nt)
+        carry = spec.init_carry(init, st, dtype, device)
+        carry = Collection(
+            {k: (v if v.ndim == 2 else v.expand((K,) + tuple(v.shape))) for k, v in carry.items()}
+        )
+        for k, v in carry.items():
+            if tuple(v.shape) != (K, st.nx):
+                raise ValueError(f"init[{k!r}] must be ({st.nx},) or ({K}, {st.nx}), "
+                                 f"got {tuple(v.shape)}")
+        f_base = forcing.table(st)  # (dur, nt)
 
-    def batched_forcing(year):
-        if F_off is None:
-            return f_base[year]
-        # per-member rows, time leading: (nt, K, 1)
-        return (f_base[year][:, None] + F_off[None, :])[:, :, None]
+        def batched_forcing(year):
+            if F_off is None:
+                return f_base[year]
+            # per-member rows, time leading: (nt, K, 1)
+            return (f_base[year][:, None] + F_off[None, :])[:, :, None]
 
-    winter_acc, summer_acc, avg_acc, raw_years = [], [], [], []
-    start_year = 0
-    write = None
-    if checkpoint is not None:
-        from .. import checkpoint as ckpt_mod
+        winter_acc, summer_acc, avg_acc, raw_years = [], [], [], []
+        start_year = 0
+        write = None
+        if checkpoint is not None:
+            from .. import checkpoint as ckpt_mod
 
-        key = _ensemble_config_key(spec.name, st, forcing, par_user, dtype, solver,
-                                   engine, K, newton_max_iter)
-        carry, start_year, winter_acc, summer_acc, avg_acc = ckpt_mod.resume_state(
-            checkpoint, key, resume, raw_mode, st.dur,
-            lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
-                                      device=device).contiguous(),
-            carry)
-        write = ckpt_mod.year_writer(
-            checkpoint, key, lambda: (carry, (winter_acc, summer_acc, avg_acc)))
+            key = _ensemble_config_key(spec.name, st, forcing, par_user, dtype, solver,
+                                       engine, K, newton_max_iter)
+            carry, start_year, winter_acc, summer_acc, avg_acc = ckpt_mod.resume_state(
+                checkpoint, key, resume, raw_mode, st.dur,
+                lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                          device=device).contiguous(),
+                carry)
+            write = ckpt_mod.year_writer(
+                checkpoint, key, lambda: (carry, (winter_acc, summer_acc, avg_acc)))
 
-    prog = Progress(
-        st.dur, "Integrating ensemble",
-        infofeed=lambda yy: f"year {int(yy)}/{st.dur}, {K} members",
-    ) if (progress is None or progress) else None
-    if prog is not None and start_year:
-        prog.update(start_year, feedargs=(start_year,))
+        prog = Progress(
+            st.dur, "Integrating ensemble",
+            infofeed=lambda yy: f"year {int(yy)}/{st.dur}, {K} members",
+        ) if (progress is None or progress) else None
+        if prog is not None and start_year:
+            prog.update(start_year, feedargs=(start_year,))
 
     for y in range(start_year, st.dur):
-        collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
-        if engine == "fused":
-            carry, seasonal, _conv, ys = fused_year(carry, par_fused, f_base[y], st, cfg,
-                                                    collect_raw=collect)
-        else:
-            fn = year_full if collect else year_seasonal
-            carry, seasonal, _conv, ys = fn(carry, par_cols, batched_forcing(y))
-        winter_acc.append(seasonal.winter)
-        summer_acc.append(seasonal.summer)
-        avg_acc.append(seasonal.avg)
+        with span("ebm.ensemble_integrate.year"):
+            collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
+            if engine == "fused":
+                carry, seasonal, _conv, ys = fused_year(carry, par_fused, f_base[y], st, cfg,
+                                                        collect_raw=collect)
+            else:
+                fn = year_full if collect else year_seasonal
+                carry, seasonal, _conv, ys = fn(carry, par_cols, batched_forcing(y))
+            winter_acc.append(seasonal.winter)
+            summer_acc.append(seasonal.summer)
+            avg_acc.append(seasonal.avg)
+            if collect:
+                # the year loop stacks time first: (nt, K, nx) -> (K, nt, nx)
+                raw_years.append(Collection({k: v.transpose(0, 1) for k, v in ys.items()}))
         if write is not None and ((y + 1) % max(checkpoint_every, 1) == 0
                                   or y == st.dur - 1):
-            write(y + 1)
-        if collect:
-            # the year loop stacks time first: (nt, K, nx) -> (K, nt, nx)
-            raw_years.append(Collection({k: v.transpose(0, 1) for k, v in ys.items()}))
+            with span("ebm.ensemble_integrate.checkpoint"):
+                write(y + 1)
         if prog is not None:
             prog.update(y + 1, feedargs=(y + 1,))
 
-    def stack(acc, dim):
-        return Collection(
-            {k: to_numpy(torch.stack([c[k] for c in acc], dim=dim)) for k in acc[0]}
-        )
+    with span("ebm.ensemble_integrate.assemble"):
+        def stack(acc, dim):
+            return Collection(
+                {k: to_numpy(torch.stack([c[k] for c in acc], dim=dim)) for k in acc[0]}
+            )
 
-    raw = None
-    if raw_years:
-        raw = Collection(
-            {k: to_numpy(torch.cat([c[k] for c in raw_years], dim=1))
-             for k in raw_years[0]}
+        raw = None
+        if raw_years:
+            raw = Collection(
+                {k: to_numpy(torch.cat([c[k] for c in raw_years], dim=1))
+                 for k in raw_years[0]}
+            )
+        return EnsembleSolutions(
+            spacetime=st,
+            forcing=forcing,
+            parameters=par_user,
+            n_members=K,
+            seasonal=Seasonal(stack(winter_acc, 1), stack(summer_acc, 1), stack(avg_acc, 1)),
+            raw=raw,
         )
-    return EnsembleSolutions(
-        spacetime=st,
-        forcing=forcing,
-        parameters=par_user,
-        n_members=K,
-        seasonal=Seasonal(stack(winter_acc, 1), stack(summer_acc, 1), stack(avg_acc, 1)),
-        raw=raw,
-    )
 
 
 def sweep(

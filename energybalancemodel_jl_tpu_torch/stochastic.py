@@ -71,6 +71,7 @@ from .spacetime import SpaceTime
 from .utils.collection import Collection
 from .utils.numerics import hemispheric_mean
 from .utils.progress import Progress
+from .utils.tracing import span, traced
 
 __all__ = ["transitions", "TransitionResult"]
 
@@ -325,6 +326,7 @@ def _resolve_engine(engine: str, model: str, st: SpaceTime, device) -> str:
     return engine
 
 
+@traced("ebm.transitions")
 def transitions(
     model: str,
     st: SpaceTime,
@@ -391,303 +393,308 @@ def transitions(
     companions, divisible by its size) splits the members over its shards
     (module docstring); ``device`` then defaults to its first device.
     """
-    if mesh is not None:
-        from .parallel.sharding import check_mesh
+    with span("ebm.transitions.prepare"):
+        if mesh is not None:
+            from .parallel.sharding import check_mesh
 
-        mesh = check_mesh(mesh)
-        if device is None:
-            device = mesh.devices.flat[0]
-    spec = get_model(model)
-    if not isinstance(forcing, Forcing):
-        forcing = Forcing(float(forcing))
-    ramped = not forcing.constant
-    if start not in ("a", "b"):
-        raise ValueError(f"start must be 'a' or 'b', got {start!r}")
-    sigma_arr = np.asarray(sigma, dtype=np.float64)
-    if sigma_arr.ndim > 1:
-        raise ValueError("sigma must be a scalar or a (K,) vector")
-    if np.any(sigma_arr < 0.0):
-        raise ValueError("sigma must be >= 0")
-    tau = float(tau)
-    if tau < 0.0:
-        raise ValueError("tau must be >= 0")
-    years = int(years)
-    if years < 1:
-        raise ValueError("years must be >= 1")
-    year0 = int(year0)
-    if year0 < 0:
-        raise ValueError("year0 must be >= 0")
-    if season not in ("winter", "summer", "avg"):
-        raise ValueError(f"season must be winter/summer/avg, got {season!r}")
-    if years_per_dispatch is not None and int(years_per_dispatch) < 1:
-        raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
-    dtype = resolve_dtype(dtype)
-    device = resolve_device(device)
+            mesh = check_mesh(mesh)
+            if device is None:
+                device = mesh.devices.flat[0]
+        spec = get_model(model)
+        if not isinstance(forcing, Forcing):
+            forcing = Forcing(float(forcing))
+        ramped = not forcing.constant
+        if start not in ("a", "b"):
+            raise ValueError(f"start must be 'a' or 'b', got {start!r}")
+        sigma_arr = np.asarray(sigma, dtype=np.float64)
+        if sigma_arr.ndim > 1:
+            raise ValueError("sigma must be a scalar or a (K,) vector")
+        if np.any(sigma_arr < 0.0):
+            raise ValueError("sigma must be >= 0")
+        tau = float(tau)
+        if tau < 0.0:
+            raise ValueError("tau must be >= 0")
+        years = int(years)
+        if years < 1:
+            raise ValueError("years must be >= 1")
+        year0 = int(year0)
+        if year0 < 0:
+            raise ValueError("year0 must be >= 0")
+        if season not in ("winter", "summer", "avg"):
+            raise ValueError(f"season must be winter/summer/avg, got {season!r}")
+        if years_per_dispatch is not None and int(years_per_dispatch) < 1:
+            raise ValueError(f"years_per_dispatch must be >= 1, got {years_per_dispatch}")
+        dtype = resolve_dtype(dtype)
+        device = resolve_device(device)
 
-    par = Collection(par)
-    par.pop("__K__", None)
-    sizes = {np.shape(v)[0] for v in par.values() if np.ndim(v) > 0}
-    if sigma_arr.ndim == 1:
-        sizes |= {sigma_arr.shape[0]}
-    if init is not None:
-        sizes |= {np.shape(v)[0] for v in Collection(init).values() if np.ndim(v) > 1}
-    if sizes and K is not None and int(K) not in sizes:
-        raise ValueError(
-            f"K={K} conflicts with per-member par/init/sigma leaves of "
-            f"size {sorted(sizes)}")
-    if len(sizes) > 1:
-        raise ValueError(f"inconsistent ensemble sizes {sorted(sizes)}")
-    K = int(K) if K is not None else (sizes.pop() if sizes else 1)
-
-    engine = _resolve_engine(engine, spec.name, st, device)
-    if ou_impl is None:
-        ou_impl = "serial"
-    if ou_impl not in ("serial", "assoc"):
-        raise ValueError(f"ou_impl must be serial|assoc, got {ou_impl!r}")
-    if engine != "fused" and ou_impl == "assoc":
-        raise ValueError(
-            "ou_impl='assoc' is a fused-kernel mode (the scan engine "
-            "IS the serial reference weather); use engine='fused'")
-    if engine == "fused" and ou_impl == "assoc" and dtype != torch.float32:
-        raise ValueError(
-            "ou_impl='assoc' runs over the in-kernel-generated draw "
-            "scratch, which is float32-only; run the ensemble in "
-            "float32 (or use ou_impl='serial')")
-    if subyear:
-        if engine != "fused":
+        par = Collection(par)
+        par.pop("__K__", None)
+        sizes = {np.shape(v)[0] for v in par.values() if np.ndim(v) > 0}
+        if sigma_arr.ndim == 1:
+            sizes |= {sigma_arr.shape[0]}
+        if init is not None:
+            sizes |= {np.shape(v)[0] for v in Collection(init).values() if np.ndim(v) > 1}
+        if sizes and K is not None and int(K) not in sizes:
             raise ValueError(
-                "subyear=True runs inside the fused whole-year kernel; "
-                "use engine='fused' (f32)")
-        if dtype != torch.float32:
-            raise ValueError("subyear=True requires the float32 fused keys mode")
-        if ramped and mesh is not None:
-            raise ValueError(
-                "subyear=True under ramped forcing evolves the crossing threshold "
-                "from the sigma-zero companion lanes' areas, which live on a single "
-                "shard — run unsharded, or drop subyear= and refine with a second "
-                "unsharded pass")
+                f"K={K} conflicts with per-member par/init/sigma leaves of "
+                f"size {sorted(sizes)}")
+        if len(sizes) > 1:
+            raise ValueError(f"inconsistent ensemble sizes {sorted(sizes)}")
+        K = int(K) if K is not None else (sizes.pop() if sizes else 1)
 
-    if ramped:
-        swept = sorted(k for k, v in par.items() if np.ndim(v) > 0)
-        if swept:
+        engine = _resolve_engine(engine, spec.name, st, device)
+        if ou_impl is None:
+            ou_impl = "serial"
+        if ou_impl not in ("serial", "assoc"):
+            raise ValueError(f"ou_impl must be serial|assoc, got {ou_impl!r}")
+        if engine != "fused" and ou_impl == "assoc":
             raise ValueError(
-                f"ramped transitions cannot sweep par leaves {swept} "
-                f"across members (the sigma-zero companion references "
-                f"would need one deterministic run per member); sweep "
-                f"with separate calls, or per-member sigma")
-        if ref_init is not None:
-            if len(ref_init) != 2:
-                raise ValueError("ref_init must be (state_a, state_b)")
-            state_a = _solo_state(ref_init[0], "ref_init[0]")
-            state_b = _solo_state(ref_init[1], "ref_init[1]")
-        else:
-            state_a = _solo_state(a, "a")
-            state_b = _solo_state(b, "b")
-        area_a = area_b = None
-    else:
-        if ref_init is not None:
-            raise ValueError("ref_init= is for ramped forcing only (the "
-                             "sigma-zero companion trajectories)")
-        area_a = _ref_area(a, spec, st, par, forcing, season, dtype, device, engine)
-        area_b = _ref_area(b, spec, st, par, forcing, season, dtype, device, engine)
-        for name, arr in (("a", area_a), ("b", area_b)):
-            if arr.size not in (1, K):
+                "ou_impl='assoc' is a fused-kernel mode (the scan engine "
+                "IS the serial reference weather); use engine='fused'")
+        if engine == "fused" and ou_impl == "assoc" and dtype != torch.float32:
+            raise ValueError(
+                "ou_impl='assoc' runs over the in-kernel-generated draw "
+                "scratch, which is float32-only; run the ensemble in "
+                "float32 (or use ou_impl='serial')")
+        if subyear:
+            if engine != "fused":
                 raise ValueError(
-                    f"attractor {name}'s reference area is {arr.size}-member "
-                    f"but the run has K={K}")
+                    "subyear=True runs inside the fused whole-year kernel; "
+                    "use engine='fused' (f32)")
+            if dtype != torch.float32:
+                raise ValueError("subyear=True requires the float32 fused keys mode")
+            if ramped and mesh is not None:
+                raise ValueError(
+                    "subyear=True under ramped forcing evolves the crossing threshold "
+                    "from the sigma-zero companion lanes' areas, which live on a single "
+                    "shard — run unsharded, or drop subyear= and refine with a second "
+                    "unsharded pass")
 
-    if init is None:
-        src = a if start == "a" else b
-        init = getattr(src, "state", src)
-    init = Collection(init)
-    bad = [k for k, v in init.items() if np.ndim(v) > 1 and np.shape(v)[0] != K]
-    if bad:
-        raise ValueError(
-            f"init leaves {bad} are member-batched with a size other "
-            f"than K={K}")
-
-    track = tuple(track)
-    bad_track = [v for v in track if v not in spec.solution_vars]
-    if bad_track:
-        raise ValueError(
-            f"track names {bad_track} not in the {spec.name} seasonal "
-            f"store {tuple(spec.solution_vars)}")
-    cfg = default_step_config(dtype_name(dtype), newton_max_iter=newton_max_iter)
-
-    F_off = par.pop("F", None)
-    ramp_shift = 0.0
-    if F_off is not None and np.ndim(F_off) == 0:
-        # a scalar offset folds into the base forcing (float64 host
-        # arithmetic), or under a ramp into its tabulated rows
-        if forcing.constant:
-            forcing = Forcing(float(forcing.base) + float(np.asarray(F_off)))
-        else:
-            ramp_shift = float(np.asarray(F_off))
-        F_off = None
-
-    K_run = K + 2 if ramped else K
-    if mesh is not None and K_run % mesh.size != 0:
-        raise ValueError(f"ensemble size {K_run} is not divisible by the mesh size {mesh.size}")
-    t = lambda v: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
-                                  dtype=dtype, device=device)
-    carry = spec.init_carry(init, st, dtype, device)
-    carry = Collection({k: (v if v.ndim > 1 else v.expand((K,) + tuple(v.shape)))
-                        for k, v in carry.items()})
-    if ramped:
-        carry_a = spec.init_carry(state_a, st, dtype, device)
-        carry_b = spec.init_carry(state_b, st, dtype, device)
-        carry = Collection({k: torch.cat([carry[k], carry_a[k][None], carry_b[k][None]])
-                            for k in carry})
-    carry = Collection({k: v.contiguous() for k, v in carry.items()})
-
-    par_run = Collection({k: t(v) for k, v in par.items()})
-    f_off = t(np.asarray(F_off, dtype=np.float64)) if F_off is not None and np.ndim(F_off) == 1 \
-        else torch.zeros((K,), dtype=dtype, device=device)
-    if ramped:
-        f_off = torch.cat([f_off, torch.zeros((2,), dtype=dtype, device=device)])
-
-    frows_all = _forcing_rows(forcing, st, year0, years)
-    if ramp_shift:
-        frows_all = frows_all + ramp_shift
-
-    member_keys = prng.fold_in(prng.prng_key(seed), np.arange(K_run))
-
-    if eta0 is None:
-        eta = torch.zeros((K_run,), dtype=dtype, device=device)
-    else:
-        eta0 = np.asarray(eta0, dtype=np.float64)
-        if eta0.shape not in ((), (K,)):
-            raise ValueError(f"eta0 must be scalar or ({K},), got {eta0.shape}")
-        eta0 = np.broadcast_to(eta0, (K,))
         if ramped:
-            eta0 = np.concatenate([eta0, np.zeros(2)])
-        eta = t(eta0)
-
-    dt = 1.0 / st.nt
-    if tau > 0.0:
-        rho = float(np.exp(-dt / tau))
-        s_fac = float(np.sqrt(max(0.0, 1.0 - rho * rho)))
-    else:
-        rho, s_fac = 0.0, 1.0
-    scale_np = np.broadcast_to(sigma_arr * s_fac, (K,)).astype(np.float64)
-    if ramped:
-        scale_np = np.concatenate([scale_np, np.zeros(2)])
-    scale = t(scale_np)
-    rho_t = t(rho)
-
-    # the in-year crossing rows: the per-member midpoint of the two reference
-    # areas in raw trapezoid units and the direction toward the other one;
-    # ramped runs seed the first year here and advance it each year
-    sdir = 1.0 if start == "a" else -1.0
-    if ref_area0 is not None and not (subyear and ramped):
-        raise ValueError(
-            "ref_area0= seeds the evolving crossing threshold of a "
-            "RAMPED subyear=True run (pass the prior segment's "
-            "(result.area_a[-1], result.area_b[-1]))")
-    cr_thr = cr_sgn = None
-    if subyear and ramped:
-        if ref_area0 is not None:
-            if len(ref_area0) != 2:
-                raise ValueError("ref_area0 must be (area_a, area_b)")
-            a0, b0 = (float(np.asarray(v, np.float64)) for v in ref_area0)
-        else:
-            a0, b0 = (_det_year(spec, st, par, s, frows_all[0], season, dtype, device, engine,
-                                dtype_name(dtype), newton_max_iter)
-                      for s in (state_a, state_b))
-        cr_thr, cr_sgn = _thr_sgn(a0, b0, sdir, K_run, dtype, device)
-    elif subyear:
-        a_arr = np.broadcast_to(np.asarray(area_a, np.float64), (K,))
-        b_arr = np.broadcast_to(np.asarray(area_b, np.float64), (K,))
-        other = b_arr if start == "a" else a_arr
-        own = a_arr if start == "a" else b_arr
-        cr_thr = t((a_arr + b_arr) / (2.0 * 2.0 * np.pi))
-        cr_sgn = t(np.sign(other - own))
-
-    x = t(st.x)
-    if mesh is not None:
-        # the eager year's lockstep Newton loop takes the whole batch's trip
-        # count on every shard; the kernels iterate per member
-        cfg = dataclasses.replace(cfg, batch_axis=mesh.axis_names[0])
-    if engine == "fused":
-        kernel_year = FUSED_YEARS[spec.name][0]
-        par_run["F"] = f_off
-        par_year = par_run
-    else:
-        scan_year = make_year_fn(spec.name, st, cfg, False)
-        par_year = Collection({k: (v[:, None] if v.ndim == 1 else v)
-                               for k, v in par_run.items()})
-
-    def one_year(carry, eta, mkeys, par, f_off, scale, rho, thr, sgn, yi, frow):
-        """One noisy model year of the members given (all K_run, or a
-        shard's): (carry, eta, seasonal, converged, crossing steps or None).
-        Every per-member operand is an argument, so a shard gets its own."""
-        dev = eta.device
-        keys = prng.fold_in(mkeys, yi)
-        frow = torch.as_tensor(frow, dtype=dtype, device=dev)
-        if engine == "fused":
-            kw = dict(noise_ou=(rho, scale, eta))
-            if dtype == torch.float32:
-                kw.update(noise_keys=keys, ou_assoc=ou_impl == "assoc")
+            swept = sorted(k for k, v in par.items() if np.ndim(v) > 0)
+            if swept:
+                raise ValueError(
+                    f"ramped transitions cannot sweep par leaves {swept} "
+                    f"across members (the sigma-zero companion references "
+                    f"would need one deterministic run per member); sweep "
+                    f"with separate calls, or per-member sigma")
+            if ref_init is not None:
+                if len(ref_init) != 2:
+                    raise ValueError("ref_init must be (state_a, state_b)")
+                state_a = _solo_state(ref_init[0], "ref_init[0]")
+                state_b = _solo_state(ref_init[1], "ref_init[1]")
             else:
-                kw.update(noise=prng.normal_table_f64(keys, st.nt, dev))
-            if subyear:
-                kw.update(crossing=(thr, sgn))
-            out = kernel_year(carry, par, frow, st, cfg, **kw)
-            carry, seasonal, conv, eta = out[:4]
-            return carry, eta, seasonal, conv, (out[4] if subyear else None)
-        xi = (normal_table(keys, st.nt, dev) if dtype == torch.float32
-              else prng.normal_table_f64(keys, st.nt, dev))
-        etas = ou_path(xi, rho, scale, eta)
-        fyear = (frow[:, None] + f_off[None, :]) + etas
-        carry, seasonal, conv, _ = scan_year(carry, par, fyear[:, :, None])
-        return carry, etas[-1], seasonal, conv, None
+                state_a = _solo_state(a, "a")
+                state_b = _solo_state(b, "b")
+            area_a = area_b = None
+        else:
+            if ref_init is not None:
+                raise ValueError("ref_init= is for ramped forcing only (the "
+                                 "sigma-zero companion trajectories)")
+            with span("ebm.transitions.reference"):
+                area_a = _ref_area(a, spec, st, par, forcing, season, dtype, device, engine)
+                area_b = _ref_area(b, spec, st, par, forcing, season, dtype, device, engine)
+            for name, arr in (("a", area_a), ("b", area_b)):
+                if arr.size not in (1, K):
+                    raise ValueError(
+                        f"attractor {name}'s reference area is {arr.size}-member "
+                        f"but the run has K={K}")
 
-    run_year = one_year
-    if mesh is not None:
-        from .parallel.mesh import P, pmin, shard_map
+        if init is None:
+            src = a if start == "a" else b
+            init = getattr(src, "state", src)
+        init = Collection(init)
+        bad = [k for k, v in init.items() if np.ndim(v) > 1 and np.shape(v)[0] != K]
+        if bad:
+            raise ValueError(
+                f"init leaves {bad} are member-batched with a size other "
+                f"than K={K}")
 
-        ax = mesh.axis_names[0]
-        mem = P(ax)
+        track = tuple(track)
+        bad_track = [v for v in track if v not in spec.solution_vars]
+        if bad_track:
+            raise ValueError(
+                f"track names {bad_track} not in the {spec.name} seasonal "
+                f"store {tuple(spec.solution_vars)}")
+        cfg = default_step_config(dtype_name(dtype), newton_max_iter=newton_max_iter)
 
-        def local_year(*args):
-            carry, eta, seasonal, conv, cross = one_year(*args)
-            return carry, eta, seasonal, (None if conv is None else pmin(conv, ax)), cross
+        F_off = par.pop("F", None)
+        ramp_shift = 0.0
+        if F_off is not None and np.ndim(F_off) == 0:
+            # a scalar offset folds into the base forcing (float64 host
+            # arithmetic), or under a ramp into its tabulated rows
+            if forcing.constant:
+                forcing = Forcing(float(forcing.base) + float(np.asarray(F_off)))
+            else:
+                ramp_shift = float(np.asarray(F_off))
+            F_off = None
 
-        par_specs = Collection({k: (mem if v.ndim > 0 else P()) for k, v in par_year.items()})
-        run_year = shard_map(
-            local_year, mesh,
-            in_specs=(mem, mem, mem, par_specs, mem, mem, P(), mem, mem, P(), P()),
-            out_specs=(mem, mem, mem, P(), mem))
+        K_run = K + 2 if ramped else K
+        if mesh is not None and K_run % mesh.size != 0:
+            raise ValueError(f"ensemble size {K_run} is not divisible by the mesh size {mesh.size}")
+        t = lambda v: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
+                                      dtype=dtype, device=device)
+        carry = spec.init_carry(init, st, dtype, device)
+        carry = Collection({k: (v if v.ndim > 1 else v.expand((K,) + tuple(v.shape)))
+                            for k, v in carry.items()})
+        if ramped:
+            carry_a = spec.init_carry(state_a, st, dtype, device)
+            carry_b = spec.init_carry(state_b, st, dtype, device)
+            carry = Collection({k: torch.cat([carry[k], carry_a[k][None], carry_b[k][None]])
+                                for k in carry})
+        carry = Collection({k: v.contiguous() for k, v in carry.items()})
 
-    prog = None
-    if progress:
-        sig_txt = (f"{float(np.min(sigma_arr)):g}..{float(np.max(sigma_arr)):g}"
-                   if sigma_arr.ndim else f"{float(sigma_arr):g}")
-        prog = Progress(years, title=f"Transitions (sigma={sig_txt})",
-                        infofeed=lambda msg: msg)
+        par_run = Collection({k: t(v) for k, v in par.items()})
+        f_off = (t(np.asarray(F_off, dtype=np.float64))
+                 if F_off is not None and np.ndim(F_off) == 1
+                 else torch.zeros((K,), dtype=dtype, device=device))
+        if ramped:
+            f_off = torch.cat([f_off, torch.zeros((2,), dtype=dtype, device=device)])
 
-    chunk = years if years_per_dispatch is None else int(years_per_dispatch)
-    areas_h, means_h, cross_h, convs = [], [], [], []
-    done = 0
+        frows_all = _forcing_rows(forcing, st, year0, years)
+        if ramp_shift:
+            frows_all = frows_all + ramp_shift
+
+        member_keys = prng.fold_in(prng.prng_key(seed), np.arange(K_run))
+
+        if eta0 is None:
+            eta = torch.zeros((K_run,), dtype=dtype, device=device)
+        else:
+            eta0 = np.asarray(eta0, dtype=np.float64)
+            if eta0.shape not in ((), (K,)):
+                raise ValueError(f"eta0 must be scalar or ({K},), got {eta0.shape}")
+            eta0 = np.broadcast_to(eta0, (K,))
+            if ramped:
+                eta0 = np.concatenate([eta0, np.zeros(2)])
+            eta = t(eta0)
+
+        dt = 1.0 / st.nt
+        if tau > 0.0:
+            rho = float(np.exp(-dt / tau))
+            s_fac = float(np.sqrt(max(0.0, 1.0 - rho * rho)))
+        else:
+            rho, s_fac = 0.0, 1.0
+        scale_np = np.broadcast_to(sigma_arr * s_fac, (K,)).astype(np.float64)
+        if ramped:
+            scale_np = np.concatenate([scale_np, np.zeros(2)])
+        scale = t(scale_np)
+        rho_t = t(rho)
+
+        # the in-year crossing rows: the per-member midpoint of the two reference
+        # areas in raw trapezoid units and the direction toward the other one;
+        # ramped runs seed the first year here and advance it each year
+        sdir = 1.0 if start == "a" else -1.0
+        if ref_area0 is not None and not (subyear and ramped):
+            raise ValueError(
+                "ref_area0= seeds the evolving crossing threshold of a "
+                "RAMPED subyear=True run (pass the prior segment's "
+                "(result.area_a[-1], result.area_b[-1]))")
+        cr_thr = cr_sgn = None
+        if subyear and ramped:
+            if ref_area0 is not None:
+                if len(ref_area0) != 2:
+                    raise ValueError("ref_area0 must be (area_a, area_b)")
+                a0, b0 = (float(np.asarray(v, np.float64)) for v in ref_area0)
+            else:
+                with span("ebm.transitions.reference"):
+                    a0, b0 = (_det_year(spec, st, par, s, frows_all[0], season, dtype, device,
+                                        engine, dtype_name(dtype), newton_max_iter)
+                              for s in (state_a, state_b))
+            cr_thr, cr_sgn = _thr_sgn(a0, b0, sdir, K_run, dtype, device)
+        elif subyear:
+            a_arr = np.broadcast_to(np.asarray(area_a, np.float64), (K,))
+            b_arr = np.broadcast_to(np.asarray(area_b, np.float64), (K,))
+            other = b_arr if start == "a" else a_arr
+            own = a_arr if start == "a" else b_arr
+            cr_thr = t((a_arr + b_arr) / (2.0 * 2.0 * np.pi))
+            cr_sgn = t(np.sign(other - own))
+
+        x = t(st.x)
+        if mesh is not None:
+            # the eager year's lockstep Newton loop takes the whole batch's trip
+            # count on every shard; the kernels iterate per member
+            cfg = dataclasses.replace(cfg, batch_axis=mesh.axis_names[0])
+        if engine == "fused":
+            kernel_year = FUSED_YEARS[spec.name][0]
+            par_run["F"] = f_off
+            par_year = par_run
+        else:
+            scan_year = make_year_fn(spec.name, st, cfg, False)
+            par_year = Collection({k: (v[:, None] if v.ndim == 1 else v)
+                                   for k, v in par_run.items()})
+
+        def one_year(carry, eta, mkeys, par, f_off, scale, rho, thr, sgn, yi, frow):
+            """One noisy model year of the members given (all K_run, or a
+            shard's): (carry, eta, seasonal, converged, crossing steps or None).
+            Every per-member operand is an argument, so a shard gets its own."""
+            dev = eta.device
+            keys = prng.fold_in(mkeys, yi)
+            frow = torch.as_tensor(frow, dtype=dtype, device=dev)
+            if engine == "fused":
+                kw = dict(noise_ou=(rho, scale, eta))
+                if dtype == torch.float32:
+                    kw.update(noise_keys=keys, ou_assoc=ou_impl == "assoc")
+                else:
+                    kw.update(noise=prng.normal_table_f64(keys, st.nt, dev))
+                if subyear:
+                    kw.update(crossing=(thr, sgn))
+                out = kernel_year(carry, par, frow, st, cfg, **kw)
+                carry, seasonal, conv, eta = out[:4]
+                return carry, eta, seasonal, conv, (out[4] if subyear else None)
+            xi = (normal_table(keys, st.nt, dev) if dtype == torch.float32
+                  else prng.normal_table_f64(keys, st.nt, dev))
+            etas = ou_path(xi, rho, scale, eta)
+            fyear = (frow[:, None] + f_off[None, :]) + etas
+            carry, seasonal, conv, _ = scan_year(carry, par, fyear[:, :, None])
+            return carry, etas[-1], seasonal, conv, None
+
+        run_year = one_year
+        if mesh is not None:
+            from .parallel.mesh import P, pmin, shard_map
+
+            ax = mesh.axis_names[0]
+            mem = P(ax)
+
+            def local_year(*args):
+                carry, eta, seasonal, conv, cross = one_year(*args)
+                return carry, eta, seasonal, (None if conv is None else pmin(conv, ax)), cross
+
+            par_specs = Collection({k: (mem if v.ndim > 0 else P()) for k, v in par_year.items()})
+            run_year = shard_map(
+                local_year, mesh,
+                in_specs=(mem, mem, mem, par_specs, mem, mem, P(), mem, mem, P(), P()),
+                out_specs=(mem, mem, mem, P(), mem))
+
+        prog = None
+        if progress:
+            sig_txt = (f"{float(np.min(sigma_arr)):g}..{float(np.max(sigma_arr)):g}"
+                       if sigma_arr.ndim else f"{float(sigma_arr):g}")
+            prog = Progress(years, title=f"Transitions (sigma={sig_txt})",
+                            infofeed=lambda msg: msg)
+
+        chunk = years if years_per_dispatch is None else int(years_per_dispatch)
+        areas_h, means_h, cross_h, convs = [], [], [], []
+        done = 0
     while done < years:
         k = min(chunk, years - done)
         t0 = time.perf_counter()
         for y in range(done, done + k):
-            carry, eta, seasonal, conv, cross = run_year(
-                carry, eta, member_keys, par_year, f_off, scale, rho_t, cr_thr, cr_sgn,
-                year0 + y, frows_all[y])
-            coll = getattr(seasonal, season)
-            area = _area_of(coll, x)
-            areas_h.append(area)
-            means_h.append([hemispheric_mean(torch.nan_to_num(coll[v]), x) for v in track])
-            if conv is not None:
-                convs.append(conv)
-            if subyear:
-                cross_h.append(cross)
-                if ramped:
-                    # next year's entering threshold: this year's companion
-                    # areas (the last two lanes), lag 1
-                    cr_thr, cr_sgn = _thr_sgn(area[-2], area[-1], sdir, K_run, dtype, device)
+            with span("ebm.transitions.year"):
+                carry, eta, seasonal, conv, cross = run_year(
+                    carry, eta, member_keys, par_year, f_off, scale, rho_t, cr_thr, cr_sgn,
+                    year0 + y, frows_all[y])
+                coll = getattr(seasonal, season)
+                area = _area_of(coll, x)
+                areas_h.append(area)
+                means_h.append([hemispheric_mean(torch.nan_to_num(coll[v]), x) for v in track])
+                if conv is not None:
+                    convs.append(conv)
+                if subyear:
+                    cross_h.append(cross)
+                    if ramped:
+                        # next year's entering threshold: this year's companion
+                        # areas (the last two lanes), lag 1
+                        cr_thr, cr_sgn = _thr_sgn(area[-2], area[-1], sdir, K_run, dtype, device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         done += k
@@ -695,76 +702,78 @@ def transitions(
             prog.update(done, feedargs=(f"{done}/{years} years "
                                         f"({time.perf_counter() - t0:.1f} s)",))
 
-    ok = float(torch.stack(convs).min()) if convs else 1.0
-    areas = to_numpy(torch.stack(areas_h)).astype(np.float64)  # (years, K_run)
-    tracked = Collection({
-        v: to_numpy(torch.stack([m[i] for m in means_h])).astype(np.float64)
-        for i, v in enumerate(track)
-    })
-    carry = to_numpy(carry)
+    with span("ebm.transitions.assemble"):
+        ok = float(torch.stack(convs).min()) if convs else 1.0
+        areas = to_numpy(torch.stack(areas_h)).astype(np.float64)  # (years, K_run)
+        tracked = Collection({
+            v: to_numpy(torch.stack([m[i] for m in means_h])).astype(np.float64)
+            for i, v in enumerate(track)
+        })
+        carry = to_numpy(carry)
 
-    ref_state = None
-    if ramped:
-        area_a = areas[:, K]
-        area_b = areas[:, K + 1]
-        ref_state = (Collection({k: np.asarray(v[K]) for k, v in carry.items()}),
-                     Collection({k: np.asarray(v[K + 1]) for k, v in carry.items()}))
-        areas = areas[:, :K]
-        tracked = Collection({k: v[:, :K] for k, v in tracked.items()})
-
-    finite_y = np.isfinite(areas)
-    if ramped:
-        d_a = np.abs(areas - area_a[:, None])
-        d_b = np.abs(areas - area_b[:, None])
-    else:
-        d_a = np.abs(areas - area_a[None, :]) if area_a.size == K \
-            else np.abs(areas - area_a.reshape(1, 1))
-        d_b = np.abs(areas - area_b[None, :]) if area_b.size == K \
-            else np.abs(areas - area_b.reshape(1, 1))
-    # nearest-area labels, ties toward the START attractor
-    if start == "a":
-        labels = np.where(finite_y, (d_b < d_a).astype(np.int8), np.int8(-1))
-    else:
-        labels = np.where(finite_y, np.where(d_a < d_b, 0, 1).astype(np.int8), np.int8(-1))
-    labels = labels.astype(np.int8)
-    fp, finite = _first_passage(labels, 0 if start == "a" else 1)
-
-    degenerate = False
-    if years >= 3:
-        gap = np.abs(np.asarray(area_a, dtype=np.float64) - np.asarray(area_b, dtype=np.float64))
-        with np.errstate(invalid="ignore"):
-            fluct = np.abs(np.diff(areas, axis=0))
-            fluct = float(np.nanmedian(fluct)) if np.isfinite(fluct).any() else 0.0
-        if float(np.nanmin(gap)) <= 4.0 * fluct:
-            degenerate = True
-            warnings.warn(
-                f"transitions: attractor reference areas come within "
-                f"{float(np.nanmin(gap)):.3g} of each other while member "
-                f"areas fluctuate ~{fluct:.3g} per year — nearest-area "
-                f"labels are degenerate there and the escape statistics "
-                f"should not be trusted (result.degenerate=True)")
-
-    state = Collection({k: np.asarray(v) for k, v in carry.items()})
-    eta_np = to_numpy(eta).astype(np.float64)
-    if ramped:
-        state = Collection({k: v[:K] for k, v in state.items()})
-        eta_np = eta_np[:K]
-
-    crossing_step = None
-    if subyear:
-        crossing_step = to_numpy(torch.stack(cross_h)).astype(np.float64)
+        ref_state = None
         if ramped:
-            crossing_step = crossing_step[:, :K]
+            area_a = areas[:, K]
+            area_b = areas[:, K + 1]
+            ref_state = (Collection({k: np.asarray(v[K]) for k, v in carry.items()}),
+                         Collection({k: np.asarray(v[K + 1]) for k, v in carry.items()}))
+            areas = areas[:, :K]
+            tracked = Collection({k: v[:, :K] for k, v in tracked.items()})
 
-    return TransitionResult(
-        areas=areas, labels=labels, first_passage=fp, finite=finite,
-        state=state, eta=eta_np, tracked=tracked,
-        area_a=np.asarray(area_a, dtype=np.float64),
-        area_b=np.asarray(area_b, dtype=np.float64),
-        start=start,
-        sigma=(float(sigma_arr) if sigma_arr.ndim == 0 else np.asarray(sigma_arr)),
-        tau=tau, years=years, season=season, seed=int(seed),
-        newton_ok=bool(ok >= 0.5), year0=year0, engine=engine,
-        ramped=ramped, degenerate=degenerate, ref_state=ref_state,
-        crossing_step=crossing_step, nt=int(st.nt),
-    )
+        finite_y = np.isfinite(areas)
+        if ramped:
+            d_a = np.abs(areas - area_a[:, None])
+            d_b = np.abs(areas - area_b[:, None])
+        else:
+            d_a = np.abs(areas - area_a[None, :]) if area_a.size == K \
+                else np.abs(areas - area_a.reshape(1, 1))
+            d_b = np.abs(areas - area_b[None, :]) if area_b.size == K \
+                else np.abs(areas - area_b.reshape(1, 1))
+        # nearest-area labels, ties toward the START attractor
+        if start == "a":
+            labels = np.where(finite_y, (d_b < d_a).astype(np.int8), np.int8(-1))
+        else:
+            labels = np.where(finite_y, np.where(d_a < d_b, 0, 1).astype(np.int8), np.int8(-1))
+        labels = labels.astype(np.int8)
+        fp, finite = _first_passage(labels, 0 if start == "a" else 1)
+
+        degenerate = False
+        if years >= 3:
+            gap = np.abs(np.asarray(area_a, dtype=np.float64)
+                         - np.asarray(area_b, dtype=np.float64))
+            with np.errstate(invalid="ignore"):
+                fluct = np.abs(np.diff(areas, axis=0))
+                fluct = float(np.nanmedian(fluct)) if np.isfinite(fluct).any() else 0.0
+            if float(np.nanmin(gap)) <= 4.0 * fluct:
+                degenerate = True
+                warnings.warn(
+                    f"transitions: attractor reference areas come within "
+                    f"{float(np.nanmin(gap)):.3g} of each other while member "
+                    f"areas fluctuate ~{fluct:.3g} per year — nearest-area "
+                    f"labels are degenerate there and the escape statistics "
+                    f"should not be trusted (result.degenerate=True)")
+
+        state = Collection({k: np.asarray(v) for k, v in carry.items()})
+        eta_np = to_numpy(eta).astype(np.float64)
+        if ramped:
+            state = Collection({k: v[:K] for k, v in state.items()})
+            eta_np = eta_np[:K]
+
+        crossing_step = None
+        if subyear:
+            crossing_step = to_numpy(torch.stack(cross_h)).astype(np.float64)
+            if ramped:
+                crossing_step = crossing_step[:, :K]
+
+        return TransitionResult(
+            areas=areas, labels=labels, first_passage=fp, finite=finite,
+            state=state, eta=eta_np, tracked=tracked,
+            area_a=np.asarray(area_a, dtype=np.float64),
+            area_b=np.asarray(area_b, dtype=np.float64),
+            start=start,
+            sigma=(float(sigma_arr) if sigma_arr.ndim == 0 else np.asarray(sigma_arr)),
+            tau=tau, years=years, season=season, seed=int(seed),
+            newton_ok=bool(ok >= 0.5), year0=year0, engine=engine,
+            ramped=ramped, degenerate=degenerate, ref_state=ref_state,
+            crossing_step=crossing_step, nt=int(st.nt),
+        )
