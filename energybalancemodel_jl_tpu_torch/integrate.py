@@ -348,7 +348,9 @@ def integrate(
             year_seasonal = make_year_fn(spec.name, st, cfg, False, hook, debug)
             year_full = make_year_fn(spec.name, st, cfg, True, hook, debug)
 
-            f_tab = forcing.table(st)
+            # the forcing rows on the device once, in the run's dtype: a year
+            # then reads its row with no copy from the host
+            f_tab = _as_tensor(forcing.table(st), dtype, device)
             par_t = Collection({k: _as_tensor(v, dtype, device) for k, v in par.items()})
             carry = spec.init_carry(init, st, dtype, device)
 

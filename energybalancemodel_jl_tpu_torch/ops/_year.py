@@ -12,8 +12,10 @@ the JAX module have no counterpart: a block per member pads nothing.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -27,7 +29,8 @@ __all__ = ["member_columns", "check_year_args", "check_width", "check_noise_args
            "block_sum", "block_layout", "pcr_shared_bytes", "CrossingTracker", "NoiseLaunch",
            "year_result", "MAX_SHARED_BYTES", "refuse_grad", "WIDE",
            "FORCE_CLUSTER", "ClusterPlan", "cluster_plan", "wide_workspace", "wide_words",
-           "workspace", "check_raw_fits"]
+           "workspace", "check_raw_fits", "YearTables", "year_tables", "clear_year_tables",
+           "YEAR_TABLES_MAX", "year_keys"]
 
 
 def refuse_grad(kernel: str, *values) -> None:
@@ -57,13 +60,14 @@ def refuse_grad(kernel: str, *values) -> None:
             "solver='pcr', or the scan engine of integrate)")
 
 
-def member_columns(par, names, K: int, dtype, device):
+def member_columns(par, names, K: int, dtype, device, zero=0.0):
     """name -> ``(K,)`` tensor for each of ``names`` and the virtual ``"F"``
     forcing offset. Each leaf of ``par`` is a scalar (shared) or has shape
     ``(K,)`` (swept); ``"F"`` is optional (a per-member constant added to the
-    forcing, 0 when absent)."""
+    forcing, ``zero`` when absent: 0, or a 0-dim 0 on the device such as
+    :attr:`YearTables.zero`, which takes no copy)."""
     cols = {n: _member_col(par[n], K, dtype, device) for n in names}
-    cols["F"] = _member_col(par.get("F", 0.0), K, dtype, device)
+    cols["F"] = _member_col(par.get("F", zero), K, dtype, device)
     return cols
 
 
@@ -176,6 +180,77 @@ def trapezoid_weights(x, dtype, device=None) -> torch.Tensor:
     return torch.as_tensor(w, dtype=dtype, device=device)
 
 
+class YearTables(NamedTuple):
+    """The inputs of a year kernel that the grid, the dtype and the device
+    fix, on the device: the ``(5, nx)`` per-cell columns (``x``, ``x^2`` and
+    the three diffusion bands), the kernel's ``cos(2 pi t)`` table, ``dt``
+    and the default ``"F"`` offset 0 as 0-dim tensors, and the crossing
+    sum's trapezoid weights (None on a grid of one cell, which has no
+    area)."""
+    cols: torch.Tensor
+    cos: torch.Tensor
+    dt: torch.Tensor
+    zero: torch.Tensor
+    weights: torch.Tensor | None
+
+
+# the entries the year-table cache keeps; past them the least recently used
+# goes (a grid of nx = 32768 in float64 holds about 1.6 MB)
+YEAR_TABLES_MAX = 16
+_TABLES: collections.OrderedDict = collections.OrderedDict()
+_TABLES_LOCK = threading.Lock()
+
+
+def year_tables(kernel: str, st, dtype, device, build) -> YearTables:
+    """``kernel``'s :class:`YearTables` for grid ``st`` in ``dtype`` on
+    ``device``, copied to the device once and then reused, so that a year
+    launch copies nothing from the host. ``build(st, dtype)`` makes the
+    columns and the ``cos`` table on the host (where the kernel's values come
+    from: a device's ``cos`` may round differently).
+
+    An entry is keyed by what sets its values: the kernel, the grid's
+    defining fields (map, range, ``nx``; ``nt``, which sets ``t`` and
+    ``dt``), the dtype and the device, so a mesh's shards on other devices
+    get entries of their own. ``year_tables.builds`` counts the entries
+    built, ``year_tables.hits`` the lookups that found one."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (kernel, st.grid, tuple(st.urange), st.nx, st.nt, dtype, device)
+    with _TABLES_LOCK:
+        tables = _TABLES.get(key)
+        if tables is None:
+            cols, cosv = build(st, dtype)
+            put = lambda v: torch.as_tensor(v, dtype=dtype, device=device).contiguous()
+            tables = YearTables(put(cols), put(cosv), put(st.dt), put(0.0),
+                                trapezoid_weights(st.x, dtype, device) if st.nx > 1 else None)
+            _TABLES[key] = tables
+            while len(_TABLES) > YEAR_TABLES_MAX:
+                _TABLES.popitem(last=False)
+            year_tables.builds += 1
+        else:
+            _TABLES.move_to_end(key)
+            year_tables.hits += 1
+    if device.type == "cuda":
+        # a mesh's shards launch on streams of their own: an entry dropped
+        # later is then reused only after their kernels have read it
+        stream = torch.cuda.current_stream(device)
+        for v in tables:
+            if v is not None:
+                v.record_stream(stream)
+    return tables
+
+
+year_tables.builds = 0
+year_tables.hits = 0
+
+
+def clear_year_tables() -> None:
+    """Drop every entry of the year-table cache (the counters stay)."""
+    with _TABLES_LOCK:
+        _TABLES.clear()
+
+
 def _fma(dtype):
     return prng.fma_f32 if dtype == torch.float32 else prng.fma_f64
 
@@ -249,8 +324,21 @@ def keys_tensor(noise_keys, K: int, device) -> torch.Tensor:
         raise ValueError(
             f"noise_keys must be a ({K}, 2) uint32 key-data array, got "
             f"{keys.dtype} {keys.shape}")
-    bits = np.asarray(keys.astype(np.int64) & 0xFFFFFFFF, np.uint32).view(np.int32)
-    return torch.as_tensor(bits, device=device).contiguous()
+    return torch.as_tensor(_key_bits(keys), device=device).contiguous()
+
+
+def _key_bits(keys: np.ndarray) -> np.ndarray:
+    """Integer key data as int32 words with the same low 32 bits."""
+    return np.asarray(keys.astype(np.int64) & 0xFFFFFFFF, np.uint32).view(np.int32)
+
+
+def year_keys(member_keys, years, device) -> torch.Tensor:
+    """``(len(years), K, 2)`` int32 on ``device``: row ``y`` is
+    ``keys_tensor(prng.fold_in(member_keys, years[y]))``, the keys of the
+    absolute year ``years[y]`` for the ``(K, 2)`` uint32 ``member_keys``,
+    folded over the years axis in one call and copied to the device once."""
+    years = np.asarray(years, np.int64).reshape(-1, 1)
+    return torch.as_tensor(_key_bits(prng.fold_in(member_keys, years)), device=device).contiguous()
 
 
 def noise_offsets(noise, noise_ou, noise_keys, ou_assoc, K: int, nt: int, dtype, device,
@@ -485,10 +573,11 @@ class NoiseLaunch:
     """The noise arguments of a year kernel's C entry point: seven pointers
     (table, keys, OU rows, year-end eta, crossing rows, first-crossing
     steps, trapezoid weights; null where unused), the OU mode, and the
-    output tensors. Built after :func:`check_noise_args`."""
+    output tensors. Built after :func:`check_noise_args`; ``weights`` are
+    the grid's trapezoid weights on the device (:class:`YearTables`)."""
 
     def __init__(self, noise, noise_ou, noise_keys, ou_assoc, crossing, st, K: int,
-                 dtype, device, base_shared_bytes: int, unroll: int = 1):
+                 dtype, device, base_shared_bytes: int, weights, unroll: int = 1):
         nt = st.nt
         self.unroll = unroll
         self.noisy = noise is not None or noise_keys is not None
@@ -513,7 +602,9 @@ class NoiseLaunch:
         cross = member_rows(crossing, K, dtype, device) if crossing is not None else None
         self.first = (torch.empty((K,), dtype=dtype, device=device)
                       if crossing is not None else None)
-        wts = trapezoid_weights(st.x, dtype, device) if crossing is not None else None
+        if crossing is not None and weights is None:
+            raise ValueError("a crossing area needs a grid of at least two cells")
+        wts = weights if crossing is not None else None
         self._keep = (table, keys, ou, cross, wts)
         self.ptrs = [None if v is None else v.data_ptr()
                      for v in (table, keys, ou, self.eta, cross, self.first, wts)]

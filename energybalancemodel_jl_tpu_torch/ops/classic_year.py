@@ -46,7 +46,7 @@ from . import _build
 from ._year import (FORCE_CLUSTER, WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
                     check_noise_args, check_raw_fits, check_width, check_year_args,
                     classic_ou_unroll, cluster_plan, member_columns, noise_offsets,
-                    pcr_shared_bytes, refuse_grad, workspace, year_result)
+                    pcr_shared_bytes, refuse_grad, workspace, year_result, year_tables)
 from .tridiag import pcr_steps
 
 __all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
@@ -75,12 +75,24 @@ MAX_NX = WIDE["classic_year"]["max"]
 WARP_MIN_K = 1536
 
 
-def member_params(par, K: int, dt: float, dtype, device) -> torch.Tensor:
+def member_params(par, K: int, dt, dtype, device, zero=0.0) -> torch.Tensor:
     """The ``(K, len(ROW_NAMES))`` per-member stack of the kernel. Each leaf
-    of ``par`` is a scalar or ``(K,)``; ``"F"`` is optional."""
-    cols = member_columns(par, PAR_NAMES, K, dtype, device)
+    of ``par`` is a scalar or ``(K,)``; ``"F"`` is optional (``zero`` when
+    absent, as in :func:`._year.member_columns`). ``dt`` is a float or a
+    0-dim tensor of the run's dtype on ``device``."""
+    cols = member_columns(par, PAR_NAMES, K, dtype, device, zero)
     cols.update(member_scalars(cols, torch.as_tensor(dt, dtype=dtype, device=device)))
     return torch.stack([cols[n] for n in ROW_NAMES], dim=1).contiguous()
+
+
+def _host_tables(st, dtype):
+    """The per-cell columns ``(5, nx)`` (x, x^2 and the uniform-grid bands)
+    and the ``(nt + 1,)`` cos table, on the host (:func:`._year.year_tables`)."""
+    x = torch.as_tensor(st.x, dtype=dtype)
+    geom = uniform_bands(st.nx)
+    band = lambda b: torch.as_tensor(np.asarray(b), dtype=dtype)
+    cols = torch.stack([x, x * x, band(geom.lo), band(geom.di), band(geom.up)])
+    return cols, cos_table(st, dtype)
 
 
 def check_nx(nx: int) -> None:
@@ -170,17 +182,15 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     size = torch.empty((), dtype=dtype).element_size()
     rows = 0 if nx > WIDE["classic_year"]["narrow"] else pcr_shared_bytes(nx, pcr_steps(nx),
                                                                           size)
+    # the grid's tables on the device, built once (a forcing row already on
+    # the device takes no copy either)
+    tables = year_tables("classic_year", st, dtype, device, _host_tables)
     nz = NoiseLaunch(noise, noise_ou, noise_keys, ou_assoc, crossing, st, K, dtype, device,
-                     rows + 64 * size, unroll=classic_ou_unroll(st.nt))
+                     rows + 64 * size, tables.weights, unroll=classic_ou_unroll(st.nt))
     if collect_raw:
         check_raw_fits(st.nt, len(OUT_VARS), K, nx, dtype, device)
-    pars = member_params(par, K, st.dt, dtype, device)
-    # per-cell columns (5, nx): x, x^2 and the uniform-grid bands
-    x = torch.as_tensor(st.x, dtype=dtype, device=device)
-    geom = uniform_bands(nx)
-    band = lambda b: torch.as_tensor(np.asarray(b), dtype=dtype, device=device)
-    cols = torch.stack([x, x * x, band(geom.lo), band(geom.di), band(geom.up)])
-    cosv = cos_table(st, dtype).to(device)
+    pars = member_params(par, K, tables.dt, dtype, device, tables.zero)
+    cols, cosv = tables.cols, tables.cos
     f = torch.as_tensor(fyear, dtype=dtype, device=device).contiguous()
     cin = torch.stack([carry[k] for k in CARRY_KEYS])  # (2, K, nx), contiguous
     cout = torch.empty((len(CARRY_KEYS), K, nx), dtype=dtype, device=device)

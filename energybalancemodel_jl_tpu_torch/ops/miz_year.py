@@ -42,7 +42,7 @@ from . import _build
 from ._year import (FORCE_CLUSTER, WIDE, CrossingTracker, NoiseLaunch, check_crossing_args,
                     check_noise_args, check_raw_fits, check_width, check_year_args,
                     cluster_plan, member_columns, noise_offsets, pcr_shared_bytes, refuse_grad,
-                    workspace, year_result)
+                    workspace, year_result, year_tables)
 from .diffusion import diffusion_bands
 from .tridiag import pcr_steps
 
@@ -69,10 +69,10 @@ ROW_NAMES = PAR_NAMES + ("Tm_pow_m2", "F") + XK_TABLE_ROWS
 MAX_NX = WIDE["miz_year"]["max"]
 
 
-def member_params(par, K: int, dtype, device) -> torch.Tensor:
+def member_params(par, K: int, dtype, device, zero=0.0) -> torch.Tensor:
     """The ``(K, len(ROW_NAMES))`` per-member parameter stack of the kernel
-    (leaves as in :func:`._year.member_columns`)."""
-    cols = member_columns(par, PAR_NAMES + XK_TABLE_ROWS + ("m2",), K, dtype, device)
+    (leaves and ``zero`` as in :func:`._year.member_columns`)."""
+    cols = member_columns(par, PAR_NAMES + XK_TABLE_ROWS + ("m2",), K, dtype, device, zero)
     # Tm^m2 of wlat, computed here once (models/miz.py statics)
     cols["Tm_pow_m2"] = cols["Tm"] ** cols["m2"]
     return torch.stack([cols[n] for n in ROW_NAMES], dim=1).contiguous()
@@ -83,17 +83,17 @@ def check_nx(nx: int) -> None:
     check_width("miz_year", nx)
 
 
-def _year_tables(st, dtype, device):
+def _host_tables(st, dtype):
     """Per-cell columns ``(5, nx)`` — x, x^2 and the stencil bands
     glo/gdi/gup — and the ``(nt,)`` table of cos(2 pi t), built on the host
-    with the values of JAX ``pallas_year.py:1191-1193``."""
+    with the values of JAX ``pallas_year.py:1191-1193`` (copied to the device
+    once by :func:`._year.year_tables`)."""
     x = torch.as_tensor(st.x, dtype=dtype)
     t = torch.as_tensor(st.t, dtype=dtype)
     geom = diffusion_bands(st)
     band = lambda b: torch.as_tensor(np.asarray(b), dtype=dtype)
     cols = torch.stack([x, x * x, band(geom.lo), band(geom.di), band(geom.up)])
-    cosv = host_cos(2.0 * math.pi * t)
-    return cols.to(device), cosv.to(device)
+    return cols, host_cos(2.0 * math.pi * t)
 
 
 @traced("ebm.year.miz")
@@ -136,9 +136,8 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
                 and newton_iters.device == device and newton_iters.is_contiguous()):
             raise ValueError(
                 f"newton_iters must be a contiguous ({K},) int32 tensor on {device}")
-        return _year_cuda(carry, member_params(par, K, dtype, device),
-                          torch.as_tensor(fyear, dtype=dtype, device=device),
-                          st, cfg, collect_raw, newton_iters=newton_iters, **noise_kw)
+        return _year_cuda(carry, par, fyear, st, cfg, collect_raw, newton_iters=newton_iters,
+                          **noise_kw)
     if device.type == "cpu":
         if newton_iters is not None:
             raise ValueError("newton_iters is counted by the kernel only: the plain version "
@@ -184,13 +183,18 @@ def miz_year_reference(carry, par, fyear, st, cfg: StepConfig,
     return year_result(out, noise_ou, eta, tracker.first if tracker is not None else None)
 
 
-def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys, ou_assoc,
+def _year_cuda(carry, par, fyear, st, cfg, collect_raw, noise, noise_ou, noise_keys, ou_assoc,
                crossing, newton_iters):
     K, nx = carry["Ei"].shape
-    dtype, device = pars.dtype, pars.device
+    dtype, device = carry["Ei"].dtype, carry["Ei"].device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the miz_year kernel takes float32 or float64, got {dtype}")
     check_nx(nx)
+    # the grid's tables on the device, built once (a forcing row already on
+    # the device takes no copy either)
+    tables = year_tables("miz_year", st, dtype, device, _host_tables)
+    pars = member_params(par, K, dtype, device, tables.zero)
+    f = torch.as_tensor(fyear, dtype=dtype, device=device).contiguous()
     # csrc/miz_year.cu::base_shared_bytes: the PCR buffers, the neighbour
     # exchange, two sets of reduction slots (the cluster build's plan counts
     # its own: a slice of each per block)
@@ -198,12 +202,11 @@ def _year_cuda(carry, pars, f, st, cfg, collect_raw, noise, noise_ou, noise_keys
     rows = (0 if nx > WIDE["miz_year"]["narrow"]
             else pcr_shared_bytes(nx, pcr_steps(nx), size) + 4 * size * (nx + 2))
     nz = NoiseLaunch(noise, noise_ou, noise_keys, ou_assoc, crossing, st, K, dtype, device,
-                     rows + 128 * size)
+                     rows + 128 * size, tables.weights)
     if collect_raw:
         check_raw_fits(st.nt, len(OUT_VARS), K, nx, dtype, device)
-    cols, cosv = _year_tables(st, dtype, device)
+    cols, cosv = tables.cols, tables.cos
     cin = torch.stack([carry[k] for k in CARRY_KEYS])  # (6, K, nx), contiguous
-    f = f.contiguous()
     cout = torch.empty((len(CARRY_KEYS), K, nx), dtype=dtype, device=device)
     wint, summ, avg = (
         torch.empty((len(OUT_VARS), K, nx), dtype=dtype, device=device)

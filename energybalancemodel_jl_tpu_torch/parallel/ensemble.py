@@ -318,6 +318,9 @@ def ensemble_integrate(
                 raise ValueError(f"init[{k!r}] must be ({st.nx},) or ({K}, {st.nx}), "
                                  f"got {tuple(v.shape)}")
         f_base = forcing.table(st)  # (dur, nt)
+        # the fused engine's forcing rows on the device once, in the run's
+        # dtype: a year then reads its row with no copy from the host
+        f_rows = as_t(f_base) if engine == "fused" else None
 
         def batched_forcing(year):
             if F_off is None:
@@ -352,7 +355,7 @@ def ensemble_integrate(
         with span("ebm.ensemble_integrate.year"):
             collect = raw_mode == "all" or (raw_mode == "last" and y == st.dur - 1)
             if engine == "fused":
-                carry, seasonal, _conv, ys = fused_year(carry, par_fused, f_base[y], st, cfg,
+                carry, seasonal, _conv, ys = fused_year(carry, par_fused, f_rows[y], st, cfg,
                                                         collect_raw=collect)
             else:
                 fn = year_full if collect else year_seasonal

@@ -65,7 +65,7 @@ from .integrate import (FUSED_YEARS, check_fused, make_year_fn, resolve_device,
                         resolve_dtype)
 from .models.base import default_step_config, dtype_name, get_model
 from .ops import prng
-from .ops._year import ou_path
+from .ops._year import ou_path, year_keys
 from .ops.normal_table import normal_table
 from .spacetime import SpaceTime
 from .utils.collection import Collection
@@ -555,7 +555,11 @@ def transitions(
         if ramp_shift:
             frows_all = frows_all + ramp_shift
 
+        # every year's forcing row and member keys on the device once: a year
+        # then copies nothing from the host
+        frows = t(frows_all)
         member_keys = prng.fold_in(prng.prng_key(seed), np.arange(K_run))
+        keys_all = year_keys(member_keys, year0 + np.arange(years), device)
 
         if eta0 is None:
             eta = torch.zeros((K_run,), dtype=dtype, device=device)
@@ -623,13 +627,12 @@ def transitions(
             par_year = Collection({k: (v[:, None] if v.ndim == 1 else v)
                                    for k, v in par_run.items()})
 
-        def one_year(carry, eta, mkeys, par, f_off, scale, rho, thr, sgn, yi, frow):
+        def one_year(carry, eta, keys, par, f_off, scale, rho, thr, sgn, frow):
             """One noisy model year of the members given (all K_run, or a
             shard's): (carry, eta, seasonal, converged, crossing steps or None).
-            Every per-member operand is an argument, so a shard gets its own."""
+            Every per-member operand is an argument, so a shard gets its own;
+            ``keys`` and ``frow`` are the year's rows of the device tables."""
             dev = eta.device
-            keys = prng.fold_in(mkeys, yi)
-            frow = torch.as_tensor(frow, dtype=dtype, device=dev)
             if engine == "fused":
                 kw = dict(noise_ou=(rho, scale, eta))
                 if dtype == torch.float32:
@@ -662,7 +665,7 @@ def transitions(
             par_specs = Collection({k: (mem if v.ndim > 0 else P()) for k, v in par_year.items()})
             run_year = shard_map(
                 local_year, mesh,
-                in_specs=(mem, mem, mem, par_specs, mem, mem, P(), mem, mem, P(), P()),
+                in_specs=(mem, mem, mem, par_specs, mem, mem, P(), mem, mem, P()),
                 out_specs=(mem, mem, mem, P(), mem))
 
         prog = None
@@ -681,8 +684,8 @@ def transitions(
         for y in range(done, done + k):
             with span("ebm.transitions.year"):
                 carry, eta, seasonal, conv, cross = run_year(
-                    carry, eta, member_keys, par_year, f_off, scale, rho_t, cr_thr, cr_sgn,
-                    year0 + y, frows_all[y])
+                    carry, eta, keys_all[y], par_year, f_off, scale, rho_t, cr_thr, cr_sgn,
+                    frows[y])
                 coll = getattr(seasonal, season)
                 area = _area_of(coll, x)
                 areas_h.append(area)

@@ -7,18 +7,17 @@ clock:
 
 - ``ebm.ensemble_integrate``, ``ebm.integrate``, ``ebm.transitions``: the
   whole call;
-- ``ebm.<entry>.prepare``: parameters, initial carry and forcing table to the
-  device, up to the year loop;
+- ``ebm.<entry>.prepare``: parameters, initial carry and forcing table (in
+  ``transitions`` also every year's keys) to the device, up to the year loop;
 - ``ebm.<entry>.year``: one model year, the wrapper call included (in
-  ``transitions`` also the key fold, the forcing row and the yearly area and
-  means);
+  ``transitions`` also the yearly area and means);
 - ``ebm.<entry>.checkpoint``: one checkpoint write;
 - ``ebm.<entry>.assemble``: the stores stacked and copied to numpy, and the
   result built;
 - ``ebm.transitions.reference``: the attractors' reference years;
 - ``ebm.year.miz``, ``ebm.year.classic``: a whole-year wrapper from entry to
-  return (argument checks, parameter stack, tables, allocations, the launch;
-  on the CPU its plain version).
+  return (argument checks, parameter stack, the cached tables, allocations,
+  the launch; on the CPU its plain version).
 
 Spans nest by the call stack. A span opens only while a profiler records on
 the calling thread, so with none it costs one flag read; PyTorch's profiler
