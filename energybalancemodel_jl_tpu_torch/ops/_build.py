@@ -181,11 +181,12 @@ def check(lib: ctypes.CDLL, err: int) -> None:
         raise RuntimeError(f"CUDA kernel launch failed: error {err} ({msg})")
 
 
-def count(wrapper) -> None:
-    """Add one to ``wrapper.launches``, the launch count of a kernel wrapper;
-    safe against the concurrent launches of a mesh's shards."""
+def count(wrapper, counter: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.<counter>``, by default one to
+    ``wrapper.launches``, the launch count of a kernel wrapper; safe against
+    the concurrent launches of a mesh's shards."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + n)
 
 
 def launch(name: str, dtype: torch.dtype, device, *args) -> None:

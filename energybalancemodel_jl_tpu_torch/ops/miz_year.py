@@ -24,6 +24,10 @@ the year-end ``eta`` (K6), ``noise_keys=`` ``(K, 2)`` uint32 keys whose
 float32 draws the kernel makes itself (K7), ``ou_assoc=True`` the log-depth
 OU path (K8), and ``crossing=(thr, sign)``, the first step whose ice area
 crosses (K9).
+
+Counters: ``miz_year.launches`` (every launch) and
+``miz_year.newton_updates``, the members' Newton updates as the kernel ran
+them, fed by every launch given ``newton_iters=``.
 """
 from __future__ import annotations
 
@@ -115,8 +119,10 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
 
     ``newton_iters``, a ``(K,)`` int32 CUDA tensor, receives each member's
     number of Newton updates in the year, as the kernel ran them (its
-    operation count); the plain version iterates in lockstep over all
-    members and has no such count, so it raises.
+    operation count), and their sum is added to ``miz_year.newton_updates``
+    (read back after the launch: a sync); the plain version iterates in
+    lockstep over all members and has no such count, so it raises. A
+    launch without ``newton_iters`` counts nothing and does not sync.
 
     On a CUDA device this launches the kernel (counted in
     ``miz_year.launches``; above nx = 1024 its cluster build) and raises if
@@ -136,8 +142,11 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
                 and newton_iters.device == device and newton_iters.is_contiguous()):
             raise ValueError(
                 f"newton_iters must be a contiguous ({K},) int32 tensor on {device}")
-        return _year_cuda(carry, par, fyear, st, cfg, collect_raw, newton_iters=newton_iters,
-                          **noise_kw)
+        out = _year_cuda(carry, par, fyear, st, cfg, collect_raw, newton_iters=newton_iters,
+                         **noise_kw)
+        if newton_iters is not None:
+            _build.count(miz_year, "newton_updates", int(newton_iters.sum()))
+        return out
     if device.type == "cpu":
         if newton_iters is not None:
             raise ValueError("newton_iters is counted by the kernel only: the plain version "
@@ -147,6 +156,7 @@ def miz_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = False,
 
 
 miz_year.launches = 0
+miz_year.newton_updates = 0
 
 
 def miz_year_reference(carry, par, fyear, st, cfg: StepConfig,

@@ -449,6 +449,8 @@ def highres(grids, out):
             {k: torch.zeros((1, nx), dtype=torch.float32, device=dev) for k in CARRY_KEYS})
         f = torch.zeros(nt, dtype=torch.float32, device=dev)
         updates = torch.zeros(1, dtype=torch.int32, device=dev)
+        # the timed year includes the wrapper's sum and read-back of the count
+        # (miz_year.newton_updates): microseconds against a year of seconds
         s = event_ms(lambda: miz_year(carry, ebt.default_parameters("MIZ"), f, st, cfg,
                                       newton_iters=updates), 1) / 1e3
         row = dict(nx=nx, nt=nt, coupling=nx ** 2 / nt, s_per_year=s, us_per_step=s / nt * 1e6,

@@ -15,7 +15,14 @@ imports jax).
   synchronisation) and no copy from pageable host memory falls between the
   end of a call's first ``ebm.year.*`` span of its year loop and the end of
   its last: the host enqueues year y+1 while year y runs.
+- The MIZ wrapper's counter of the kernel's Newton updates
+  (``miz_year.newton_updates``) moves only for a launch given
+  ``newton_iters=``, which runs the counting build; an entry point's call
+  launches the build without the count, as before, and a counted launch
+  gives the same outputs as an uncounted one.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +31,9 @@ from torch.profiler import ProfilerActivity, profile
 
 import energybalancemodel_jl_tpu_torch as ebt
 from energybalancemodel_jl_tpu_torch.integrate import FUSED_YEARS
+from energybalancemodel_jl_tpu_torch.models.base import default_step_config
 from energybalancemodel_jl_tpu_torch.ops import _year
+from energybalancemodel_jl_tpu_torch.ops import miz_year as miz_ops
 
 pytestmark = pytest.mark.gpu
 
@@ -166,3 +175,50 @@ def test_no_host_wait_between_year_launches(call, cuda, miz_states):
     inside = lambda ev: lo <= ev.start_ns() <= hi
     assert [ev.name() for ev in copies if inside(ev)] == []
     assert [ev.name() for ev in runtime if ev.name() in SYNCS and inside(ev)] == []
+
+
+def _count_builds(prof) -> list:
+    """Per MIZ year-kernel launch in the trace, whether it ran the counting
+    build (the template's last flag, ``COUNT``)."""
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if _kind(ev) == "kernel" and "miz_year_kernel" in ev.name()]
+    flags = [re.search(r"miz_year_kernel<\w+, \d+, \d+, (?:true|false), (true|false)>", n)
+             for n in names]
+    assert all(flags), names
+    return [f.group(1) == "true" for f in flags]
+
+
+def test_newton_counter_moves_only_for_counted_launches(cuda):
+    st = ebt.SpaceTime.sin(180, 2000, 2)
+    ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
+                  ebt.zeros_init(st), dtype=torch.float64, device=cuda, progress=False,
+                  raw_mode="none")  # builds the kernels
+    torch.cuda.synchronize(cuda)
+    n0 = miz_ops.miz_year.newton_updates
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ebt.integrate("MIZ", st, ebt.Forcing(0.0), ebt.default_parameters("MIZ"),
+                      ebt.zeros_init(st), dtype=torch.float64, device=cuda, progress=False,
+                      raw_mode="none")
+        torch.cuda.synchronize(cuda)
+    assert miz_ops.miz_year.newton_updates == n0
+    assert _count_builds(prof) == [False, False]
+    # a caller's own newton_iters= runs the counting build and feeds the
+    # counter by its sum; the year's outputs are those of an uncounted launch
+    K, st1 = 3, ebt.SpaceTime.sin(180, 2000, 1)
+    par = dict(ebt.default_parameters("MIZ"), D=np.array([0.55, 0.6, 0.65]))
+    carry = ebt.Collection({k: torch.zeros((K, st1.nx), dtype=torch.float64, device=cuda)
+                            for k in miz_ops.CARRY_KEYS})
+    f = torch.zeros(st1.nt, dtype=torch.float64, device=cuda)
+    cfg = default_step_config("float64")
+    plain = miz_ops.miz_year(carry, par, f, st1, cfg)
+    iters = torch.zeros(K, dtype=torch.int32, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        counted = miz_ops.miz_year(carry, par, f, st1, cfg, newton_iters=iters)
+        torch.cuda.synchronize(cuda)
+    assert _count_builds(prof) == [True]
+    assert int(iters.min()) >= st1.nt  # at least one update a step
+    assert miz_ops.miz_year.newton_updates == n0 + int(iters.sum())
+    for a, b in [(plain[0], counted[0])] + list(zip(plain[1], counted[1])):
+        for k in a:
+            assert torch.equal(torch.nan_to_num(a[k]), torch.nan_to_num(b[k])), k
+            assert torch.equal(torch.isnan(a[k]), torch.isnan(b[k])), k

@@ -16,6 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import energybalancemodel_jl_tpu_torch as ebt
+from energybalancemodel_jl_tpu_torch.models.base import default_step_config
 from energybalancemodel_jl_tpu_torch.ops.classic_year import classic_year
 from energybalancemodel_jl_tpu_torch.ops.miz_year import miz_year
 from energybalancemodel_jl_tpu_torch.utils.tracing import span, traced
@@ -113,6 +114,26 @@ def test_traced_keeps_the_wrapper_and_its_counter():
         return x + y
 
     assert f(1, y=2) == 3 and f.__doc__ == "doc"
+
+
+def test_newton_counter_counts_no_plain_year(tmp_path):
+    """``miz_year.newton_updates`` is fed by kernel launches given
+    ``newton_iters=`` only: an entry point's plain years on the CPU count
+    nothing, and the plain version refuses ``newton_iters=``."""
+    from energybalancemodel_jl_tpu_torch.ops import miz_year as ops
+
+    assert isinstance(miz_year.newton_updates, int)
+    before = miz_year.newton_updates
+    for entry in ("integrate", "ensemble_integrate"):
+        _run(entry, "MIZ", _mk(tmp_path / entry))
+    st = ebt.SpaceTime.sin(16, 20, 1)
+    carry = ebt.Collection({k: torch.zeros((2, st.nx), dtype=torch.float64)
+                            for k in ops.CARRY_KEYS})
+    with pytest.raises(ValueError, match="counted by the kernel only"):
+        miz_year(carry, ebt.default_parameters("MIZ"), torch.zeros(st.nt, dtype=torch.float64),
+                 st, default_step_config("float64"),
+                 newton_iters=torch.zeros(2, dtype=torch.int32))
+    assert miz_year.newton_updates == before
 
 
 @pytest.mark.parametrize("model", ["MIZ", "Classic"])
