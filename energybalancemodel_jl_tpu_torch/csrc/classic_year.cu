@@ -17,8 +17,9 @@
 //     per thread);
 //   - nx > 4096 (up to 32768, the JAX package's fused single-run reach):
 //     the CLUSTER build (classic_cluster_kernel, below), one thread-block
-//     cluster per member, each block owning a slice of the cells, the PCR
-//     rows in the owners' shared memory (cluster.cuh).
+//     cluster per member, each block owning a slice of the cells, the Tg
+//     system solved by chunks with only the chunks' interface rows in the
+//     cluster PCR, in the owners' shared memory (cluster.cuh).
 //
 // Each thread of the register builds keeps its cells' carry (E, Tg), their per-member constants
 // (insolation factor S0 - S2 x^2, water coalbedo, implicit-matrix bands) and
@@ -37,7 +38,8 @@
 //     pre-update E, the explicit E update;
 //   - the implicit Tg step: the member's bands, kdi masked by the updated E,
 //     one row-scaled PCR solve (common.cuh: pcr_solve in shared memory for a
-//     block, warp_pcr_solve in registers for a warp);
+//     block, warp_pcr_solve in registers for a warp; the cluster build's
+//     chunked solve, below);
 //   - the seasonal store (winter/summer snapshots at w0/s0, sums / nt).
 // The kernel reads the per-member scalars (cg/tau, dt/tau, M, kLf, dt D, ...)
 // from the stack ops/classic_year.py builds with the same torch code as
@@ -264,47 +266,140 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 }
 
 // THE CLUSTER BUILD (4096 < nx <= MAX_WIDE_NX, cluster.cuh): one cluster of
-// C blocks of classic_cluster_threads<T>() per member, rank r owning cells
-// [r slice, (r + 1) slice); the clusters loop over members m, m + clusters,
-// ... Each cell's record (its carry, constants and three sums) lives in its
-// rank's shared memory, or, where the records and the rows would not fit
-// there together (the C side's plan), in the rank's part of a workspace of
-// device memory; the PCR rows and the crossing values always live in the
-// shared memory of the rank that owns the cell, read by the other ranks
-// through distributed shared memory. A step: every cell's classic_cell, its
-// sums and stores and its row of the Tg system (and its crossing value), one
+// C blocks per member, rank r owning cells [r slice, (r + 1) slice), the
+// slice ceil(nx / C) rounded up to whole chunks of CHUNK_ROWS cells; the
+// clusters loop over members m, m + clusters, ... Each cell's record (its
+// carry, constants and three sums) lives in its rank's shared memory, or,
+// where the records and the rows would not fit there together (the C side's
+// plan), in the rank's part of a workspace of device memory.
+//
+// The Tg system is solved by chunks (ops/tridiag.py::chunked_solve, the
+// hybrid Thomas-PCR scheme): a thread owns whole chunks; for each it runs
+// classic_cell on the chunk's cells (their sums, stores and crossing
+// values), eliminating each row as it comes (the forward pass) and then
+// backward, in registers, down to the chunk's two interface rows. Those go
+// to the rank's shared memory as rows 2j, 2j + 1 of the interface system of
+// 2 ceil(nx / CHUNK_ROWS) rows, which the cluster PCR solves after one
 // cluster barrier (after which rank 0 sums the crossing area in the block
-// layout's order), the solve (ceil(log2 nx) - 1 more barriers), Tg. Every
-// value is computed by classic_cell and the block build's PCR, in their
-// order, so it is the block build's bits whatever C.
+// layout's order); each thread then recovers its chunks' interior rows from
+// their two solved interface values, with no division. Chunks are global
+// (rows [CHUNK_ROWS j, CHUNK_ROWS j + CHUNK_ROWS), identity rows beyond the
+// grid) and never straddle a rank, so every value is the plain version's
+// whatever C and the threads.
 //
 // What bounds it: a single run is one member, so its year is the latency of
-// its chain: ceil(log2 nx) cluster barriers a step with distributed-shared-
-// memory loads between them, the cluster's C SMs sharing each level's rows
-// (a block per member with the rows in device memory waited out an L2 round
-// trip per level).
+// its chain. A step is the chunks' classic_cell and elimination (about nine
+// IEEE divisions a cell, each thread's chunk a dependent chain), then
+// ceil(log2(2 ceil(nx / CHUNK_ROWS))) PCR levels of two divisions a row
+// over a quarter as many rows as cells, a cluster barrier between two levels
+// and distributed-shared-memory loads at the levels whose stride leaves the
+// rank. A PCR over all nx rows would spend two divisions a cell at each of
+// ceil(log2 nx) levels: at nx = 32768 in float64 it took 75% of the year
+// (PERF.md §6).
 constexpr int MAX_WIDE_NX = 32768;
 // a cell's record: the carry, the member's constants for the cell, the sums
 enum ClusterField { W_E, W_TG, W_X, W_SA, W_AW, W_KLO, W_KDI0, W_KUP, W_ACC,
                     N_CLUSTER_FIELDS = W_ACC + N_OUT };
 
-// the most threads per block: one cell's step needs ~130 registers in
-// float32 and ~170 in float64, which 512 and 256 threads leave
+// rows per chunk of the Tg solve, ops/tridiag.py CHUNK
+constexpr int CHUNK_ROWS = 8;
+
+// the most threads per block: a thread's step (its chunk's cells and rows)
+// needs up to 255 registers, which 256 threads leave
 template <typename T>
-constexpr int classic_cluster_threads() {
-  return sizeof(T) == 8 ? 256 : 512;
+__host__ __device__ constexpr int classic_cluster_threads() {
+  return 256;
+}
+
+// the most chunks a thread owns: a slice of at most half the widest grid
+// (C >= 2) on the most threads; the first in registers, the others in
+// local memory (only where C is narrow for the width)
+template <typename T>
+__host__ __device__ constexpr int classic_chunk_slots() {
+  return (MAX_WIDE_NX / 2 / CHUNK_ROWS + classic_cluster_threads<T>() - 1) /
+         classic_cluster_threads<T>();
+}
+
+// a rank's cells: ceil(nx / C) rounded up to whole chunks
+__host__ __device__ inline int classic_cluster_slice(int nx, int C) {
+  return (cluster_slice_cells(nx, C) + CHUNK_ROWS - 1) / CHUNK_ROWS * CHUNK_ROWS;
+}
+
+// this rank's part [rank slice, rank slice + cnt) of an n-item array cut in
+// slices of `slice` (cluster.cuh's ClusterSlice with a given slice)
+__device__ __forceinline__ ClusterSlice classic_slice(int n, int slice) {
+  const cg::cluster_group cl = cg::this_cluster();
+  ClusterSlice s;
+  s.n = n;
+  s.C = (int)cl.num_blocks();
+  s.rank = (int)cl.block_rank();
+  s.slice = slice;
+  s.lo = s.rank * slice;
+  const int left = n - s.lo;
+  s.cnt = left < 0 ? 0 : (left < slice ? left : slice);
+  s.magic = (unsigned)((0x100000000ull + (unsigned)slice - 1) / (unsigned)slice);
+  return s;
 }
 
 // words of T of one block's records in the workspace (records in device
 // memory only), rounded up to 32 words so every block's part starts aligned
 __host__ __device__ inline size_t classic_cluster_words(int nx, int C) {
-  return wide_stride((size_t)cluster_slice_cells(nx, C) * N_CLUSTER_FIELDS);
+  return wide_stride((size_t)classic_cluster_slice(nx, C) * N_CLUSTER_FIELDS);
 }
 
-// the block's dynamic shared memory, byte offsets: the PCR rows' two
-// buffers at 0, the records (if shared, a row of slice values per field,
-// Rec), the slots of the crossing sum, the
-// crossing values, the noise rows
+// The record of cell k of the rank's chunk j (local cell j CHUNK_ROWS + k):
+// a row of slice values per field, chunk-major within it (k chunks + j), so
+// the threads of a warp, each at its own chunk, touch consecutive words.
+template <typename T>
+__device__ __forceinline__ Rec<T> chunk_rec(T* fld, int slice, int j, int k) {
+  return Rec<T>{fld + k * (slice / CHUNK_ROWS) + j, slice};
+}
+
+// A chunk's rows as the elimination leaves them: row k reads x_k + a[k] x_0
+// + c[k] x_{k+1} = d[k] after the forward pass, and, after the backward
+// pass, x_k + a[k] x_0 + c[k] x_{M-1} = d[k] for 0 < k < M - 1 and x_0 +
+// a[0] x_{-1} + c[0] x_{M-1} = d[0] (M = CHUNK_ROWS; x_{-1} and x_M are the
+// neighbouring chunks' last and first unknowns): rows 0 and M - 1 are the
+// interface rows. The operations of ops/tridiag.py::chunked_solve, in order.
+template <typename T>
+struct ChunkRows {
+  T a[CHUNK_ROWS], c[CHUNK_ROWS], d[CHUNK_ROWS];
+};
+
+// the forward pass's row k, from the row (lo, di, up, b)
+template <typename T>
+__device__ __forceinline__ void chunk_forward(ChunkRows<T>& q, int k, T lo, T di, T up, T b) {
+  if (k < 2) {
+    const T r = safe_div(T(1), di);
+    q.a[k] = lo * r;
+    q.c[k] = up * r;
+    q.d[k] = b * r;
+    return;
+  }
+  const T r = safe_div(T(1), fma_rn(-lo, q.c[k - 1], di));
+  q.d[k] = r * fma_rn(-lo, q.d[k - 1], b);
+  q.a[k] = -(r * lo) * q.a[k - 1];
+  q.c[k] = r * up;
+}
+
+// the backward pass and row 0's fold of row 1
+template <typename T>
+__device__ __forceinline__ void chunk_backward(ChunkRows<T>& q) {
+#pragma unroll
+  for (int k = CHUNK_ROWS - 3; k > 0; --k) {
+    q.d[k] = fma_rn(-q.c[k], q.d[k + 1], q.d[k]);
+    q.a[k] = fma_rn(-q.c[k], q.a[k + 1], q.a[k]);
+    q.c[k] = -(q.c[k] * q.c[k + 1]);
+  }
+  const T r = safe_div(T(1), fma_rn(-q.c[0], q.a[1], T(1)));
+  q.d[0] = r * fma_rn(-q.c[0], q.d[1], q.d[0]);
+  q.a[0] = r * q.a[0];
+  q.c[0] = -(r * (q.c[0] * q.c[1]));
+}
+
+// the block's dynamic shared memory, byte offsets: the interface rows' two
+// PCR buffers at 0, the records (if shared, Rec), the slots of the crossing
+// sum, the crossing values, the noise rows
 struct ClassicClusterLayout {
   size_t records, cross, vals, noise, total;
 };
@@ -313,9 +408,9 @@ template <typename T>
 __host__ __device__ inline ClassicClusterLayout classic_cluster_layout(int nx, int C,
                                                                        bool records_shared,
                                                                        size_t noise_bytes) {
-  const size_t slice = cluster_slice_cells(nx, C);
+  const size_t slice = classic_cluster_slice(nx, C);
   ClassicClusterLayout L;
-  L.records = 2 * slice * sizeof(PcrRow<T>);
+  L.records = 2 * (2 * slice / CHUNK_ROWS) * sizeof(PcrRow<T>);
   L.cross = L.records + (records_shared ? align16(slice * N_CLUSTER_FIELDS * sizeof(T)) : 0);
   L.vals = L.cross + align16(RED_SLOTS * sizeof(T));
   L.noise = L.vals + align16(slice * sizeof(T));
@@ -333,107 +428,176 @@ __global__ void __launch_bounds__(classic_cluster_threads<T>(), 1)
                            int nx, int nt, int w0, int s0, int pcr_steps, T dt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T p[N_ROWS];
-  const ClusterSlice cs = cluster_slice(nx);
+  const int C = (int)cg::this_cluster().num_blocks();
+  // the rank's cells, and its rows of the interface system (two a chunk)
+  const ClusterSlice cs = classic_slice(nx, classic_cluster_slice(nx, C));
+  const ClusterSlice is =
+      classic_slice(2 * ((nx + CHUNK_ROWS - 1) / CHUNK_ROWS), 2 * cs.slice / CHUNK_ROWS);
   const ClassicClusterLayout L = classic_cluster_layout<T>(
-      nx, cs.C, records_shared != 0, NOISY ? noise_shared_bytes<T>(nt, nz.ou_mode) : 0);
+      nx, C, records_shared != 0, NOISY ? noise_shared_bytes<T>(nt, nz.ou_mode) : 0);
   PcrRow<T>* rows = reinterpret_cast<PcrRow<T>*>(smem_raw);
-  ClusterPcr<T> pcr{{rows, rows + cs.slice}, 0};
+  ClusterPcr<T> pcr{{rows, rows + is.slice}, 0};
   T* fld = records_shared ? reinterpret_cast<T*>(smem_raw + L.records)
-                          : ws + (size_t)blockIdx.x * classic_cluster_words(nx, cs.C);
+                          : ws + (size_t)blockIdx.x * classic_cluster_words(nx, C);
   RedSmem<T> cross_red{reinterpret_cast<T*>(smem_raw + L.cross), 0};
   T* xv = reinterpret_cast<T*>(smem_raw + L.vals);
   T* noise_row = reinterpret_cast<T*>(smem_raw + L.noise);
   const size_t plane = (size_t)K * nx;
   const bool crossing = NOISY && nz.cross_out != nullptr;
-  const int clusters = gridDim.x / cs.C;
+  const int clusters = gridDim.x / C;
+  const int chunks = is.cnt / 2;  // this rank's chunks that hold cells
+  // the thread's chunks j = threadIdx.x + q blockDim.x, q < slots, after
+  // their elimination: the first R in registers (one; none in the float64
+  // noisy build, whose noise state leaves no room), the others in local memory
+  const int tid = (int)threadIdx.x, threads = (int)blockDim.x;
+  const int slots = tid < chunks ? (chunks - 1 - tid) / threads + 1 : 0;
+  constexpr int R = NOISY && sizeof(T) == 8 ? 0 : 1;
+  ChunkRows<T> held, more[classic_chunk_slots<T>() - R];
 
-  for (int m = blockIdx.x / cs.C; m < K; m += clusters) {
+  for (int m = blockIdx.x / C; m < K; m += clusters) {
     __syncthreads();  // the last member's reads of p and of the noise row are done
     if (threadIdx.x < N_ROWS) p[threadIdx.x] = pars[(size_t)m * N_ROWS + threadIdx.x];
     __syncthreads();
-    const T cg_tau = p[P_CG_TAU], dt_tau = p[P_DT_TAU], dc = p[P_DC], M = p[P_M],
-            kLf = p[P_KLF], dtD = p[P_DTD], cg = p[P_CG], ai = p[P_AI], A = p[P_A],
-            Fb = p[P_FB], cw = p[P_CW], Lf = p[P_LF], Foff = p[P_F], S0 = p[P_S0],
-            S1 = p[P_S1], S2 = p[P_S2], a0 = p[P_A0], a2 = p[P_A2];
-    const ClassicMember<T> mb{cg_tau, dt_tau, dc, M, kLf, ai, A, Fb, cw, Lf};
-    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
-      const Rec<T> c{fld + li, cs.slice};
-      const int i = cs.lo + li;
-      c[W_X] = cols[i];
-      const T x2 = cols[nx + i];
-      c[W_SA] = fma_rn(-S2, x2, S0);
-      c[W_AW] = fma_rn(-a2, x2, a0);
-      c[W_KLO] = -dtD * cols[2 * nx + i] / cg;
-      c[W_KDI0] = (T(1) + dt_tau) - dtD * cols[3 * nx + i] / cg;
-      c[W_KUP] = -dtD * cols[4 * nx + i] / cg;
-      c[W_E] = cin[(size_t)m * nx + i];
-      c[W_TG] = cin[plane + (size_t)m * nx + i];
-      for (int v = 0; v < N_OUT; ++v) c[W_ACC + v] = T(0);
+    const T dt_tau = p[P_DT_TAU], dtD = p[P_DTD], cg = p[P_CG], S0 = p[P_S0], S2 = p[P_S2],
+            a0 = p[P_A0], a2 = p[P_A2];
+    for (int j = threadIdx.x; j < chunks; j += blockDim.x) {
+      for (int k = 0; k < CHUNK_ROWS && j * CHUNK_ROWS + k < cs.cnt; ++k) {
+        const Rec<T> c = chunk_rec(fld, cs.slice, j, k);
+        const int i = cs.lo + j * CHUNK_ROWS + k;
+        c[W_X] = cols[i];
+        const T x2 = cols[nx + i];
+        c[W_SA] = fma_rn(-S2, x2, S0);
+        c[W_AW] = fma_rn(-a2, x2, a0);
+        c[W_KLO] = -dtD * cols[2 * nx + i] / cg;
+        c[W_KDI0] = (T(1) + dt_tau) - dtD * cols[3 * nx + i] / cg;
+        c[W_KUP] = -dtD * cols[4 * nx + i] / cg;
+        c[W_E] = cin[(size_t)m * nx + i];
+        c[W_TG] = cin[plane + (size_t)m * nx + i];
+        for (int v = 0; v < N_OUT; ++v) c[W_ACC + v] = T(0);
+      }
     }
 
     NoiseState<T> ns;
     if (NOISY) ns = noise_begin(nz, noise_row, m, K, nt);
 
     for (int t = 0; t < nt; ++t) {
-      const T s1c = S1 * cosv[t];
-      const T s1n = S1 * cosv[t + 1];  // the wraparound row S_{i+1}
-      T f = fyear[t] + Foff;
+      // the member's scalars, read from shared memory each step: registers
+      // are scarce across the solve
+      const ClassicMember<T> mb{p[P_CG_TAU], p[P_DT_TAU], p[P_DC], p[P_M], p[P_KLF],
+                                p[P_AI],     p[P_A],      p[P_FB], p[P_CW], p[P_LF]};
+      const T s1c = p[P_S1] * cosv[t];
+      const T s1n = p[P_S1] * cosv[t + 1];  // the wraparound row S_{i+1}
+      T f = fyear[t] + p[P_F];
       if (NOISY) f = noise_forcing(nz, ns, f, t);
-      for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
-        const Rec<T> c{fld + li, cs.slice};
-        const int i = cs.lo + li;
-        const ClassicCell<T> r = classic_cell(mb, c[W_E], c[W_TG], c[W_X], c[W_SA], c[W_AW],
-                                              c[W_KDI0], s1c, s1n, f, dt, t == 0);
-        c[W_E] = r.out[0];
-        // step 0's outputs seed the sums, as in the plain version
-        for (int v = 0; v < N_OUT; ++v)
-          c[W_ACC + v] = t == 0 ? r.out[v] : c[W_ACC + v] + r.out[v];
-        const size_t idx = (size_t)m * nx + i;
-        if (t == w0 || t == s0) {
-          T* snap = t == w0 ? wint : summ;
-          for (int v = 0; v < N_OUT; ++v) snap[v * plane + idx] = r.out[v];
-          if (t == w0 && t == s0) {
-            for (int v = 0; v < N_OUT; ++v) summ[v * plane + idx] = r.out[v];
+      // chunk j's cells, then their rows eliminated into e (the cells first:
+      // fewer values live at once) and its interface rows written
+      auto eliminate = [&](int j, ChunkRows<T>& e) {
+        T di[CHUNK_ROWS], b[CHUNK_ROWS];
+#pragma unroll
+        for (int k = 0; k < CHUNK_ROWS; ++k) {
+          const int li = j * CHUNK_ROWS + k;
+          di[k] = T(1);  // the identity row beyond the grid
+          b[k] = T(0);
+          if (li < cs.cnt) {
+            const Rec<T> c = chunk_rec(fld, cs.slice, j, k);
+            const int i = cs.lo + li;
+            const ClassicCell<T> r = classic_cell(mb, c[W_E], c[W_TG], c[W_X], c[W_SA],
+                                                  c[W_AW], c[W_KDI0], s1c, s1n, f, dt, t == 0);
+            c[W_E] = r.out[0];
+            // step 0's outputs seed the sums, as in the plain version
+            for (int v = 0; v < N_OUT; ++v)
+              c[W_ACC + v] = t == 0 ? r.out[v] : c[W_ACC + v] + r.out[v];
+            const size_t idx = (size_t)m * nx + i;
+            if (t == w0 || t == s0) {
+              T* snap = t == w0 ? wint : summ;
+              for (int v = 0; v < N_OUT; ++v) snap[v * plane + idx] = r.out[v];
+              if (t == w0 && t == s0) {
+                for (int v = 0; v < N_OUT; ++v) summ[v * plane + idx] = r.out[v];
+              }
+            }
+            if (raw != nullptr) {
+              T* row = raw + (size_t)t * N_OUT * plane;
+              for (int v = 0; v < N_OUT; ++v) row[v * plane + idx] = r.out[v];
+            }
+            if (crossing) xv[li] = nz.wts[i] * (r.out[0] < T(0) ? T(1) : T(0));
+            di[k] = r.di;
+            b[k] = r.b;
           }
         }
-        if (raw != nullptr) {
-          T* row = raw + (size_t)t * N_OUT * plane;
-          for (int v = 0; v < N_OUT; ++v) row[v * plane + idx] = r.out[v];
+#pragma unroll
+        for (int k = 0; k < CHUNK_ROWS; ++k) {
+          const bool cell = j * CHUNK_ROWS + k < cs.cnt;
+          const Rec<T> c = chunk_rec(fld, cs.slice, j, k);
+          chunk_forward(e, k, cell ? c[W_KLO] : T(0), di[k], cell ? c[W_KUP] : T(0), b[k]);
         }
-        if (crossing) xv[li] = nz.wts[i] * (r.out[0] < T(0) ? T(1) : T(0));
-        cluster_pcr_row(pcr, li, c[W_KLO], r.di, c[W_KUP], r.b);
-      }
-      cluster_sync();  // every rank's rows (and crossing values) are written
+        chunk_backward(e);
+        // the interior rows' right-hand sides wait in their cells' Tg, which
+        // their classic_cell has read and the recovery writes: fewer registers
+        // across the solve
+#pragma unroll
+        for (int k = 1; k < CHUNK_ROWS - 1; ++k) chunk_rec(fld, cs.slice, j, k)[W_TG] = e.d[k];
+        // the interface rows in the first level's form (cluster_pcr_row of a
+        // row whose diagonal is 1: the scale 1 / 1 = 1 changes no bit)
+        constexpr int L = CHUNK_ROWS - 1;
+        store_row(pcr.buf[pcr.start] + 2 * j, e.a[0], T(1), e.c[0], e.d[0]);
+        store_row(pcr.buf[pcr.start] + 2 * j + 1, e.a[L], T(1), e.c[L], e.d[L]);
+      };
+      // the first chunk last, so that only its rows stay in registers
+#pragma unroll 1
+      for (int q = slots - 1; q >= R; --q) eliminate(tid + q * threads, more[q - R]);
+      if (R > 0 && slots > 0) eliminate(tid, held);
+      cluster_sync();  // every rank's interface rows (and crossing values) are written
       if (crossing && cs.rank == 0) cluster_noise_crossing(ns, xv, cs, cross_red, t);
-      const PcrRow<T>* solved = cluster_pcr_solve<T, false>(pcr, cs, pcr_steps);
-      for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x)
-        fld[W_TG * cs.slice + li] = cluster_pcr_x(solved, li);
+      const PcrRow<T>* solved = cluster_pcr_solve<T, false>(pcr, is, pcr_steps);
+      __syncthreads();  // the last level's rows, written by other threads of the rank
+      // chunk j's Tg from its interface values, the interior rows by e and
+      // their right-hand sides
+      auto recover = [&](int j, const ChunkRows<T>& e) {
+        const T x0 = cluster_pcr_x(solved, 2 * j), xl = cluster_pcr_x(solved, 2 * j + 1);
+#pragma unroll
+        for (int k = 0; k < CHUNK_ROWS; ++k) {
+          if (j * CHUNK_ROWS + k >= cs.cnt) break;
+          T& tg = chunk_rec(fld, cs.slice, j, k)[W_TG];
+          tg = k == 0 ? x0
+                      : (k == CHUNK_ROWS - 1 ? xl : fma_rn(-e.c[k], xl, fma_rn(-e.a[k], x0, tg)));
+        }
+      };
+      if (R > 0 && slots > 0) recover(tid, held);
+#pragma unroll 1
+      for (int q = R; q < slots; ++q) recover(tid + q * threads, more[q - R]);
     }
     if (NOISY && cs.rank == 0) noise_end(nz, ns, m, nt);
 
     // same `sum / nt` arithmetic as the JAX kernel and storage path
     const T ntf = T(nt);
-    for (int li = threadIdx.x; li < cs.cnt; li += blockDim.x) {
-      const Rec<T> c{fld + li, cs.slice};
-      const size_t idx = (size_t)m * nx + cs.lo + li;
-      cout[idx] = c[W_E];
-      cout[plane + idx] = c[W_TG];
-      for (int v = 0; v < N_OUT; ++v) avg[v * plane + idx] = c[W_ACC + v] / ntf;
+    for (int j = threadIdx.x; j < chunks; j += blockDim.x) {
+      for (int k = 0; k < CHUNK_ROWS && j * CHUNK_ROWS + k < cs.cnt; ++k) {
+        const Rec<T> c = chunk_rec(fld, cs.slice, j, k);
+        const size_t idx = (size_t)m * nx + cs.lo + j * CHUNK_ROWS + k;
+        cout[idx] = c[W_E];
+        cout[plane + idx] = c[W_TG];
+        for (int v = 0; v < N_OUT; ++v) avg[v * plane + idx] = c[W_ACC + v] / ntf;
+      }
     }
   }
   cluster_sync();  // no block leaves while another rank can read its shared memory
 }
 
 // The C side's plan of the cluster build (cluster.cuh::choose_cluster): C,
-// the threads, the records in shared memory where they fit beside the rest,
-// and the clusters the card keeps resident; an error when it cannot launch.
+// the threads (a chunk each, at most the build's), the records in shared
+// memory where they fit beside the rest, and the clusters the card keeps
+// resident; an error when it cannot launch.
 template <typename T, bool NOISY>
 cudaError_t classic_cluster_plan(int nx, int nt, int K, int ou_mode, int force_c,
                                  ClusterPlan& plan) {
   const size_t noise = NOISY ? noise_shared_bytes<T>(nt, ou_mode) : 0;
   return choose_cluster(K, force_c, plan, [&](int C, ClusterPlan& p) {
     p.C = C;
-    p.threads = cluster_threads(nx, C, classic_cluster_threads<T>());
+    const int chunks = classic_cluster_slice(nx, C) / CHUNK_ROWS;
+    const int t = round_up_32(chunks);
+    p.threads = t < classic_cluster_threads<T>() ? t : classic_cluster_threads<T>();
+    if ((chunks + p.threads - 1) / p.threads > classic_chunk_slots<T>())
+      return cudaErrorInvalidValue;
     p.records_shared = classic_cluster_layout<T>(nx, C, true, noise).total <= CLUSTER_SHARED_BUDGET;
     p.shmem = classic_cluster_layout<T>(nx, C, p.records_shared != 0, noise).total;
     if (p.shmem > CLUSTER_SHARED_BUDGET) return cudaErrorInvalidValue;

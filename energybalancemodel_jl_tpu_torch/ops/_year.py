@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import prng
+from .tridiag import CHUNK
 
 __all__ = ["member_columns", "check_year_args", "check_width", "check_noise_args",
            "check_crossing_args", "trapezoid_weights", "ou_path", "assoc_ou_path",
@@ -383,11 +384,13 @@ def block_layout(n: int):
 # neighbour exchange in the owners' shared memory, each cell's record of
 # "fields" values there too or, where the C side's plan says they do not
 # fit, in a workspace of device memory; the C side picks C (ClusterPlan).
+# The Classic build's slice is rounded up to whole chunks of its Tg solve
+# ("chunk" cells, ops/tridiag.py::chunked_solve).
 # K11's records are its PCR rows alone; K10's are the iterate and the solve's
 # frozen inputs. Each cluster loops over members. A wide build sums a
 # crossing area in the order of block_layout, whatever its own threads.
 WIDE = {
-    "classic_year": dict(narrow=4096, max=32768, fields=11),
+    "classic_year": dict(narrow=4096, max=32768, fields=11, chunk=CHUNK),
     "miz_year": dict(narrow=1024, max=16384, fields=20),
     "pcr_fused": dict(narrow=4096, max=32768, fields=0),
     "newton_t0": dict(narrow=4096, max=16384, fields=5),
@@ -413,9 +416,10 @@ class ClusterPlan(NamedTuple):
 def wide_words(kernel: str, n: int, C: int) -> int:
     """Words of the run's dtype in one block's part of a cluster build's
     workspace (``csrc/*.cu::*_cluster_words``): the records of the block's
-    ``ceil(n / C)`` cells, rounded up to 32 words so every block's part
-    starts aligned."""
-    words = WIDE[kernel]["fields"] * -(-n // C)
+    ``ceil(n / C)`` cells (Classic: rounded up to whole chunks), rounded up
+    to 32 words so every block's part starts aligned."""
+    chunk = WIDE[kernel].get("chunk", 1)
+    words = WIDE[kernel]["fields"] * (-(-(-(-n // C)) // chunk) * chunk)
     return -(-words // 32) * 32
 
 

@@ -21,7 +21,9 @@ the plain version's statics run, so the two see the same operands.
 The kernel has two layouts of one step (``csrc/classic_year.cu``): one
 member per warp for grids of ``nx <= 256`` and ``K >= WARP_MIN_K``, one
 thread block per member otherwise; both compute every value by the same
-operations as the plain version, so the choice changes no bit.
+operations as the plain version, so the choice changes no bit. Above nx =
+4096 a cluster build runs a member on a cluster of blocks and solves Tg by
+chunks (:func:`.tridiag.chunked_solve`), as the plain version does there.
 
 The noisy years take the keyword modes of :func:`.miz_year.miz_year`
 (``noise=``, ``noise_ou=``, ``noise_keys=``, ``ou_assoc=``, ``crossing=``;
@@ -47,7 +49,7 @@ from ._year import (FORCE_CLUSTER, WIDE, CrossingTracker, NoiseLaunch, check_cro
                     check_noise_args, check_raw_fits, check_width, check_year_args,
                     classic_ou_unroll, cluster_plan, member_columns, noise_offsets,
                     pcr_shared_bytes, refuse_grad, workspace, year_result, year_tables)
-from .tridiag import pcr_steps
+from .tridiag import chunk_count, pcr_steps
 
 __all__ = ["classic_year", "classic_year_reference", "member_params", "check_nx",
            "MAX_NX", "WARP_MIN_K", "CARRY_KEYS", "OUT_VARS", "PAR_NAMES", "ROW_NAMES"]
@@ -117,7 +119,9 @@ def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = Fal
     modes return as :func:`.miz_year.miz_year`'s do.
 
     On a CUDA device this launches the kernel (counted in
-    ``classic_year.launches``; above nx = 4096 its cluster build) and raises
+    ``classic_year.launches``; above nx = 4096 its cluster build, which
+    solves Tg by chunks, counted in ``classic_year.chunked_launches`` too)
+    and raises
     if it cannot (``nx > MAX_NX``, or a cluster build the card cannot
     launch); on the CPU it runs
     :func:`classic_year_reference`. Under ``torch.profiler`` the whole call
@@ -137,6 +141,7 @@ def classic_year(carry, par, fyear, st, cfg: StepConfig, collect_raw: bool = Fal
 
 
 classic_year.launches = 0
+classic_year.chunked_launches = 0
 
 
 def classic_year_reference(carry, par, fyear, st, cfg: StepConfig,
@@ -146,7 +151,8 @@ def classic_year_reference(carry, par, fyear, st, cfg: StepConfig,
     scan engine's loop over the ``nt`` steps of ``models.classic.step`` on
     ``(K, nx)`` tensors, with every parameter as a ``(K, 1)`` column, the
     forcing ``(fyear[t] + F) + offset`` added in the run's dtype as the
-    kernel adds it, and the ``Tg`` solve by PCR."""
+    kernel adds it, and the ``Tg`` solve by PCR (above nx = 4096, where the
+    kernel runs its cluster build, by chunks: :func:`.tridiag.chunked_solve`)."""
     # imported here: integrate.py imports this module
     from ..integrate import make_year_fn
 
@@ -163,7 +169,8 @@ def classic_year_reference(carry, par, fyear, st, cfg: StepConfig,
         f_rows = f_rows + offsets
     tracker = (CrossingTracker("Classic", crossing, st, K, dtype, device)
                if crossing is not None else None)
-    year = make_year_fn("Classic", st, dataclasses.replace(cfg, solver="pcr"), collect_raw,
+    solver = "chunked" if nx > WIDE["classic_year"]["narrow"] else "pcr"
+    year = make_year_fn("Classic", st, dataclasses.replace(cfg, solver=solver), collect_raw,
                         tracker)
     out = year(Collection({k: carry[k] for k in CARRY_KEYS}),
                Collection({n: v[:, None] for n, v in cols.items()}), f_rows[:, :, None])
@@ -207,12 +214,17 @@ def _year_cuda(carry, par, fyear, st, collect_raw, noise, noise_ou, noise_keys, 
     plan = (cluster_plan("classic_year", nx, st.nt, K, dtype, device, nz.noisy, nz.ou_mode)
             if nx > WIDE["classic_year"]["narrow"] else None)
     ws, ws_ptr, ws_words, ws_blocks = workspace("classic_year", nx, K, dtype, device, plan)
+    # the PCR's levels: of the whole system, or of the cluster build's
+    # interface system (two rows a chunk)
+    steps = pcr_steps(nx if plan is None else 2 * chunk_count(nx))
     ptrs = [v.data_ptr() for v in (cin, pars, cols, cosv, f, cout, wint, summ, avg)]
     ptrs.append(raw.data_ptr() if raw is not None else None)
     _build.launch("ebm_classic_year", dtype, device, *ptrs, *nz.ptrs, ws_ptr, K, nx, st.nt,
-                  st.winter_inx - 1, st.summer_inx - 1, pcr_steps(nx), nz.ou_mode, nz.unroll,
+                  st.winter_inx - 1, st.summer_inx - 1, steps, nz.ou_mode, nz.unroll,
                   WARP_MIN_K, ws_words, ws_blocks, FORCE_CLUSTER["classic_year"], st.dt)
     _build.count(classic_year)
+    if plan is not None:
+        _build.count(classic_year, "chunked_launches")
     new_carry = Collection({k: cout[j] for j, k in enumerate(CARRY_KEYS)})
     seasonal = Seasonal(
         *(Collection({k: store[i] for i, k in enumerate(OUT_VARS)})

@@ -591,6 +591,22 @@ def test_wide_build_noise_modes_match_plain_bitwise(cuda, model, mode):
     assert all(torch.isfinite(v).all() for v in k[0].values())
 
 
+@pytest.mark.parametrize("mode", ["table", "table/OU"])
+def test_classic_wide_build_float64_noise_matches_plain_bitwise(cuda, mode):
+    """The float64 noisy cluster build, whose chunks' eliminated rows wait in
+    local memory across the solve, against its plain version."""
+    st, par, carry, f = classic_setup(cuda, torch.float64, nx=8192, nt=1000, K=2)
+    table = torch.as_tensor(np.random.default_rng(3).normal(size=(st.nt, 2)),
+                            dtype=torch.float64, device=cuda)
+    kw = dict(noise=table) if mode == "table" else dict(noise=table, noise_ou=(0.95, 3.0, 0.5))
+    cfg = default_step_config("float64")
+    before = classic_year.chunked_launches
+    k = classic_year(carry, par, f, st, cfg, **kw)
+    assert classic_year.chunked_launches == before + 1
+    assert_same_years(k, classic_year_reference(carry, par, f, st, cfg, **kw))
+    assert all(torch.isfinite(v).all() for v in k[0].values())
+
+
 def test_entry_points_launch_the_wide_builds(cuda):
     """ensemble_integrate and transitions with engine='auto' above the
     register builds' widths run the wide build, one launch per year."""
@@ -641,9 +657,11 @@ def test_wide_build_workspace_scales_with_resident_blocks(cuda):
         assert _year.wide_workspace("newton_t0", 16384, 64, plan) == (
             min(64, plan.clusters) * 8, _year.wide_words("newton_t0", 16384, 8))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(_year.FORCE_CLUSTER, "classic_year", 2)  # 16384 cells a block
+        # 16384 cells a block: in float64 the two buffers of their 4096
+        # interface rows alone take 256 KB
+        mp.setitem(_year.FORCE_CLUSTER, "classic_year", 2)
         with pytest.raises(RuntimeError, match="cannot launch"):
-            _year.cluster_plan("classic_year", 32768, 1000, 1, torch.float32, cuda)
+            _year.cluster_plan("classic_year", 32768, 1000, 1, torch.float64, cuda)
     st = ebt.SpaceTime.sin(16384, 262144, 1)
     carry = ebt.Collection({k: torch.zeros((64, st.nx), device=cuda) for k in CARRY_KEYS})
     with pytest.raises(ValueError, match="raw-collected year stores"):
